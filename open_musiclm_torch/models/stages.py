@@ -1,0 +1,113 @@
+"""Stage definitions (port of open_musiclm_tpu/models/stages.py).
+
+The three stage factories, and ``Stage``: a TokenConditionedTransformer
+with its serving mode. The port runs the int8 serving path
+(``quantized=True`` with ``flash_kv`` "int8" or "bf16"); the fp decode path
+and per-row / meshed serving are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Sequence
+
+import torch
+
+from ..core.sequence import TokenSequenceSpec
+from .token_cond import TokenConditionedTransformer
+
+
+def create_semantic_transformer(
+    dim: int = 1024, depth: int = 6, clap_codebook_size: int = 1024,
+    semantic_codebook_size: int = 1024, num_clap_quantizers: int = 12, **kwargs,
+) -> TokenConditionedTransformer:
+    specs = (
+        TokenSequenceSpec(clap_codebook_size, num_clap_quantizers, False),
+        TokenSequenceSpec(semantic_codebook_size, 1, False),
+    )
+    return TokenConditionedTransformer(specs=specs, dim=dim, depth=depth, **kwargs)
+
+
+def create_coarse_transformer(
+    dim: int = 1024, depth: int = 6, clap_codebook_size: int = 1024,
+    semantic_codebook_size: int = 1024, acoustic_codebook_size: int = 1024,
+    num_clap_quantizers: int = 12, num_coarse_quantizers: int = 3, **kwargs,
+) -> TokenConditionedTransformer:
+    specs = (
+        TokenSequenceSpec(clap_codebook_size, num_clap_quantizers, False),
+        TokenSequenceSpec(semantic_codebook_size, 1, False),
+        TokenSequenceSpec(acoustic_codebook_size, num_coarse_quantizers, False),
+    )
+    return TokenConditionedTransformer(specs=specs, dim=dim, depth=depth, **kwargs)
+
+
+def create_fine_transformer(
+    dim: int = 1024, depth: int = 6, clap_codebook_size: int = 1024,
+    acoustic_codebook_size: int = 1024, num_clap_quantizers: int = 12,
+    num_coarse_quantizers: int = 3, num_fine_quantizers: int = 5, **kwargs,
+) -> TokenConditionedTransformer:
+    specs = (
+        TokenSequenceSpec(clap_codebook_size, num_clap_quantizers, False),
+        TokenSequenceSpec(acoustic_codebook_size, num_coarse_quantizers, False),
+        TokenSequenceSpec(acoustic_codebook_size, num_fine_quantizers, False),
+    )
+    return TokenConditionedTransformer(specs=specs, dim=dim, depth=depth, **kwargs)
+
+
+@dataclasses.dataclass
+class Stage:
+    """A stage model and its serving mode. ``quantized=True`` selects the int8
+    serving decode (models/quant_decode.py); ``flash_kv`` picks the resident
+    cache-row dtype of its flash-decode attention."""
+
+    model: TokenConditionedTransformer
+    name: str = "stage"
+    quantized: bool = False
+    flash_kv: Optional[str] = None
+
+    def __post_init__(self):
+        self._qparams: Optional[Any] = None
+
+    def qparams(self):
+        if self._qparams is None:
+            from .quant_decode import quantize_stage_params
+
+            self._qparams = quantize_stage_params(self.model)
+        return self._qparams
+
+    def generate(
+        self,
+        conditioning_token_ids: Sequence[torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        *,
+        max_time_steps: int,
+        init_pred_ids: Optional[torch.Tensor] = None,
+        filter_thres: float = 0.9,
+        temperature: float = 1.0,
+        allow_eos_in_output: bool = False,
+        include_eos_in_output: bool = False,
+        teacher_forced_ids: Optional[torch.Tensor] = None,
+        return_logits: bool = False,
+    ):
+        if self.flash_kv and not self.quantized:
+            # the flash-KV cache lives in the quantized decode; ignoring it
+            # would silently run another path than the one asked for
+            raise ValueError(
+                f"flash_kv={self.flash_kv!r} requires quantized=True: the flash "
+                "decode kernel is part of the int8 serving decode."
+            )
+        if not self.quantized or self.flash_kv is None:
+            raise NotImplementedError(
+                "the port runs the int8 serving decode only "
+                "(quantized=True, flash_kv='int8' or 'bf16')"
+            )
+        from .quant_decode import generate_quantized
+
+        return generate_quantized(
+            self.model, self.qparams(), list(conditioning_token_ids), generator,
+            max_time_steps=int(max_time_steps), init_pred_ids=init_pred_ids,
+            filter_thres=filter_thres, temperature=temperature,
+            allow_eos_in_output=allow_eos_in_output,
+            include_eos_in_output=include_eos_in_output, flash_kv=self.flash_kv,
+            teacher_ids=teacher_forced_ids, return_logits=return_logits,
+        )

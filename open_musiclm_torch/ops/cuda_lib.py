@@ -1,0 +1,135 @@
+"""Build and bind the hand-written Hopper kernels in ``csrc/``.
+
+All ``csrc/*.cu`` files compile with one ``nvcc`` call into a single shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), loaded with ``ctypes``. The build runs at first use, never at
+import, into ``build/open_musiclm_torch/`` at the repository root, keyed by
+a hash of the sources and flags: an edited kernel rebuilds, an unchanged
+one is reused.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*``,
+launches on that stream without synchronising, and returns
+``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "open_musiclm_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# name -> argtypes; every entry point returns the cudaError_t as int
+_SIGNATURES = {
+    # x, w, scale, out, B, K, N, dtype, stream
+    "omt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, dtype, kv_int8, stream
+    "omt_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, bias, key_mask, out, b, heads, n, m, causal, non_causal_prefix, scale, dtype, stream
+    "omt_prefill_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # x, gin, wv, sv, wg, sg, conv_v, conv_g, state, g_out, new_state, B, dim, inner, dtype, stream
+    "omt_fused_ff_in": (_P,) * 11 + (_I, _I, _I, _I, _P),
+    # g, gmid, wo, so, x, y, B, inner, dim, dtype, stream
+    "omt_fused_ff_out": (_P,) * 6 + (_I, _I, _I, _I, _P),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def library_path() -> Path:
+    srcs = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libomt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless this exact source set was built already.
+    The compiler's output (ptxas register and spill report) is kept beside
+    the library as ``build.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        handle.omt_error_string.argtypes = [ctypes.c_int]
+        handle.omt_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().omt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """0 = float32, 1 = bfloat16: the activation types the kernels take."""
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernels take float32 or bfloat16 activations, got {dtype}")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """All tensors on one CUDA device and contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        require(t.is_cuda and t.device == dev, f"{name}: all tensors must be on {dev}")
+        require(t.is_contiguous(), f"{name}: tensors must be contiguous")
