@@ -4,16 +4,30 @@
     python3 chip_smoke.py          # from the repository root
 
 Phases, each of which fails the run:
-  1. build the hand-written kernels from open_musiclm_torch/csrc/ (nvcc);
-  2. hold each kernel against its plain PyTorch version at the serving
-     path's shapes, in float32 and bfloat16, and time both;
+  1. build the hand-written kernels from open_musiclm_torch/csrc/ (one nvcc
+     process per source, all started together);
+  2. hold each kernel against its plain PyTorch version, in float32 and
+     bfloat16, and time both: kernels 1-4 at the serving path's shapes,
+     kernels 5 and 6 (the attention backward) at the three training shapes;
+     time one PyTorch library call computing the same function where there
+     is one (scaled_dot_product_attention), and compute each kernel's bound
+     (the least time the card could take: bytes over the memory rate or
+     FLOPs over the peak rate, whichever is larger);
   3. hold the int8 serving decode with kernels (CUDA) against the same decode
      on the CPU through the plain versions: per-step teacher-forced logits of
      the full-width semantic stage in float32, both cache modes;
-  4. drive MusicLM.generate on musiclm_small at full width (random weights
-     from a seed, bf16, quantized=True, flash_kv="int8"), at batch 8 x 4 s
-     and batch 2 x 12 s, checking waveform shapes, finiteness and that every
-     kernel of the path launched.
+  4. the serving path: MusicLM.generate on musiclm_small at full width
+     (random weights from a seed, bf16, quantized=True, flash_kv="int8"), at
+     batch 8 x 4 s and batch 2 x 12 s, checking waveform shapes, finiteness
+     and that kernels 1-4 launched;
+  5. the training path: the full-width coarse stage's loss and every
+     parameter gradient on the card (kernels 1, 5, 6) against the plain path
+     on the CPU in float32 (and float64, for scale); then a token store written from a seed, read by
+     PreprocessedDataset -> batch_iterator -> accumulate_token_batches into
+     StageTrainer.train with the coarse trainer config of
+     configs/training/train_musiclm_fma.json (batch 2 x accum 8, bf16 compute
+     on float32 master weights, dropout 0.1, forgetful mask 0.15): 3 steps,
+     one eval step, a checkpoint round trip, and kernels 1, 5, 6 launched.
 
 Prints the card, the kernels' JSON summary, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
@@ -23,9 +37,13 @@ from __future__ import annotations
 
 import copy
 import json
+import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 PACKAGE = "open_musiclm_torch"
@@ -37,6 +55,12 @@ ROOT = Path(__file__).resolve().parent
 # the bound allows twice that. float32: both sides accumulate in float32 in
 # another order over up to 2730 terms (~sqrt(K) * 6e-8 of the term sum).
 TOL_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+
+# NVIDIA's H100 SXM data sheet (dense, at the 700 W limit): memory rate and
+# peak rates by operand type (bf16 on the tensor cores, float32 on the CUDA
+# cores). A kernel's bound is the larger of bytes / rate and FLOPs / peak.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -53,6 +77,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(n_bytes: float, flops: float, dtype: str):
+    """(least ms, what bounds it) for moving n_bytes and doing flops."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def allowed_pairs(b: int, n: int, m: int, key_mask) -> int:
+    """(batch, query, key) triples the causal and key masks let through: the
+    score entries an attention kernel must compute for these inputs."""
+    import torch
+
+    allowed = torch.arange(m)[None, :] <= torch.arange(n)[:, None] + (m - n)
+    if key_mask is None:
+        return b * int(allowed.sum())
+    return int((allowed[None] & key_mask.cpu()[:, None, :]).sum())
+
+
 def main() -> int:
     import torch
 
@@ -67,6 +113,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
+
+    import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -105,19 +153,9 @@ def main() -> int:
 
     results = {}
 
-    def check(name, label, dtype, kernel_fn, plain_fn, inputs, keep_f32=()):
-        """kernel_fn on the inputs in ``dtype`` (int8 inputs and those named in
-        keep_f32 stay as they are) against plain_fn on float32 copies of
-        those same values; both sides are then timed on the ``dtype`` inputs."""
-        low = {k: v.to(dtype) if v.is_floating_point() and k not in keep_f32 else v
-               for k, v in inputs.items()}
-        ref_in = {k: v.float() if v.is_floating_point() else v for k, v in low.items()}
-        got = kernel_fn(**low)
-        want = plain_fn(**ref_in)
-        torch.cuda.synchronize()
+    def compare(name, label, dtype, got, want):
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        rel = TOL_REL[str(dtype).removeprefix("torch.")]
         err, ref_max = 0.0, 0.0
         for a, b in zip(got, want):
             a, b = a.float(), b.float()
@@ -125,20 +163,84 @@ def main() -> int:
                 fail(f"{name} {label} {dtype}: non-finite output")
             err = max(err, (a - b).abs().max().item())
             ref_max = max(ref_max, b.abs().max().item())
-        tol = rel * max(1.0, ref_max)
-        ms = time_ms(lambda: kernel_fn(**low))
-        plain_ms = time_ms(lambda: plain_fn(**low))
+        tol = TOL_REL[str(dtype).removeprefix("torch.")] * max(1.0, ref_max)
+        return err, ref_max, tol
+
+    def report(name, label, dtype, err, ref_max, tol, ms, plain_ms, summary=None):
+        """Print one case; ``summary`` (bytes, flops, library ms or None) marks
+        the case whose numbers go into the kernels' JSON line."""
         ok = err <= tol
-        print(f"  {name:18s} {label:26s} {str(dtype):14s} max_abs_err {err:.3e} "
+        print(f"  {name:26s} {label:30s} {str(dtype):14s} max_abs_err {err:.3e} "
               f"max|ref| {ref_max:.3e} rel_err {err / max(ref_max, 1e-30):.3e} tol {tol:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name} {label} {dtype}: max abs err {err} > {tol}")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if dtype == torch.bfloat16 and "ms" not in r:  # the serving dtype at the first shape
-            r["ms"], r["plain_ms"] = ms, plain_ms
+        if summary is not None:
+            n_bytes, flops, library_ms = summary
+            b_ms, b_by = bound_ms(n_bytes, flops, str(dtype).removeprefix("torch."))
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+            lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+            print(f"    -> summary case {label} {dtype}: {n_bytes / 1e6:.2f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP, bound {b_ms * 1e3:.2f} us ({b_by}), "
+                  f"kernel/bound {ms / b_ms:.1f}x, library {lib_txt} [{card}]", flush=True)
+
+    def check(name, label, dtype, kernel_fn, plain_fn, inputs, keep_f32=(), summary=None):
+        """kernel_fn on the inputs in ``dtype`` (int8 inputs and those named in
+        keep_f32 stay as they are) against plain_fn on float32 copies of
+        those same values; both sides are then timed on the ``dtype`` inputs.
+        ``summary(low_inputs, output)`` -> (bytes, flops, library ms or None)
+        marks the JSON case."""
+        low = {k: v.to(dtype) if v.is_floating_point() and k not in keep_f32 else v
+               for k, v in inputs.items()}
+        ref_in = {k: v.float() if v.is_floating_point() else v for k, v in low.items()}
+        got = kernel_fn(**low)
+        want = plain_fn(**ref_in)
+        torch.cuda.synchronize()
+        err, ref_max, tol = compare(name, label, dtype, got, want)
+        ms = time_ms(lambda: kernel_fn(**low))
+        plain_ms = time_ms(lambda: plain_fn(**low))
+        report(name, label, dtype, err, ref_max, tol, ms, plain_ms,
+               summary(low, got) if summary is not None else None)
+
+    def sdpa_backend(fn):
+        """The first SDPA backend that takes these inputs, to time it under."""
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                   SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with warnings.catch_warnings(), sdpa_kernel([be]):
+                    warnings.simplefilter("ignore")
+                    fn()
+                torch.cuda.synchronize()
+                return be
+            except RuntimeError:
+                continue
+        fail("no scaled_dot_product_attention backend takes these inputs")
+
+    def library_time(label, fn, backend=None):
+        """ms of ``fn`` (one scaled_dot_product_attention call) under
+        ``backend``, by default the first that takes the inputs; the port
+        never calls it. Returns (ms, backend)."""
+        from torch.nn.attention import sdpa_kernel
+
+        be = backend or sdpa_backend(fn)
+        with sdpa_kernel([be]):
+            ms = time_ms(fn)
+        print(f"    library: {label}: {ms:.4f} ms on SDPA backend {be.name}", flush=True)
+        return ms, be
+
+    def causal_float_mask(bias, key_mask, n, m, dtype):
+        """bias [h, n, m] plus -1e9 where the causal or key mask hides a key,
+        as SDPA's float attn_mask [b or 1, h, n, m]."""
+        i = torch.arange(n, device=dev)[:, None]
+        j = torch.arange(m, device=dev)[None, :]
+        hidden = ~(j <= i + (m - n))[None, None]
+        if key_mask is not None:
+            hidden = hidden | ~key_mask[:, None, None, :]
+        return bias.float()[None].masked_fill(hidden, -1e9).to(dtype)
 
     print("kernels vs plain versions:", flush=True)
     H, D, DIM, INNER, C = 8, 64, 1024, 2730, 1025
@@ -148,11 +250,20 @@ def main() -> int:
         ins = dict(q=attention.l2norm(rand(b, H, n, D)), k=attention.l2norm(rand(b, n, D)),
                    v=rand(b, n, D), attn_bias=rand(H, n, n))
         for dt in (torch.bfloat16, torch.float32):
+            def summary(low, out, b=b, n=n):
+                mask = causal_float_mask(low["attn_bias"], None, n, n, low["q"].dtype)
+                kx, vx = (low[t][:, None].expand(b, H, n, D) for t in ("k", "v"))
+                lib = library_time(f"SDPA forward b{b} n{n}", lambda: F.scaled_dot_product_attention(
+                    low["q"], kx, vx, attn_mask=mask, scale=8.0))[0]
+                pairs = H * allowed_pairs(b, n, n, None)
+                return (nbytes(low["q"], low["k"], low["v"], out) + low["attn_bias"].numel() * 4,
+                        4 * D * pairs, lib)
+
             check("prefill_attention", f"b{b} n{n}", dt,
                   lambda q, k, v, attn_bias: attention.shared_kv_attention_fused(q, k, v, attn_bias),
                   lambda q, k, v, attn_bias: attention.shared_kv_attention(
                       q, k, v, attn_bias=attn_bias, causal=True),
-                  ins)
+                  ins, summary=summary if (b, n, dt) == (8, 216, torch.bfloat16) else None)
     # 2. flash decode: the coarse / fine cache (N 1280) at b 8, pos in the
     #    first and in the last 256-row chunk, int8 and activation-dtype rows
     b, N = 8, 1280
@@ -165,13 +276,30 @@ def main() -> int:
         for pos in (100, N - 1):
             ins = dict(q_t=attention.l2norm(rand(b, H, D)), kv_cache=kv, bias_row=rand(N, H),
                        add_mask=torch.zeros(b, N, device=dev))
+
+            def summary(low, out, pos=pos):
+                rows = pos + 1  # the kernel reads cache rows <= pos only
+                q4 = low["q_t"][:, :, None]
+                kx = low["kv_cache"][:, None, :, :D].expand(b, H, N, D)
+                vx = low["kv_cache"][:, None, :, D:].expand(b, H, N, D)
+                j = torch.arange(N, device=dev)
+                mask = (low["bias_row"].t()[None, :, None, :] + low["add_mask"][:, None, None, :])
+                mask = mask.masked_fill(j > pos, -1e9).to(q4.dtype)
+                lib = library_time(f"SDPA one query b{b} N{N} pos{pos}",
+                                   lambda: F.scaled_dot_product_attention(q4, kx, vx, attn_mask=mask, scale=8.0))[0]
+                row_bytes = low["kv_cache"].element_size() * 2 * D
+                moved = (nbytes(low["q_t"], out) + b * rows * row_bytes
+                         + rows * H * low["bias_row"].element_size() + b * rows * 4)
+                return moved, 4 * b * H * D * rows, lib
+
             for dt in (torch.bfloat16, torch.float32):
                 check("flash_decode_step", f"{mode} b{b} N{N} pos{pos}", dt,
                       lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
                           decode_attention.flash_decode_step(q_t, kv_cache, pos, bias_row, add_mask, sc),
                       lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
                           decode_attention.flash_decode_step_plain(q_t, kv_cache, pos, bias_row, add_mask, sc),
-                      ins, keep_f32=("bias_row", "add_mask"))
+                      ins, keep_f32=("bias_row", "add_mask"),
+                      summary=summary if (mode, pos, dt) == ("bf16", N - 1, torch.bfloat16) else None)
     # 3. fused FF: the fine stage's rows at batch 8 (2 windows x 8), and batch 8
     from open_musiclm_torch.models.transformer import ConvFeedForward
 
@@ -182,19 +310,65 @@ def main() -> int:
     packed = {k: v.to(dev) for k, v in fused_ff.pack_ff_weights(ff).items()}
     for b in (16, 8):
         ins = dict(x=rand(b, DIM), state=rand(b, 2, 2 * INNER))
+
+        def summary(low, out, b=b):
+            # no single PyTorch call computes LN -> int8 projections -> conv -> GEGLU -> LN
+            return (nbytes(low["x"], low["state"], *packed.values(), *out),
+                    2 * b * (DIM * 2 * INNER + INNER * DIM), None)
+
         for dt in (torch.bfloat16, torch.float32):
             check("fused_ff_apply", f"b{b} dim{DIM} inner{INNER}", dt,
                   lambda x, state: fused_ff.fused_ff_apply(x, packed, state),
-                  lambda x, state: fused_ff.fused_ff_apply_plain(x, packed, state), ins)
+                  lambda x, state: fused_ff.fused_ff_apply_plain(x, packed, state), ins,
+                  summary=summary if (b, dt) == (8, torch.bfloat16) else None)
     # 4. int8 matmul: the 1025-way logit head at b 8 and the fine rows b 16
     wq, s = quant.quantize_weight(torch.randn(DIM, C, generator=g))
     wq, s = wq.to(dev), s.to(dev)
     for b in (8, 16):
         ins = dict(x=rand(b, DIM))
+
+        def summary(low, out, b=b):
+            # no PyTorch call multiplies activations by int8 weights with column scales
+            return nbytes(low["x"], wq, s, out), 2 * b * DIM * C, None
+
         for dt in (torch.bfloat16, torch.float32):
             check("int8_matmul", f"b{b} {DIM}x{C}", dt,
                   lambda x: quant.int8_matmul(x, wq, s),
-                  lambda x: quant.int8_matmul_plain(x, wq, s), ins)
+                  lambda x: quant.int8_matmul_plain(x, wq, s), ins,
+                  summary=summary if (b, dt) == (8, torch.bfloat16) else None)
+    # 5 and 6. the attention backward at the training shapes (semantic b4
+    # n514, coarse b2 n1116, fine b2 n1217), bias and a key mask hiding 15 %
+    # of the keys (the forgetful mask's share; key 0 always kept)
+    for stage_name, b, n in (("semantic", 4, 514), ("coarse", 2, 1116), ("fine", 2, 1217)):
+        q32, k32 = attention.l2norm(rand(b, H, n, D)) * 1.5, attention.l2norm(rand(b, n, D)) * 1.5
+        v32, dout32, bias = rand(b, n, D), rand(b, n, H * D), rand(H, n, n)
+        key_mask = (torch.rand(b, n, generator=g) > 0.15).to(dev)
+        key_mask[:, 0] = True
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, dout = (t.to(dt) for t in (q32, k32, v32, dout32))
+            out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
+            args = (q, k, v, bias, key_mask, out, stats, dout)
+            want = attention.shared_kv_attention_bwd_plain(
+                q.float(), k.float(), v.float(), dout.float(), attn_bias=bias, key_mask=key_mask)
+            got5 = attention.shared_kv_attention_bwd(*args)
+            got6 = attention.shared_kv_attention_dbias(*args)
+            torch.cuda.synchronize()
+            ms5 = time_ms(lambda: attention.shared_kv_attention_bwd(*args))
+            ms6 = time_ms(lambda: attention.shared_kv_attention_dbias(*args))
+            plain_ms = time_ms(lambda: attention.shared_kv_attention_bwd_plain(
+                q, k, v, dout, attn_bias=bias, key_mask=key_mask), reps=5)
+            label = f"{stage_name} b{b} n{n} mask"
+            sums = (None, None)
+            if (stage_name, dt) == ("coarse", torch.bfloat16):
+                sums = backward_summaries(torch, F, dev, args, key_mask, library_time,
+                                          causal_float_mask, time_ms)
+            report("attention_bwd", label, dt, *compare("attention_bwd", label, dt, got5, want[:3]),
+                   ms5, plain_ms, sums[0])
+            report("attention_dbias", label, dt, *compare("attention_dbias", label, dt, got6, want[3]),
+                   ms6, plain_ms, sums[1])
+            del out, stats, args, want, got5, got6
+    print("  (plain ms of attention_bwd / attention_dbias: one plain backward computing "
+          "dq, dk, dv and dbias together)")
 
     # ---- 3. the serving decode with kernels vs the plain path on the CPU ----
     # float32, 24 teacher-forced steps of the full-width semantic stage. With
@@ -203,7 +377,7 @@ def main() -> int:
     # one cache element by a quantization step (1/127 of its row's absmax),
     # so that mode is held to 1e-2 of the largest logit instead of 1e-4.
     mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
-    stage = omt_config.init_stage(mc, "semantic", 11, quantized=True)
+    stage = omt_config.init_stage(mc, "semantic", 11, device="cpu", quantized=True)
     cond = torch.randint(0, 1024, (2, 12), generator=g)
     teacher = torch.randint(0, 1024, (2, 24, 1), generator=g)
     qp_cpu = stage.qparams()
@@ -224,14 +398,14 @@ def main() -> int:
             fail(f"serving decode logits ({mode} cache) differ: {err} > {tol}")
     del model_gpu, qp_gpu, stage
 
-    # ---- 4. the main path: MusicLM.generate at full width ----
+    # ---- 4. the serving path: MusicLM.generate at full width ----
     bf16 = torch.bfloat16
     stages = {
         f"{name}_stage": omt_config.init_stage(
             mc, name, seed, device=dev, dtype=bf16, quantized=True, flash_kv="int8")
         for name, seed in (("semantic", 1), ("coarse", 2), ("fine", 3))
     }
-    codec = omt_config.build_encodec(mc, generator=torch.Generator().manual_seed(4)).to(dev, bf16)
+    codec = omt_config.build_encodec(mc, generator=torch.Generator().manual_seed(4), device=dev).to(bf16)
     codec.decoder.lstm.float()  # the LSTM stem recurs in float32 (see models/encodec.py)
     musiclm = MusicLM(codec=codec, **stages)
     kernels = [
@@ -242,8 +416,13 @@ def main() -> int:
         ("fused_ff_apply", fused_ff.fused_ff_apply, "fused_ff.cu",
          "open_musiclm_tpu/ops/fused_ff.py:204"),
         ("int8_matmul", quant.int8_matmul, "int8_matmul.cu", "open_musiclm_tpu/ops/quant.py:80"),
+        ("attention_bwd", attention.shared_kv_attention_bwd, "attention_bwd.cu",
+         "open_musiclm_tpu/ops/pallas_attention.py:420"),
+        ("attention_dbias", attention.shared_kv_attention_dbias, "attention_bwd.cu",
+         "open_musiclm_tpu/ops/pallas_attention.py:475"),
     ]
-    for _, fn, _, _ in kernels:
+    serving_kernels = kernels[:4]
+    for _, fn, _, _ in serving_kernels:
         fn.launches = 0
     gen = torch.Generator(device=dev).manual_seed(0)
     n_clap = mc.clap_rvq_cfg.rq_num_quantizers
@@ -267,11 +446,18 @@ def main() -> int:
             fail(f"waveform shape {tuple(wave.shape)} != {want_shape}")
         if not torch.isfinite(wave.float()).all():
             fail("waveform has non-finite samples")
-    launches = {name: fn.launches for name, fn, _, _ in kernels}
-    print(f"main-path launches: {launches}")
+    launches = {name: fn.launches for name, fn, _, _ in serving_kernels}
+    print(f"serving-path launches: {launches}")
     for name, n in launches.items():
         if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on the serving path")
+    del musiclm, stages, codec
+    torch.cuda.empty_cache()
+
+    # ---- 5. the training path ----
+    train_launches = training_phase(torch, omt_config, mc, dev, card, g, attention)
+    launches.update(attention_bwd=train_launches["attention_bwd"],
+                    attention_dbias=train_launches["attention_dbias"])
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
@@ -283,6 +469,267 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
+
+
+def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float_mask, time_ms):
+    """(bytes, FLOPs, library ms) of kernels 5 and 6 on these inputs. The
+    library call is scaled_dot_product_attention with K/V expanded to the 8
+    heads and the bias plus masks as a float attn_mask: its backward (fwd +
+    bwd less fwd) with the mask not requiring grad computes kernel 5's dq,
+    dk, dv; with the mask requiring grad it also computes kernel 6's dbias
+    (summed over the batch afterwards, outside the timing)."""
+    q, k, v, bias, _, out, stats, dout = args
+    b, h, n, d = q.shape
+    pairs = h * allowed_pairs(b, n, n, key_mask)
+    inputs = nbytes(q, k, v, key_mask, out, stats, dout) + bias.numel() * 4
+    grad_out = dout.reshape(b, n, h, d).transpose(1, 2)
+    kx = k[:, None].expand(b, h, n, d).contiguous()
+    vx = v[:, None].expand(b, h, n, d).contiguous()
+    mask = causal_float_mask(bias, key_mask, n, n, q.dtype)
+    libs = []
+    for mask_grad in (False, True):
+        leaves = [q.detach().requires_grad_(), kx.requires_grad_(), vx.requires_grad_()]
+        m = mask.clone().requires_grad_(mask_grad)
+        wrt = leaves + ([m] if mask_grad else [])
+
+        def fwd():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=m, scale=8.0)
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), wrt, grad_out)
+
+        tag = "with the mask's gradient" if mask_grad else "dq, dk, dv"
+        t_fb, be = library_time(f"SDPA forward + backward ({tag}) b{b} n{n}", fwd_bwd)
+        t_f, _ = library_time(f"SDPA forward b{b} n{n}", fwd, be)
+        libs.append(t_fb - t_f)
+    sum5 = (inputs + nbytes(q, k, v), 10 * d * pairs, libs[0])
+    sum6 = (inputs + h * n * n * 4, 4 * d * pairs, libs[1])
+    return sum5, sum6
+
+
+def write_token_store(folder, mc, n_tracks: int, seconds: int, seed: int):
+    """A preprocessed token store for ``n_tracks`` tracks of ``seconds`` s:
+    CLAP tokens per 10 s window, semantic and acoustic tokens at the
+    config's rates, random codes from ``seed``."""
+    import numpy as np
+
+    from open_musiclm_torch.data.tokenstore import writer_for_rank
+
+    rng = np.random.RandomState(seed)
+    g = mc.global_cfg
+    sem_hz, ac_hz = mc.hubert_kmeans_cfg.output_hz, mc.encodec_cfg.output_hz
+    win = int(g.semantic_audio_length_seconds)
+    store = writer_for_rank(str(folder), 0, 1)
+    for i in range(n_tracks):
+        clap = rng.randint(0, mc.clap_rvq_cfg.codebook_size,
+                           (seconds - win + 1, mc.clap_rvq_cfg.rq_num_quantizers, 1))
+        sem = rng.randint(0, mc.hubert_kmeans_cfg.codebook_size, (1, seconds * sem_hz - 1))
+        coarse = rng.randint(0, mc.encodec_cfg.codebook_size, (1, seconds * ac_hz, g.num_coarse_quantizers))
+        fine = rng.randint(0, mc.encodec_cfg.codebook_size, (1, seconds * ac_hz, g.num_fine_quantizers))
+        store.put(i, f"track{i}.wav", clap, sem, coarse, fine)
+    store.close()
+
+
+def profile_step(torch, trainer, state, batch, gen, card):
+    """One more train step under torch.profiler: device busy time by kernel
+    group and the device's idle share of the (profiled) step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {
+        "kernel 1 (prefill_attention)": ("prefill_attention_kernel",),
+        "kernels 5, 6 (attention bwd)": ("dq_kernel", "dkdv_kernel", "dbias_kernel",
+                                          "delta_kernel", "sum_heads_kernel"),
+        "matmuls (cuBLAS)": ("gemm", "Kernel2", "nvjet", "cutlass", "xmma"),
+    }
+    by_group, n_kernels, rows = {}, 0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        n_kernels += e.count
+        rows.append((us, e.count, e.key))
+        group = next((g for g, keys in groups.items() if any(k in e.key for k in keys)), "other")
+        by_group[group] = by_group.get(group, 0.0) + us
+    busy_ms = sum(by_group.values()) / 1e3
+    print(f"profiled train step: {wall_ms:.1f} ms wall under the profiler, device busy "
+          f"{busy_ms:.1f} ms (idle share {100 * (1 - busy_ms / wall_ms):.1f} %), "
+          f"{n_kernels} kernel launches [{card}]")
+    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"    {group:32s} {us / 1e3:9.2f} ms  {100 * us / 1e3 / busy_ms:5.1f} % of busy")
+    for us, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"    {us / 1e3:9.2f} ms {count:6d}x  {key[:110]}")
+
+
+def training_phase(torch, omt_config, mc, dev, card, g, attention):
+    """Phase 5. Returns the launches of kernels 1, 5 and 6 during the
+    StageTrainer.train run."""
+    from open_musiclm_torch.checkpoint import find_latest_checkpoint
+    from open_musiclm_torch.data.dataset import PreprocessedDataset, batch_iterator, train_valid_split
+    from open_musiclm_torch.data.pipeline import accumulate_token_batches
+    from open_musiclm_torch.models.token_cond import StageLossConfig, stage_training_loss
+    from open_musiclm_torch.train.flops import peak_flops, stage_train_flops
+    from open_musiclm_torch.train.trainer import StageTrainer
+
+    lens = omt_config.stage_example_lengths(mc, "coarse")
+
+    # 5a. full-width coarse gradients on the card vs the plain path on the CPU
+    # (float32, batch 2, no dropout or forgetful mask; pad and EOS in the
+    # conditioning), with the same plain path in float64 beside them. At
+    # full width the float32 plain path on the CPU is itself up to ~2e-4 of
+    # a tensor's largest gradient away from the float64 gradient (the rel-pos
+    # MLP and the embedding tables, whose gradients are sums of many
+    # cancelling terms; the table below prints it every run), so the card is
+    # held to 5e-4 of each tensor's largest gradient. The rel-pos MLP's output bias shifts a whole row of scores,
+    # which the softmax ignores: its true gradient is 0, and both sides hold
+    # rounding noise, held to 5e-4 of the output weight's gradient instead.
+    t0 = time.perf_counter()
+    cpu_model = omt_config.init_stage(mc, "coarse", 21, device="cpu").model
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    f64_model = copy.deepcopy(cpu_model).double()
+    ids = [torch.randint(0, s.codebook_size, (2, n), generator=g) for s, n in zip(cpu_model.specs, lens)]
+    ids[0][0, -1], ids[0][1, 4] = -1, cpu_model.specs[0].eos_id
+    ids[1][1, -3:], ids[1][0, 7] = -1, cpu_model.specs[1].eos_id
+    cfg = StageLossConfig((0.5, 0.5, 1.0), mask_prob=0.0)
+
+    def loss_and_grads(model, device):
+        loss, _ = stage_training_loss(model, [t.to(device) for t in ids], cfg, train=True)
+        loss.backward()
+        return loss.item(), {name: p.grad.double().cpu() for name, p in model.named_parameters()}
+
+    counts = (attention.shared_kv_attention_bwd.launches, attention.shared_kv_attention_dbias.launches)
+    gpu_loss, gpu_grads = loss_and_grads(gpu_model, dev)
+    if (attention.shared_kv_attention_bwd.launches - counts[0],
+            attention.shared_kv_attention_dbias.launches - counts[1]) != (6, 6):
+        fail("the card's backward did not run kernels 5 and 6 once per layer")
+    cpu_loss, cpu_grads = loss_and_grads(cpu_model, "cpu")
+    _, f64_grads = loss_and_grads(f64_model, "cpu")
+    shift = "transformer.rel_pos_bias.out_layer.bias"
+    rows = []
+    for name, want in cpu_grads.items():
+        scale = want.abs().max().item()
+        if name == shift:
+            scale = cpu_grads["transformer.rel_pos_bias.out_layer.weight"].abs().max().item()
+        errs = [(a - b).abs().max().item() / max(scale, 1e-30) for a, b in (
+            (gpu_grads[name], want), (gpu_grads[name], f64_grads[name]), (want, f64_grads[name]))]
+        rows.append((errs, name))
+    rows.sort(reverse=True)
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    print(f"training gradients, full-width coarse f32 b2 n{sum(lens) + 2 * len(lens) - 1}: loss card "
+          f"{gpu_loss:.6f} CPU {cpu_loss:.6f} (rel {loss_rel:.2e}); {len(rows)} gradient tensors, "
+          f"{time.perf_counter() - t0:.1f} s; max abs err / max|grad| of the worst six "
+          "(card vs CPU f32, card vs CPU f64, CPU f32 vs CPU f64):", flush=True)
+    for errs, name in rows[:6]:
+        print(f"    {name:48s} {errs[0]:.2e} {errs[1]:.2e} {errs[2]:.2e}")
+    if rows[0][0][0] > 5e-4:
+        fail(f"gradient {rows[0][1]}: card vs CPU {rows[0][0][0]:.2e} x max|grad| > 5e-4")
+    if not loss_rel <= 1e-4:
+        fail(f"training loss card {gpu_loss} vs CPU {cpu_loss}")
+    del cpu_model, gpu_model, f64_model, cpu_grads, gpu_grads, f64_grads
+    torch.cuda.empty_cache()
+
+    # 5b. StageTrainer.train on a token store, the coarse trainer config
+    tcfg = omt_config.load_training_config(
+        str(ROOT / "configs" / "training" / "train_musiclm_fma.json")).coarse_trainer_cfg
+    gcfg = mc.global_cfg
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        store_dir, results = Path(tmp) / "tokens", Path(tmp) / "results"
+        write_token_store(store_dir, mc, n_tracks=8, seconds=12, seed=7)
+        ds = PreprocessedDataset(
+            folder=str(store_dir), stage="coarse",
+            semantic_window_seconds=int(gcfg.semantic_audio_length_seconds),
+            coarse_window_seconds=int(gcfg.coarse_audio_length_seconds),
+            fine_window_seconds=int(gcfg.fine_audio_length_seconds),
+            semantic_steps_per_second=mc.hubert_kmeans_cfg.output_hz,
+            acoustic_steps_per_second=mc.encodec_cfg.output_hz,
+        )
+        tr_idx, va_idx = train_valid_split(len(ds), tcfg.valid_frac)
+        batches = batch_iterator(ds, tcfg.batch_size, indices=tr_idx, num_workers=4)
+        valid_iter = batch_iterator(ds, tcfg.batch_size, indices=va_idx or tr_idx[:1], num_workers=1)
+        train_iter = accumulate_token_batches(batches, tcfg.grad_accum_every)
+        model = omt_config.init_stage(mc, "coarse", 5, device=dev, compute_dtype=torch.bfloat16).model
+        hp = dict(loss_cfg=StageLossConfig(tuple(tcfg.cross_entropy_loss_weights)),
+                  lr=tcfg.lr, wd=tcfg.wd, lr_warmup=tcfg.lr_warmup,
+                  max_grad_norm=tcfg.max_grad_norm, grad_accum_every=tcfg.grad_accum_every,
+                  results_folder=str(results), save_model_every=tcfg.save_model_every,
+                  save_results_every=tcfg.save_results_every, stage_name="coarse")
+        trainer = StageTrainer(model=model, **hp)
+        state = trainer.init_state()
+        before = {name: p.detach().clone() for name, p in model.named_parameters()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        steps = 3
+        train_kernels = {"prefill_attention": attention.shared_kv_attention_fused,
+                         "attention_bwd": attention.shared_kv_attention_bwd,
+                         "attention_dbias": attention.shared_kv_attention_dbias}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in train_kernels.values():
+            fn.launches = 0
+        state = trainer.train(state, train_iter, num_steps=steps, generator=gen, valid_iter=valid_iter)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in train_kernels.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        profile_step(torch, trainer, state, next(train_iter), gen, card)
+        batches.close()
+        valid_iter.close()
+
+        recs = [json.loads(line) for line in (results / "coarse.log.jsonl").read_text().splitlines()]
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        step_s = [r["step_time_s"] for r in recs if "step_time_s" in r]
+        valid = [r for r in recs if "valid_loss" in r]
+        print(f"StageTrainer.train coarse (b{tcfg.batch_size} x accum {tcfg.grad_accum_every}, bf16 "
+              f"compute, dropout 0.1, forgetful mask 0.15): losses {losses}, step s {step_s}, "
+              f"valid {[(r['valid_loss'], r['valid_accuracy']) for r in valid]}", flush=True)
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            fail(f"training losses {losses}")
+        if len(valid) != 1 or not math.isfinite(valid[0]["valid_loss"]):
+            fail(f"eval step results {valid}")
+        changed = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])]
+        max_delta = max((model.get_parameter(n).detach() - before[n]).abs().max().item() for n in before)
+        print(f"parameters changed: {len(changed)} of {len(before)} tensors, max |delta| {max_delta:.3e}")
+        if not changed:
+            fail("no parameter changed in training")
+        print(f"training-path launches ({steps} steps + 1 eval step): {launches}")
+        per_step = steps * tcfg.grad_accum_every * len(model.transformer.attns)
+        if launches["attention_bwd"] != per_step or launches["attention_dbias"] != per_step:
+            fail(f"kernels 5/6 launched {launches}, want {per_step} each")
+        if launches["prefill_attention"] < per_step:
+            fail(f"kernel 1 launched {launches['prefill_attention']} times, want >= {per_step}")
+
+        # checkpoint round trip into a differently seeded model
+        trainer.save(state, state.step)
+        path = find_latest_checkpoint(str(results), "coarse.transformer")
+        other = StageTrainer(model=omt_config.init_stage(
+            mc, "coarse", 6, device=dev, compute_dtype=torch.bfloat16).model, **hp)
+        restored = other.load(path)
+        same = (restored.step == state.step
+                and all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                          other.model.state_dict().values()))
+                and all(torch.equal(a, b) for a, b in zip(
+                    state.optimizer.mu + state.optimizer.nu,
+                    restored.optimizer.mu + restored.optimizer.nu)))
+        print(f"checkpoint round trip ({Path(path).name}, "
+              f"{Path(path).stat().st_size / 2**20:.0f} MiB): {'exact' if same else 'DIFFERS'}")
+        if not same:
+            fail("checkpoint round trip is not exact")
+
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    # a start token per sequence and an EOS after each conditioning sequence
+    stream = sum(lens) + 2 * len(lens) - 1
+    tokens = tcfg.batch_size * tcfg.grad_accum_every * stream
+    flops = stage_train_flops(model, lens, tcfg.batch_size, tcfg.grad_accum_every)
+    rate = flops / (step_ms / 1e3)
+    peak = peak_flops(torch.cuda.get_device_name(0))
+    print(f"training throughput, coarse b{tcfg.batch_size} x accum {tcfg.grad_accum_every} "
+          f"n{stream} bf16: {step_ms:.1f} ms/step (median of steps 2-{steps}), "
+          f"{tokens / (step_ms / 1e3):.0f} tokens/s, model {rate / 1e12:.2f} TFLOP/s "
+          f"({100 * rate / peak:.2f} % of the {peak / 1e12:.0f} TFLOP/s data-sheet bf16 peak), "
+          f"peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,15 +1,16 @@
 """Model config loader and factories (port of open_musiclm_tpu/config.py).
 
-The same dataclasses over the unchanged ``configs/model/*.json``; the
-factories build the port's modules with a seeded random init from a
-``torch.Generator``. Training configs, CLAP and HuBERT are not ported yet.
+The same dataclasses over the unchanged ``configs/model/*.json`` and
+``configs/training/*.json``; the factories build the port's modules with a
+seeded random init from a ``torch.Generator``, on the card unless the caller
+asks for the CPU (``device="cpu"``). CLAP and HuBERT are not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -104,6 +105,77 @@ class MusicLMModelConfig:
     global_cfg: GlobalConfig
 
 
+@dataclass
+class ClapRVQTrainerConfig:
+    folder: str
+    num_train_steps: int
+    batch_size: int
+    accumulate_batches: int
+    save_model_every: int
+    save_results_every: int
+
+
+@dataclass
+class HubertKmeansTrainerConfig:
+    folder: str
+    feature_extraction_num_steps: int
+    feature_extraction_batch_size: int
+
+
+@dataclass
+class SingleStageTrainerConfig:
+    stage: str
+    folder: str
+    valid_frac: float
+    lr: float
+    lr_warmup: int
+    batch_size: int
+    grad_accum_every: int
+    wd: float
+    max_grad_norm: float
+    cross_entropy_loss_weights: List[float]
+    num_train_steps: int
+    save_results_every: int
+    save_model_every: int
+    save_predicted_tokens: bool
+    save_reconstructed_wave: bool
+    use_preprocessed_data: bool
+
+
+@dataclass
+class DataPreprocessorConfig:
+    folder: str = "./data/fma_large"
+    metadata_folder: str = "./data/fma_metadata"
+    results_folder: str = "./fma_preprocessed"
+    max_audio_length_seconds: int = 30
+    random_crop: bool = True
+    num_crops: int = 1
+    clap_batch_size: int = 32
+
+
+@dataclass
+class MusicLMTrainingConfig:
+    clap_rvq_trainer_cfg: ClapRVQTrainerConfig
+    hubert_kmeans_trainer_cfg: HubertKmeansTrainerConfig
+    semantic_trainer_cfg: SingleStageTrainerConfig
+    coarse_trainer_cfg: SingleStageTrainerConfig
+    fine_trainer_cfg: SingleStageTrainerConfig
+    data_preprocessor_cfg: DataPreprocessorConfig
+
+
+def load_training_config(path: str) -> MusicLMTrainingConfig:
+    with open(path) as f:
+        cfg = json.load(f)
+    return MusicLMTrainingConfig(
+        clap_rvq_trainer_cfg=ClapRVQTrainerConfig(**cfg["clap_rvq_trainer_cfg"]),
+        hubert_kmeans_trainer_cfg=HubertKmeansTrainerConfig(**cfg["hubert_kmeans_trainer_cfg"]),
+        semantic_trainer_cfg=SingleStageTrainerConfig(**cfg["semantic_trainer_cfg"]),
+        coarse_trainer_cfg=SingleStageTrainerConfig(**cfg["coarse_trainer_cfg"]),
+        fine_trainer_cfg=SingleStageTrainerConfig(**cfg["fine_trainer_cfg"]),
+        data_preprocessor_cfg=DataPreprocessorConfig(**cfg["data_preprocessor_cfg"]),
+    )
+
+
 def load_model_config(path: str) -> MusicLMModelConfig:
     with open(path) as f:
         cfg = json.load(f)
@@ -119,11 +191,13 @@ def load_model_config(path: str) -> MusicLMModelConfig:
 
 
 def _stage_kwargs(c: StageTransformerConfig) -> dict:
-    """The config fields the port's inference modules take. Dropout is a
-    training-time setting; the conv FF, no absolute position embeddings
-    and the continuous rel-pos bias are the only ported variants."""
+    """The config fields the port's modules take. The conv FF, no absolute
+    position embeddings, the continuous rel-pos bias and no attention
+    dropout are the only ported variants."""
     if not c.use_conv_ff or c.use_absolute_position_embeddings:
         raise NotImplementedError("the port has the conv-FF stages without absolute positions")
+    if c.attn_dropout > 0:
+        raise NotImplementedError("attention dropout is not ported (attn_dropout must be 0)")
     return dict(
         dim=c.dim,
         depth=c.depth,
@@ -131,6 +205,7 @@ def _stage_kwargs(c: StageTransformerConfig) -> dict:
         grad_shrink_alpha=c.grad_shrink_alpha,
         non_causal_prefix_size=c.non_causal_prefix_size,
         relative_position_bias_type=c.relative_position_bias_type,
+        ff_dropout=c.ff_dropout,
     )
 
 
@@ -168,12 +243,27 @@ def build_fine_transformer(mc: MusicLMModelConfig, generator=None) -> TokenCondi
     )
 
 
-def build_encodec(mc: MusicLMModelConfig, generator=None) -> EncodecModel:
+def _target_device(device, caller: str) -> torch.device:
+    """The device an entry point builds on; asking for the card without one
+    is an error, never a quiet move to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller}: no CUDA card is available; the port runs on the card "
+            "unless the caller asks for the CPU (device='cpu')"
+        )
+    return device
+
+
+def build_encodec(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> EncodecModel:
+    """The Encodec codec (decoder and codebooks) with a seeded random init,
+    drawn in float32 on the CPU, then moved to ``device``."""
+    device = _target_device(device, "build_encodec")
     return create_encodec_24khz(
         bandwidth=mc.encodec_cfg.bandwidth,
         codebook_size=mc.encodec_cfg.codebook_size,
         generator=generator,
-    )
+    ).to(device)
 
 
 def init_stage(
@@ -181,13 +271,17 @@ def init_stage(
     stage: str,
     seed: int,
     *,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.float32,
+    compute_dtype: Optional[torch.dtype] = None,
     quantized: bool = False,
     flash_kv: Optional[str] = None,
 ) -> Stage:
     """A stage with a seeded random init (drawn in float32 on the CPU, then
-    moved to ``device`` and cast to ``dtype``)."""
+    moved to ``device`` and cast to ``dtype``), in eval() mode.
+    ``compute_dtype`` runs the stream in another dtype than the parameters
+    (bfloat16 training on float32 master weights)."""
+    device = _target_device(device, "init_stage")
     factory = {
         "semantic": build_semantic_transformer,
         "coarse": build_coarse_transformer,
@@ -195,4 +289,22 @@ def init_stage(
     }[stage]
     model = factory(mc, generator=torch.Generator().manual_seed(seed))
     model = model.to(device=device, dtype=dtype).eval()
+    model.compute_dtype = compute_dtype
     return Stage(model, name=stage, quantized=quantized, flash_kv=flash_kv)
+
+
+def stage_example_lengths(mc: MusicLMModelConfig, stage: str) -> tuple:
+    """Flattened per-sequence token counts of a training example (before
+    the appended EOS), as the JAX package's ``stage_example_lengths``."""
+    g = mc.global_cfg
+    sem_hz, ac_hz = mc.hubert_kmeans_cfg.output_hz, mc.encodec_cfg.output_hz
+    n_clap = mc.clap_rvq_cfg.rq_num_quantizers
+    if stage == "semantic":
+        return (n_clap, int(g.semantic_audio_length_seconds * sem_hz) - 1)
+    if stage == "coarse":
+        sem = int(g.coarse_audio_length_seconds * sem_hz) - 1
+        return (n_clap, sem, int(g.coarse_audio_length_seconds * ac_hz) * g.num_coarse_quantizers)
+    if stage == "fine":
+        coarse = int(g.fine_audio_length_seconds * ac_hz) * g.num_coarse_quantizers
+        return (n_clap, coarse, int(g.fine_audio_length_seconds * ac_hz) * g.num_fine_quantizers)
+    raise ValueError(stage)

@@ -6,7 +6,9 @@
 //   sim = q . k^T * scale + bias[h, n, m],  masked entries set to -1e9
 //   (key mask, and the causal mask with offset m - n and an optional
 //   bidirectional prefix), then an exact softmax over the keys and  . v.
-// Output [b, n, h * 64]. Float32 accumulation throughout.
+// Output [b, n, h * 64]. Float32 accumulation throughout. When ``stats`` is
+// given (the training forward), each row's softmax max and denominator go to
+// stats [b, h, n, 2] float32 for the backward kernels (attention_bwd.cu).
 //
 // Masked scores are set to -1e9, not -inf, exactly as the plain version does
 // (ops/attention.py:shared_kv_attention): a row whose every key is masked
@@ -35,7 +37,7 @@ template <typename T>
 __global__ void __launch_bounds__(ROWS) prefill_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const uint8_t* __restrict__ key_mask, T* __restrict__ out,
-    int heads, int n, int m, int causal, int ncp, float scale) {
+    float* __restrict__ stats, int heads, int n, int m, int causal, int ncp, float scale) {
   __shared__ float ks[KT][D];
   __shared__ float vs[KT][D];
   const int bq = ROWS / heads;  // query positions per block
@@ -115,6 +117,11 @@ __global__ void __launch_bounds__(ROWS) prefill_attention_kernel(
     mx = m_new;
   }
   if (!active) return;
+  if (stats) {
+    float* st = stats + (((size_t)bi * heads + h) * n + i) * 2;
+    st[0] = mx;
+    st[1] = l;
+  }
   const float inv = 1.f / fmaxf(l, 1e-30f);
   T* op = out + ((size_t)bi * n + i) * heads * D + (size_t)h * D;
 #pragma unroll
@@ -123,26 +130,29 @@ __global__ void __launch_bounds__(ROWS) prefill_attention_kernel(
 
 template <typename T>
 void launch(const void* q, const void* k, const void* v, const void* bias, const void* key_mask,
-            void* out, int b, int heads, int n, int m, int causal, int ncp, float scale,
-            cudaStream_t s) {
+            void* out, float* stats, int b, int heads, int n, int m, int causal, int ncp,
+            float scale, cudaStream_t s) {
   const int bq = ROWS / heads;
   const dim3 grid((n + bq - 1) / bq, b);
   prefill_attention_kernel<T><<<grid, ROWS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const uint8_t*>(key_mask),
-      static_cast<T*>(out), heads, n, m, causal, ncp, scale);
+      static_cast<T*>(out), stats, heads, n, m, causal, ncp, scale);
 }
 
 }  // namespace
 
 extern "C" int omt_prefill_attention(const void* q, const void* k, const void* v,
-                                     const void* bias, const void* key_mask, void* out, int b,
+                                     const void* bias, const void* key_mask, void* out,
+                                     void* stats, int b,
                                      int heads, int n, int m, int causal, int ncp, float scale,
                                      int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  auto st = static_cast<float*>(stats);
   if (dtype == 0)
-    launch<float>(q, k, v, bias, key_mask, out, b, heads, n, m, causal, ncp, scale, s);
+    launch<float>(q, k, v, bias, key_mask, out, st, b, heads, n, m, causal, ncp, scale, s);
   else
-    launch<__nv_bfloat16>(q, k, v, bias, key_mask, out, b, heads, n, m, causal, ncp, scale, s);
+    launch<__nv_bfloat16>(q, k, v, bias, key_mask, out, st, b, heads, n, m, causal, ncp, scale,
+                          s);
   return static_cast<int>(cudaGetLastError());
 }

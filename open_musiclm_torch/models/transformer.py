@@ -6,10 +6,16 @@
   * continuous-MLP relative position bias
   * GEGLU conv feed-forward with a causal depthwise 3-tap conv
 
-``forward`` is the full causal pass; ``prefill`` is the same pass that also
+``forward`` is the full causal pass (training, with an optional key mask
+and FF dropout in ``train()`` mode); ``prefill`` is the same pass that also
 fills the decode cache (per-layer K, V and the conv-FF tap state). The
-decode step itself lives in ``models/quant_decode.py``. Inference only:
-dropout is not ported.
+decode step itself lives in ``models/quant_decode.py``.
+
+Parameters may be float32 master weights while the pass runs in bfloat16
+(the JAX package's ``dtype=bfloat16`` with float32 params): every weight is
+cast to the activations' dtype at its use, and LayerNorm returns the
+activations' dtype. With weights already in the activations' dtype (the
+serving path) the casts are no-ops. Attention dropout is not ported.
 """
 
 from __future__ import annotations
@@ -20,8 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import l2norm, shared_kv_attention_fused
-from ..ops.relpos import init_linear_, lecun_normal_, make_bias
+from ..ops.attention import l2norm, shared_kv_attention_train
+from ..ops.relpos import init_linear_, lecun_normal_, linear, make_bias
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -48,6 +54,15 @@ def grad_shrink(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
     return x * alpha + x.detach() * (1.0 - alpha)
 
 
+def dropout(u: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as the JAX package writes it, ``where(keep, u / keep_prob, 0)``,
+    with the keep mask drawn from ``generator`` (None: the default generator
+    of u's device)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(u.shape, generator=generator, device=u.device) < keep_prob
+    return torch.where(keep, u / keep_prob, torch.zeros((), dtype=u.dtype, device=u.device))
+
+
 def _linear(d_in: int, d_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
     layer = nn.Linear(d_in, d_out, bias=False)
     init_linear_(layer, generator)
@@ -71,20 +86,21 @@ class Attention(nn.Module):
         """h: normed [b, n, dim]; x_raw: the UN-normed input (K/V project from
         it, a reference quirk kept for checkpoint parity)."""
         b, n, _ = h.shape
-        q = self.to_q(h).reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
-        k, v = self.to_kv(x_raw).chunk(2, dim=-1)
+        q = linear(h, self.to_q).reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+        k, v = linear(x_raw, self.to_kv).chunk(2, dim=-1)
         q = l2norm(q) * self.q_scale.to(q.dtype)
         k = l2norm(k) * self.k_scale.to(k.dtype)
         return q.contiguous(), k.contiguous(), v.contiguous()
 
-    def forward(self, x: torch.Tensor, *, attn_bias: Optional[torch.Tensor] = None):
-        """Returns (output [b, n, dim], (k, v))."""
+    def forward(self, x: torch.Tensor, *, attn_bias: Optional[torch.Tensor] = None,
+                key_mask: Optional[torch.Tensor] = None):
+        """key_mask: [b, n] bool, True = attend. Returns (output [b, n, dim], (k, v))."""
         q, k, v = self.qkv(self.norm(x), x)
-        out = shared_kv_attention_fused(
-            q, k, v, attn_bias, scale=self.scale, causal=True,
+        out = shared_kv_attention_train(
+            q, k, v, attn_bias, key_mask, scale=self.scale, causal=True,
             non_causal_prefix=self.non_causal_prefix,
         )
-        return self.to_out(out), (k, v)
+        return linear(out, self.to_out), (k, v)
 
 
 class ConvFeedForward(nn.Module):
@@ -92,10 +108,12 @@ class ConvFeedForward(nn.Module):
     Linear(dim), inner = int(dim * 2 * mult / 3). ``conv_w`` is tap-major
     [3, 2*inner], the JAX layout."""
 
-    def __init__(self, dim: int, mult: int = 4, generator: Optional[torch.Generator] = None):
+    def __init__(self, dim: int, mult: int = 4, generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
         super().__init__()
         inner = int(dim * 2 * mult / 3)
         self.inner_dim = inner
+        self.dropout = dropout
         self.norm_in = LayerNorm(dim)
         self.proj_in = _linear(dim, 2 * inner, generator)
         self.conv_w = nn.Parameter(torch.empty(3, 2 * inner))
@@ -114,24 +132,30 @@ class ConvFeedForward(nn.Module):
         val, gate = u.chunk(2, dim=-1)  # first half value, second half gate
         return F.gelu(gate, approximate="none") * val
 
-    def forward_with_state(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward_with_state(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence FF plus the last two pre-conv rows [b, 2, 2*inner]
-        that seed the decode conv state (zero-padded for n < 2)."""
-        u = self.proj_in(self.norm_in(x))
+        that seed the decode conv state (zero-padded for n < 2). In train()
+        mode the mid activations get dropout drawn from ``generator``."""
+        u = linear(self.norm_in(x), self.proj_in)
         n = u.shape[1]
         tail = u[:, -2:] if n >= 2 else F.pad(u, (0, 0, 2 - n, 0))
-        out = self.proj_out(self.norm_mid(self.geglu(self.dsconv_full(u))))
-        return out, tail
+        h = self.norm_mid(self.geglu(self.dsconv_full(u)))
+        if self.training and self.dropout > 0.0:
+            h = dropout(h, self.dropout, generator)
+        return linear(h, self.proj_out), tail
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.forward_with_state(x)[0]
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.forward_with_state(x, generator)[0]
 
 
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int = 8, dim_head: int = 64,
                  grad_shrink_alpha: float = 0.1, non_causal_prefix_size: int = 0,
                  relative_position_bias_type: str = "continuous", attn_scale: float = 8.0,
-                 ff_mult: int = 4, generator: Optional[torch.Generator] = None):
+                 ff_mult: int = 4, ff_dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dim, self.depth, self.heads, self.dim_head = dim, depth, heads, dim_head
         self.grad_shrink_alpha = grad_shrink_alpha
@@ -140,22 +164,27 @@ class Transformer(nn.Module):
             Attention(dim, heads, dim_head, attn_scale, non_causal_prefix_size, generator)
             for _ in range(depth)
         )
-        self.ffs = nn.ModuleList(ConvFeedForward(dim, ff_mult, generator) for _ in range(depth))
+        self.ffs = nn.ModuleList(
+            ConvFeedForward(dim, ff_mult, generator, dropout=ff_dropout) for _ in range(depth)
+        )
         self.final_norm = LayerNorm(dim)
 
     @property
     def ff_state_dim(self) -> int:
         return 2 * self.ffs[0].inner_dim
 
-    def _bias(self, n: int) -> Optional[torch.Tensor]:
-        return self.rel_pos_bias(n) if self.rel_pos_bias is not None else None
+    def _bias(self, n: int, dtype: torch.dtype) -> Optional[torch.Tensor]:
+        return self.rel_pos_bias(n, dtype) if self.rel_pos_bias is not None else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, self_attn_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [b, n, dim] in the compute dtype; self_attn_mask: [b, n] bool key
+        mask, True = attend; generator: FF dropout draws in train() mode."""
         x = grad_shrink(x, self.grad_shrink_alpha)
-        bias = self._bias(x.shape[1])
+        bias = self._bias(x.shape[1], x.dtype)
         for attn, ff in zip(self.attns, self.ffs):
-            x = attn(x, attn_bias=bias)[0] + x
-            x = ff(x) + x
+            x = attn(x, attn_bias=bias, key_mask=self_attn_mask)[0] + x
+            x = ff(x, generator) + x
         return self.final_norm(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
@@ -185,7 +214,7 @@ class Transformer(nn.Module):
         Returns (normed outputs [b, n, dim], cache)."""
         n = x.shape[1]
         x = grad_shrink(x, self.grad_shrink_alpha)
-        bias = self._bias(n)
+        bias = self._bias(n, x.dtype)
         for i, (attn, ff) in enumerate(zip(self.attns, self.ffs)):
             out, (k, v) = attn(x, attn_bias=bias)
             x = out + x

@@ -1,14 +1,25 @@
-"""Cosine-similarity shared-KV attention (port of open_musiclm_tpu/ops/attention.py).
+"""Cosine-similarity shared-KV attention (port of open_musiclm_tpu/ops/attention.py
+and the differentiable wrapper of open_musiclm_tpu/ops/pallas_attention.py).
 
 Queries are multi-head ``[b, h, n, d]``; keys and values are ONE head
 ``[b, m, d]`` shared by all query heads. q and k arrive l2-normalised and
 scaled; the similarity uses a fixed scale (8).
 
-``shared_kv_attention`` is the plain version. ``shared_kv_attention_fused``
-is the wrapper of kernel 1 (``csrc/prefill_attention.cu``, replacing the
-Pallas kernel ``ops/pallas_attention.py:shared_kv_attention_pallas``): it
-launches the kernel on CUDA tensors and takes the plain version only for
-tensors on the CPU.
+``shared_kv_attention`` is the plain forward and ``shared_kv_attention_bwd_plain``
+the plain backward. The kernel wrappers launch a kernel on CUDA tensors and
+take the plain version only for tensors on the CPU:
+
+  * ``shared_kv_attention_fused``: kernel 1 (``csrc/prefill_attention.cu``,
+    replacing ``shared_kv_attention_pallas``), optionally with each row's
+    softmax statistics for the backward;
+  * ``shared_kv_attention_bwd``: kernel 5 (``csrc/attention_bwd.cu``,
+    replacing ``_fused_bwd``'s ``_bwd_kernel``): dq, dk, dv;
+  * ``shared_kv_attention_dbias``: kernel 6 (the same file, replacing
+    ``_dbias_kernel``): the bias gradient summed over the batch.
+
+``shared_kv_attention_train`` is the differentiable op the transformer calls:
+a ``torch.autograd.Function`` whose forward is kernel 1 and whose backward is
+kernels 5 and 6 (on the CPU, the plain forward and backward).
 """
 
 from __future__ import annotations
@@ -38,10 +49,26 @@ def shared_kv_attention(
     key_mask: Optional[torch.Tensor] = None,  # [b, m] bool, True = attend
     causal: bool = False,
     non_causal_prefix: int = 0,
-) -> torch.Tensor:
-    """Plain full-sequence attention. Returns [b, n, h*d]."""
+    return_stats: bool = False,
+):
+    """Plain full-sequence attention. Returns [b, n, h*d]; with
+    ``return_stats`` also each row's softmax max and denominator
+    [b, h, n, 2] float32, as kernel 1 writes them."""
     b, h, n, d = q.shape
-    m = k.shape[1]
+    sim = _masked_scores(q, k, scale, attn_bias, key_mask, causal, non_causal_prefix)
+    attn = torch.softmax(sim, dim=-1)
+    out = torch.einsum("bhnm,bmd->bhnd", attn, v)
+    out = out.transpose(1, 2).reshape(b, n, h * d)
+    if not return_stats:
+        return out
+    mx = sim.float().amax(dim=-1)
+    denom = torch.exp(sim.float() - mx[..., None]).sum(dim=-1)
+    return out, torch.stack([mx, denom], dim=-1)
+
+
+def _masked_scores(q, k, scale, attn_bias, key_mask, causal, non_causal_prefix):
+    """q.k^T * scale + bias with masked scores set to NEG_INF, [b, h, n, m]."""
+    n, m = q.shape[2], k.shape[1]
     sim = torch.einsum("bhnd,bmd->bhnm", q, k) * scale
     if attn_bias is not None:
         sim = sim + attn_bias[None].to(sim.dtype)
@@ -56,9 +83,38 @@ def shared_kv_attention(
                 (i < non_causal_prefix) & (j < non_causal_prefix + m - n)
             )
         sim = sim.masked_fill(~allowed, NEG_INF)
-    attn = torch.softmax(sim, dim=-1)
-    out = torch.einsum("bhnm,bmd->bhnd", attn, v)
-    return out.transpose(1, 2).reshape(b, n, h * d)
+    return sim
+
+
+def shared_kv_attention_bwd_plain(
+    q: torch.Tensor,  # [b, h, n, d]
+    k: torch.Tensor,  # [b, m, d]
+    v: torch.Tensor,  # [b, m, d]
+    dout: torch.Tensor,  # [b, n, h*d], the gradient of the forward's output
+    *,
+    scale: float = 8.0,
+    attn_bias: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    non_causal_prefix: int = 0,
+):
+    """Plain backward, recomputing the softmax as ``_bwd_kernel`` and
+    ``_dbias_kernel`` do, in float32. Returns (dq, dk, dv, dbias) in the
+    input dtypes (dbias None without a bias)."""
+    b, h, n, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    bias = attn_bias.float() if attn_bias is not None else None
+    sim = _masked_scores(qf, kf, scale, bias, key_mask, causal, non_causal_prefix)
+    e = torch.exp(sim - sim.amax(dim=-1, keepdim=True))
+    p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    do = dout.float().reshape(b, n, h, d).transpose(1, 2)  # [b, h, n, d]
+    dp = torch.einsum("bhnd,bmd->bhnm", do, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhnm,bmd->bhnd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bhnd->bmd", ds, qf) * scale
+    dv = torch.einsum("bhnm,bhnd->bmd", p, do)
+    dbias = ds.sum(dim=0).to(attn_bias.dtype) if attn_bias is not None else None
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 def shared_kv_attention_fused(
@@ -71,22 +127,48 @@ def shared_kv_attention_fused(
     scale: float = 8.0,
     causal: bool = True,
     non_causal_prefix: int = 0,
-) -> torch.Tensor:
+    return_stats: bool = False,
+):
     """Kernel 1 (prefill attention). Same contract as ``shared_kv_attention``."""
     if not q.is_cuda:
         return shared_kv_attention(
             q, k, v, scale=scale, attn_bias=attn_bias, key_mask=key_mask,
-            causal=causal, non_causal_prefix=non_causal_prefix,
+            causal=causal, non_causal_prefix=non_causal_prefix, return_stats=return_stats,
         )
-    b, h, n, d = q.shape
+    b, h, n, _ = q.shape
     m = k.shape[1]
     name = "shared_kv_attention_fused"
-    cuda_lib.require(d == 64, f"{name}: kernel takes dim_head 64, got {d}")
     cuda_lib.require(128 % h == 0, f"{name}: heads must divide 128, got {h}")
+    attn_bias, key_mask = _check_attention_args(name, q, k, v, attn_bias, key_mask)
+    out = torch.empty((b, n, h * q.shape[-1]), dtype=q.dtype, device=q.device)
+    stats = torch.empty((b, h, n, 2), dtype=torch.float32, device=q.device) if return_stats else None
+    rc = cuda_lib.lib().omt_prefill_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(attn_bias), _ptr(key_mask),
+        out.data_ptr(), _ptr(stats), b, h, n, m, int(causal), int(non_causal_prefix),
+        float(scale), cuda_lib.dtype_code(q.dtype), cuda_lib.stream(q),
+    )
+    cuda_lib.check(rc, name)
+    shared_kv_attention_fused.launches += 1
+    return (out, stats) if return_stats else out
+
+
+shared_kv_attention_fused.launches = 0
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _check_attention_args(name, q, k, v, attn_bias, key_mask, *more):
+    """Shape, dtype and device checks shared by the kernel wrappers; returns
+    the bias as contiguous float32 and the key mask as uint8."""
+    b, h, n, d = q.shape
+    m = k.shape[1]
+    cuda_lib.require(d == 64, f"{name}: kernel takes dim_head 64, got {d}")
     cuda_lib.require(k.shape == (b, m, d) and v.shape == (b, m, d), f"{name}: k/v shape")
     cuda_lib.require(m >= n, f"{name}: queries must be the last n of m keys")
     cuda_lib.require(k.dtype == q.dtype and v.dtype == q.dtype, f"{name}: q/k/v dtype")
-    tensors = [q, k, v]
+    tensors = [q, k, v, *more]
     if attn_bias is not None:
         cuda_lib.require(attn_bias.shape == (h, n, m), f"{name}: bias shape")
         attn_bias = attn_bias.float().contiguous()
@@ -96,17 +178,134 @@ def shared_kv_attention_fused(
         key_mask = key_mask.to(torch.uint8).contiguous()
         tensors.append(key_mask)
     cuda_lib.require_cuda(name, *tensors)
-    out = torch.empty((b, n, h * d), dtype=q.dtype, device=q.device)
-    rc = cuda_lib.lib().omt_prefill_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        attn_bias.data_ptr() if attn_bias is not None else None,
-        key_mask.data_ptr() if key_mask is not None else None,
-        out.data_ptr(), b, h, n, m, int(causal), int(non_causal_prefix),
-        float(scale), cuda_lib.dtype_code(q.dtype), cuda_lib.stream(q),
+    return attn_bias, key_mask
+
+
+def _check_bwd_args(name, q, k, v, attn_bias, key_mask, out, stats, dout):
+    b, h, n, d = q.shape
+    cuda_lib.require(out.shape == (b, n, h * d) and dout.shape == (b, n, h * d),
+                     f"{name}: out/dout shape")
+    cuda_lib.require(out.dtype == q.dtype and dout.dtype == q.dtype, f"{name}: out/dout dtype")
+    cuda_lib.require(stats is not None and stats.shape == (b, h, n, 2)
+                     and stats.dtype == torch.float32,
+                     f"{name}: needs kernel 1's float32 row statistics [b, h, n, 2]")
+    return _check_attention_args(name, q, k, v, attn_bias, key_mask, out, stats, dout)
+
+
+def shared_kv_attention_bwd(
+    q, k, v, attn_bias, key_mask, out, stats, dout, *,
+    scale: float = 8.0, causal: bool = True, non_causal_prefix: int = 0,
+):
+    """Kernel 5: (dq, dk, dv) of the attention, in the input dtypes.
+
+    ``out`` [b, n, h*d] and ``stats`` [b, h, n, 2] are kernel 1's output and
+    row statistics for these inputs; ``dout`` is the gradient of ``out``.
+    On the CPU the plain backward recomputes everything (stats may be None).
+    """
+    if not q.is_cuda:
+        return shared_kv_attention_bwd_plain(
+            q, k, v, dout, scale=scale, attn_bias=attn_bias, key_mask=key_mask,
+            causal=causal, non_causal_prefix=non_causal_prefix)[:3]
+    b, h, n, d = q.shape
+    m = k.shape[1]
+    name = "shared_kv_attention_bwd"
+    attn_bias, key_mask = _check_bwd_args(name, q, k, v, attn_bias, key_mask, out, stats, dout)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, n), **f32)
+    dk_part = torch.empty((h, b, m, d), **f32)
+    dv_part = torch.empty((h, b, m, d), **f32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = cuda_lib.lib().omt_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(attn_bias), _ptr(key_mask),
+        out.data_ptr(), stats.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+        dk_part.data_ptr(), dv_part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, n, m, int(causal), int(non_causal_prefix), float(scale),
+        cuda_lib.dtype_code(q.dtype), cuda_lib.stream(q),
     )
     cuda_lib.check(rc, name)
-    shared_kv_attention_fused.launches += 1
-    return out
+    shared_kv_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
-shared_kv_attention_fused.launches = 0
+shared_kv_attention_bwd.launches = 0
+
+
+def shared_kv_attention_dbias(
+    q, k, v, attn_bias, key_mask, out, stats, dout, *,
+    scale: float = 8.0, causal: bool = True, non_causal_prefix: int = 0,
+) -> torch.Tensor:
+    """Kernel 6: the bias gradient [h, n, m] summed over the batch, in
+    float32 (the caller casts it to the bias dtype). Arguments as for
+    ``shared_kv_attention_bwd``; the bias is required."""
+    if not q.is_cuda:
+        return shared_kv_attention_bwd_plain(
+            q, k, v, dout, scale=scale, attn_bias=attn_bias.float(), key_mask=key_mask,
+            causal=causal, non_causal_prefix=non_causal_prefix)[3]
+    b, h, n, _ = q.shape
+    m = k.shape[1]
+    name = "shared_kv_attention_dbias"
+    cuda_lib.require(attn_bias is not None, f"{name}: needs the bias")
+    attn_bias, key_mask = _check_bwd_args(name, q, k, v, attn_bias, key_mask, out, stats, dout)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    dbias = torch.empty((h, n, m), dtype=torch.float32, device=q.device)
+    rc = cuda_lib.lib().omt_attention_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), attn_bias.data_ptr(), _ptr(key_mask),
+        out.data_ptr(), stats.data_ptr(), dout.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
+        b, h, n, m, int(causal), int(non_causal_prefix), float(scale),
+        cuda_lib.dtype_code(q.dtype), cuda_lib.stream(q),
+    )
+    cuda_lib.check(rc, name)
+    shared_kv_attention_dbias.launches += 1
+    return dbias
+
+
+shared_kv_attention_dbias.launches = 0
+
+
+class _SharedKVAttention(torch.autograd.Function):
+    """Forward: kernel 1 with row statistics. Backward: kernels 5 and 6. On
+    the CPU: the plain forward and ``shared_kv_attention_bwd_plain``. No
+    gradient flows to the key mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn_bias, key_mask, scale, causal, non_causal_prefix):
+        opts = dict(scale=scale, causal=causal, non_causal_prefix=non_causal_prefix)
+        need_stats = q.is_cuda and any(ctx.needs_input_grad[:4])
+        res = shared_kv_attention_fused(q, k, v, attn_bias, key_mask, return_stats=need_stats, **opts)
+        out, stats = res if need_stats else (res, None)
+        ctx.save_for_backward(q, k, v, attn_bias, key_mask, out, stats)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, key_mask, out, stats = ctx.saved_tensors
+        dout = dout.contiguous()
+        if not q.is_cuda:
+            dq, dk, dv, dbias = shared_kv_attention_bwd_plain(
+                q, k, v, dout, attn_bias=bias, key_mask=key_mask, **ctx.opts)
+        else:
+            args = (q, k, v, bias, key_mask, out, stats, dout)
+            dq, dk, dv = shared_kv_attention_bwd(*args, **ctx.opts)
+            dbias = None
+            if bias is not None and ctx.needs_input_grad[3]:
+                dbias = shared_kv_attention_dbias(*args, **ctx.opts).to(bias.dtype)
+        return dq, dk, dv, dbias, None, None, None, None
+
+
+def shared_kv_attention_train(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attn_bias: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+    *,
+    scale: float = 8.0,
+    causal: bool = True,
+    non_causal_prefix: int = 0,
+) -> torch.Tensor:
+    """Differentiable attention (``shared_kv_attention_fused`` of the JAX
+    package's ops/pallas_attention.py). Without gradients it is exactly
+    kernel 1."""
+    return _SharedKVAttention.apply(
+        q, k, v, attn_bias, key_mask, float(scale), bool(causal), int(non_causal_prefix))

@@ -1,8 +1,8 @@
 """Build and bind the hand-written Hopper kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into a single shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), loaded with ``ctypes``. The build runs at first use, never at
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more call links the objects into a single shared library
+with a plain C interface (no PyTorch headers), loaded with ``ctypes``. The build runs at first use, never at
 import, into ``build/open_musiclm_torch/`` at the repository root, keyed by
 a hash of the sources and flags: an edited kernel rebuilds, an unchanged
 one is reused.
@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "open_musiclm_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -38,8 +38,15 @@ _SIGNATURES = {
     "omt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, dtype, kv_int8, stream
     "omt_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    # q, k, v, bias, key_mask, out, b, heads, n, m, causal, non_causal_prefix, scale, dtype, stream
-    "omt_prefill_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, key_mask, out, stats, b, heads, n, m, causal, non_causal_prefix, scale,
+    # dtype, stream
+    "omt_prefill_attention": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, key_mask, out, stats, dout, delta, dk_part, dv_part, dq, dk, dv,
+    # b, heads, n, m, causal, non_causal_prefix, scale, dtype, stream
+    "omt_attention_bwd": (_P,) * 14 + (_I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, key_mask, out, stats, dout, delta, dbias,
+    # b, heads, n, m, causal, non_causal_prefix, scale, dtype, stream
+    "omt_attention_dbias": (_P,) * 10 + (_I, _I, _I, _I, _I, _I, _F, _I, _P),
     # x, gin, wv, sv, wg, sg, conv_v, conv_g, state, g_out, new_state, B, dim, inner, dtype, stream
     "omt_fused_ff_in": (_P,) * 11 + (_I, _I, _I, _I, _P),
     # g, gmid, wo, so, x, y, B, inner, dim, dtype, stream
@@ -73,19 +80,39 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless this exact source set was built already.
-    The compiler's output (ptxas register and spill report) is kept beside
+    The compilers' output (ptxas register and spill report) is kept beside
     the library as ``build.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-    os.replace(tmp, out)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = Path(f"{tmp}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    objs = [str(obj) for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", f"{tmp}.so", *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(proc.stdout)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
+    os.replace(f"{tmp}.so", out)
     return out
 
 

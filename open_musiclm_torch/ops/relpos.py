@@ -30,6 +30,13 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
         return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer`` applied with its parameters cast to x's dtype (flax's Dense
+    with ``dtype``: float32 master weights, a bfloat16 pass)."""
+    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
 def init_linear_(layer: nn.Linear, generator: Optional[torch.Generator]) -> None:
     """Dense layer init as flax does it: lecun-normal kernel, zero bias."""
     lecun_normal_(layer.weight, layer.in_features, generator)
@@ -53,15 +60,17 @@ class ContinuousPositionBias(nn.Module):
             init_linear_(layer, generator)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.silu(self.in_layer(x))
+        h = F.silu(linear(x, self.in_layer))
         for layer in self.mid_layers:
-            h = F.silu(layer(h))
-        return self.out_layer(h)
+            h = F.silu(linear(h, layer))
+        return linear(h, self.out_layer)
 
-    def forward(self, n: int) -> torch.Tensor:
-        """Full bias matrix [heads, n, n] for prefill."""
+    def forward(self, n: int, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Full bias matrix [heads, n, n] for training and prefill, computed
+        in ``dtype`` (default: the parameters'), distances included, as the
+        JAX package computes it. Differentiable through the gather."""
         w = self.in_layer.weight
-        dist = torch.arange(-n + 1, n, dtype=w.dtype, device=w.device)[:, None]
+        dist = torch.arange(-n + 1, n, dtype=dtype or w.dtype, device=w.device)[:, None]
         return toeplitz_from_table(self.mlp(dist), n).permute(2, 0, 1)
 
     def distance_table(self, max_len: int) -> torch.Tensor:

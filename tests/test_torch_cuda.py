@@ -117,3 +117,93 @@ def test_wrappers_raise_on_bad_input(dev):
         quant.int8_matmul(x, wq.t(), torch.ones(32, device=dev))  # w_q shape
     with pytest.raises(TypeError):
         quant.int8_matmul(x.half(), wq, torch.ones(7, device=dev))  # fp16 is not taken
+
+
+# Kernels 5 and 6 (attention backward). bf16 inputs are held against the
+# plain backward in float32 on the same bf16-valued inputs: the kernels
+# round their float32 results once to bf16, and the forward output that
+# enters rowsum(dO * O) is bf16 too; the bound allows 2**-7 of the largest
+# gradient (chip_smoke's bf16 tolerance). float32: summation order only.
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _bwd_case(g, b, h, n, m, mask, dev):
+    q = attention.l2norm(_randn(g, b, h, n, 64)) * 1.5
+    k = attention.l2norm(_randn(g, b, m, 64)) * 1.5
+    v = _randn(g, b, m, 64)
+    bias = _randn(g, h, n, m)
+    dout = _randn(g, b, n, h * 64)
+    key_mask = None
+    if mask:
+        key_mask = torch.rand(b, m, generator=g) > 0.2
+        key_mask[:, 0] = True
+        key_mask = key_mask.to(dev)
+    return [t.to(dev) for t in (q, k, v, bias, dout)] + [key_mask]
+
+
+def _assert_within(name, got, want, rel):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    tol = rel * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= tol, f"{name}: max abs err {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,n,m,mask,ncp", [
+    (2, 8, 37, 37, False, 0), (3, 4, 20, 45, True, 0), (1, 8, 70, 70, True, 9),
+    (4, 8, 514, 514, True, 0), (2, 8, 1116, 1116, True, 0), (2, 8, 1217, 1217, False, 5),
+    (2, 8, 1217, 1217, True, 7),
+])
+def test_attention_bwd_kernels(dev, dtype, b, h, n, m, mask, ncp):
+    g = torch.Generator().manual_seed(n + m)
+    q, k, v, bias, dout, key_mask = _bwd_case(g, b, h, n, m, mask, dev)
+    q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
+    opts = dict(causal=True, non_causal_prefix=ncp)
+    out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True, **opts)
+    _, want_stats = attention.shared_kv_attention(
+        q.float(), k.float(), v.float(), attn_bias=bias, key_mask=key_mask, return_stats=True, **opts)
+    torch.testing.assert_close(stats, want_stats, atol=1e-4, rtol=1e-4)
+    counts = (attention.shared_kv_attention_bwd.launches, attention.shared_kv_attention_dbias.launches)
+    dq, dk, dv = attention.shared_kv_attention_bwd(q, k, v, bias, key_mask, out, stats, dout, **opts)
+    dbias = attention.shared_kv_attention_dbias(q, k, v, bias, key_mask, out, stats, dout, **opts)
+    assert (attention.shared_kv_attention_bwd.launches, attention.shared_kv_attention_dbias.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert (dq.dtype, dk.dtype, dv.dtype, dbias.dtype) == (dtype, dtype, dtype, torch.float32)
+    want = attention.shared_kv_attention_bwd_plain(
+        q.float(), k.float(), v.float(), dout.float(), attn_bias=bias, key_mask=key_mask, **opts)
+    for name, got, ref in zip(("dq", "dk", "dv", "dbias"), (dq, dk, dv, dbias), want):
+        _assert_within(name, got, ref, BWD_REL[dtype])
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernels_fully_masked_row(dev):
+    """A row whose every key is masked spreads its weight over all m keys."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v, bias, dout, _ = _bwd_case(g, 2, 8, 40, 40, False, dev)
+    key_mask = torch.ones(2, 40, dtype=torch.bool, device=dev)
+    key_mask[1, :20] = False  # rows 0..19 of batch 1 see no key
+    out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
+    got = attention.shared_kv_attention_bwd(q, k, v, bias, key_mask, out, stats, dout)
+    got += (attention.shared_kv_attention_dbias(q, k, v, bias, key_mask, out, stats, dout),)
+    want = attention.shared_kv_attention_bwd_plain(q, k, v, dout, attn_bias=bias, key_mask=key_mask)
+    for name, a, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _assert_within(name, a, ref, 1e-4)
+
+
+@pytest.mark.cuda
+def test_attention_train_autograd_on_card(dev):
+    """The autograd Function on the card against torch.autograd of the plain
+    forward, bias in bf16 (its gradient comes back in bf16)."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v, bias, dout, key_mask = _bwd_case(g, 2, 8, 50, 50, True, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)] + [bias.bfloat16().requires_grad_()]
+    ref = [t.detach().clone().requires_grad_() for t in leaves]
+    before = attention.shared_kv_attention_bwd.launches
+    attention.shared_kv_attention_train(*leaves, key_mask).backward(dout)
+    assert attention.shared_kv_attention_bwd.launches == before + 1
+    attention.shared_kv_attention(*ref[:3], attn_bias=ref[3], key_mask=key_mask, causal=True).backward(dout)
+    assert leaves[3].grad.dtype == torch.bfloat16
+    for a, r in zip(leaves, ref):
+        _assert_within("grad", a.grad, r.grad, 2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-4)
