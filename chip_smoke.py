@@ -8,7 +8,8 @@ Phases, each of which fails the run:
      process per source, all started together);
   2. hold each kernel against its plain PyTorch version, in float32 and
      bfloat16, and time both: kernels 1-4 at the serving path's shapes,
-     kernels 5 and 6 (the attention backward) at the three training shapes;
+     kernel 1 (with a key mask and its row statistics) and kernels 5 and 6
+     (the attention backward) at the three training shapes;
      time one PyTorch library call computing the same function where there
      is one (scaled_dot_product_attention), and compute each kernel's bound
      (the least time the card could take: bytes over the memory rate or
@@ -22,7 +23,9 @@ Phases, each of which fails the run:
      and that kernels 1-4 launched;
   5. the training path: the full-width coarse stage's loss and every
      parameter gradient on the card (kernels 1, 5, 6) against the plain path
-     on the CPU in float32 (and float64, for scale); then a token store written from a seed, read by
+     on the CPU in float64, within 3x the CPU float32 path's own distance
+     from float64 (a control with bf16 attention must fail that limit);
+     then a token store written from a seed, read by
      PreprocessedDataset -> batch_iterator -> accumulate_token_batches into
      StageTrainer.train with the coarse trainer config of
      configs/training/train_musiclm_fma.json (batch 2 x accum 8, bf16 compute
@@ -256,7 +259,7 @@ def main() -> int:
                 lib = library_time(f"SDPA forward b{b} n{n}", lambda: F.scaled_dot_product_attention(
                     low["q"], kx, vx, attn_mask=mask, scale=8.0))[0]
                 pairs = H * allowed_pairs(b, n, n, None)
-                return (nbytes(low["q"], low["k"], low["v"], out) + low["attn_bias"].numel() * 4,
+                return (nbytes(low["q"], low["k"], low["v"], low["attn_bias"], out),
                         4 * D * pairs, lib)
 
             check("prefill_attention", f"b{b} n{n}", dt,
@@ -336,37 +339,61 @@ def main() -> int:
                   lambda x: quant.int8_matmul(x, wq, s),
                   lambda x: quant.int8_matmul_plain(x, wq, s), ins,
                   summary=summary if (b, dt) == (8, torch.bfloat16) else None)
-    # 5 and 6. the attention backward at the training shapes (semantic b4
-    # n514, coarse b2 n1116, fine b2 n1217), bias and a key mask hiding 15 %
-    # of the keys (the forgetful mask's share; key 0 always kept)
+    # 1 (training forward), 5 and 6 (the attention backward) at the training
+    # shapes (semantic b4 n514, coarse b2 n1116, fine b2 n1217), with the bias
+    # in the compute dtype (as the training path passes it) and a key mask
+    # hiding 15 % of the keys (the forgetful mask's share; key 0 always kept).
+    # Kernel 1 also writes each row's softmax statistics here, compared as
+    # (row max, log denominator). One call runs kernels 5 and 6: kernel 5's
+    # ms is the call without dbias, kernel 6's the call with it less that.
+    bwd = attention.shared_kv_attention_bwd
     for stage_name, b, n in (("semantic", 4, 514), ("coarse", 2, 1116), ("fine", 2, 1217)):
         q32, k32 = attention.l2norm(rand(b, H, n, D)) * 1.5, attention.l2norm(rand(b, n, D)) * 1.5
-        v32, dout32, bias = rand(b, n, D), rand(b, n, H * D), rand(H, n, n)
+        v32, dout32, bias32 = rand(b, n, D), rand(b, n, H * D), rand(H, n, n)
         key_mask = (torch.rand(b, n, generator=g) > 0.15).to(dev)
         key_mask[:, 0] = True
+        label = f"{stage_name} b{b} n{n} mask"
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v, dout = (t.to(dt) for t in (q32, k32, v32, dout32))
-            out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
+            q, k, v, dout, bias = (t.to(dt) for t in (q32, k32, v32, dout32, bias32))
+            fwd_args = (q, k, v, bias, key_mask)
+            out, stats = attention.shared_kv_attention_fused(*fwd_args, return_stats=True)
+            want_out, want_stats = attention.shared_kv_attention(
+                q.float(), k.float(), v.float(), attn_bias=bias.float(), key_mask=key_mask,
+                causal=True, return_stats=True)
+
+            def max_and_log_denom(st):
+                return torch.stack([st[..., 0], torch.log(st[..., 1])], dim=-1)
+
+            torch.cuda.synchronize()
+            ms1 = time_ms(lambda: attention.shared_kv_attention_fused(*fwd_args, return_stats=True))
+            plain1 = time_ms(lambda: attention.shared_kv_attention(
+                q, k, v, attn_bias=bias, key_mask=key_mask, causal=True, return_stats=True))
+            report("prefill_attention", label, dt,
+                   *compare("prefill_attention", label, dt, out, want_out), ms1, plain1)
+            report("prefill_attention", label + " stats", dt,
+                   *compare("prefill_attention", label + " stats", dt,
+                            max_and_log_denom(stats), max_and_log_denom(want_stats)), ms1, plain1)
+
             args = (q, k, v, bias, key_mask, out, stats, dout)
             want = attention.shared_kv_attention_bwd_plain(
-                q.float(), k.float(), v.float(), dout.float(), attn_bias=bias, key_mask=key_mask)
-            got5 = attention.shared_kv_attention_bwd(*args)
-            got6 = attention.shared_kv_attention_dbias(*args)
+                q.float(), k.float(), v.float(), dout.float(), attn_bias=bias.float(),
+                key_mask=key_mask)
+            got = bwd(*args)
             torch.cuda.synchronize()
-            ms5 = time_ms(lambda: attention.shared_kv_attention_bwd(*args))
-            ms6 = time_ms(lambda: attention.shared_kv_attention_dbias(*args))
+            ms5 = time_ms(lambda: bwd(*args, dbias=False))
+            ms56 = time_ms(lambda: bwd(*args))
             plain_ms = time_ms(lambda: attention.shared_kv_attention_bwd_plain(
                 q, k, v, dout, attn_bias=bias, key_mask=key_mask), reps=5)
-            label = f"{stage_name} b{b} n{n} mask"
+            print(f"    kernels 5 + 6 in one call {ms56:.4f} ms, kernel 5 alone {ms5:.4f} ms", flush=True)
             sums = (None, None)
             if (stage_name, dt) == ("coarse", torch.bfloat16):
                 sums = backward_summaries(torch, F, dev, args, key_mask, library_time,
                                           causal_float_mask, time_ms)
-            report("attention_bwd", label, dt, *compare("attention_bwd", label, dt, got5, want[:3]),
+            report("attention_bwd", label, dt, *compare("attention_bwd", label, dt, got[:3], want[:3]),
                    ms5, plain_ms, sums[0])
-            report("attention_dbias", label, dt, *compare("attention_dbias", label, dt, got6, want[3]),
-                   ms6, plain_ms, sums[1])
-            del out, stats, args, want, got5, got6
+            report("attention_dbias", label, dt, *compare("attention_dbias", label, dt, got[3], want[3]),
+                   ms56 - ms5, plain_ms, sums[1])
+            del out, stats, want_out, want_stats, args, want, got
     print("  (plain ms of attention_bwd / attention_dbias: one plain backward computing "
           "dq, dk, dv and dbias together)")
 
@@ -408,22 +435,23 @@ def main() -> int:
     codec = omt_config.build_encodec(mc, generator=torch.Generator().manual_seed(4), device=dev).to(bf16)
     codec.decoder.lstm.float()  # the LSTM stem recurs in float32 (see models/encodec.py)
     musiclm = MusicLM(codec=codec, **stages)
-    kernels = [
-        ("prefill_attention", attention.shared_kv_attention_fused, "prefill_attention.cu",
-         "open_musiclm_tpu/ops/pallas_attention.py:155"),
-        ("flash_decode_step", decode_attention.flash_decode_step, "flash_decode.cu",
+    kernels = [  # (name, counter: wrapper and attribute, source, TPU kernel replaced)
+        ("prefill_attention", (attention.shared_kv_attention_fused, "launches"),
+         "prefill_attention.cu", "open_musiclm_tpu/ops/pallas_attention.py:155"),
+        ("flash_decode_step", (decode_attention.flash_decode_step, "launches"), "flash_decode.cu",
          "open_musiclm_tpu/ops/decode_attention.py:195"),
-        ("fused_ff_apply", fused_ff.fused_ff_apply, "fused_ff.cu",
+        ("fused_ff_apply", (fused_ff.fused_ff_apply, "launches"), "fused_ff.cu",
          "open_musiclm_tpu/ops/fused_ff.py:204"),
-        ("int8_matmul", quant.int8_matmul, "int8_matmul.cu", "open_musiclm_tpu/ops/quant.py:80"),
-        ("attention_bwd", attention.shared_kv_attention_bwd, "attention_bwd.cu",
+        ("int8_matmul", (quant.int8_matmul, "launches"), "int8_matmul.cu",
+         "open_musiclm_tpu/ops/quant.py:80"),
+        ("attention_bwd", (bwd, "launches"), "attention_bwd.cu",
          "open_musiclm_tpu/ops/pallas_attention.py:420"),
-        ("attention_dbias", attention.shared_kv_attention_dbias, "attention_bwd.cu",
+        ("attention_dbias", (bwd, "dbias_launches"), "attention_bwd.cu",
          "open_musiclm_tpu/ops/pallas_attention.py:475"),
     ]
     serving_kernels = kernels[:4]
-    for _, fn, _, _ in serving_kernels:
-        fn.launches = 0
+    for _, (fn, attr), _, _ in serving_kernels:
+        setattr(fn, attr, 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     n_clap = mc.clap_rvq_cfg.rq_num_quantizers
     for batch, seconds, want_shape in ((8, 4.0, (8, 96000)), (2, 12.0, (2, 336000))):
@@ -446,7 +474,7 @@ def main() -> int:
             fail(f"waveform shape {tuple(wave.shape)} != {want_shape}")
         if not torch.isfinite(wave.float()).all():
             fail("waveform has non-finite samples")
-    launches = {name: fn.launches for name, fn, _, _ in serving_kernels}
+    launches = {name: getattr(fn, attr) for name, (fn, attr), _, _ in serving_kernels}
     print(f"serving-path launches: {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -455,7 +483,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. the training path ----
-    train_launches = training_phase(torch, omt_config, mc, dev, card, g, attention)
+    train_launches = training_phase(torch, omt_config, mc, dev, card, g, attention, kernels)
     launches.update(attention_bwd=train_launches["attention_bwd"],
                     attention_dbias=train_launches["attention_dbias"])
 
@@ -481,7 +509,7 @@ def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float
     q, k, v, bias, _, out, stats, dout = args
     b, h, n, d = q.shape
     pairs = h * allowed_pairs(b, n, n, key_mask)
-    inputs = nbytes(q, k, v, key_mask, out, stats, dout) + bias.numel() * 4
+    inputs = nbytes(q, k, v, bias, key_mask, out, stats, dout)
     grad_out = dout.reshape(b, n, h, d).transpose(1, 2)
     kx = k[:, None].expand(b, h, n, d).contiguous()
     vx = v[:, None].expand(b, h, n, d).contiguous()
@@ -503,7 +531,7 @@ def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float
         t_f, _ = library_time(f"SDPA forward b{b} n{n}", fwd, be)
         libs.append(t_fb - t_f)
     sum5 = (inputs + nbytes(q, k, v), 10 * d * pairs, libs[0])
-    sum6 = (inputs + h * n * n * 4, 4 * d * pairs, libs[1])
+    sum6 = (inputs + nbytes(bias), 4 * d * pairs, libs[1])
     return sum5, sum6
 
 
@@ -565,9 +593,10 @@ def profile_step(torch, trainer, state, batch, gen, card):
         print(f"    {us / 1e3:9.2f} ms {count:6d}x  {key[:110]}")
 
 
-def training_phase(torch, omt_config, mc, dev, card, g, attention):
+def training_phase(torch, omt_config, mc, dev, card, g, attention, kernels):
     """Phase 5. Returns the launches of kernels 1, 5 and 6 during the
     StageTrainer.train run."""
+    from open_musiclm_torch.models import transformer
     from open_musiclm_torch.checkpoint import find_latest_checkpoint
     from open_musiclm_torch.data.dataset import PreprocessedDataset, batch_iterator, train_valid_split
     from open_musiclm_torch.data.pipeline import accumulate_token_batches
@@ -577,16 +606,21 @@ def training_phase(torch, omt_config, mc, dev, card, g, attention):
 
     lens = omt_config.stage_example_lengths(mc, "coarse")
 
-    # 5a. full-width coarse gradients on the card vs the plain path on the CPU
-    # (float32, batch 2, no dropout or forgetful mask; pad and EOS in the
-    # conditioning), with the same plain path in float64 beside them. At
-    # full width the float32 plain path on the CPU is itself up to ~2e-4 of
-    # a tensor's largest gradient away from the float64 gradient (the rel-pos
-    # MLP and the embedding tables, whose gradients are sums of many
-    # cancelling terms; the table below prints it every run), so the card is
-    # held to 5e-4 of each tensor's largest gradient. The rel-pos MLP's output bias shifts a whole row of scores,
-    # which the softmax ignores: its true gradient is 0, and both sides hold
-    # rounding noise, held to 5e-4 of the output weight's gradient instead.
+    # 5a. full-width coarse gradients on the card (float32, batch 2, no
+    # dropout or forgetful mask; pad and EOS in the conditioning) against the
+    # plain path on the CPU in float64, with the same plain path in float32
+    # beside them. Errors are max abs err / max|grad| per tensor. At full
+    # width float32 rounding alone puts the CPU's float32 gradients up to
+    # ~2e-4 from float64 (the rel-pos MLP and the embedding tables, whose
+    # gradients are sums of many cancelling terms), so 1e-4 against a
+    # float32 side would be rounding, not the kernels. The card's float32
+    # sums run in another order but are no less exact: it is held to 3x the
+    # CPU float32 path's worst distance from float64 in this run (measured
+    # card/CPU ratio up to ~1.5x, so 2x room), and that distance itself must
+    # stay under 3e-4. A control run with the attention in bf16 must fail
+    # the same limit. The rel-pos MLP's output bias shifts a whole row of
+    # scores, which the softmax ignores: its true gradient is 0, and its
+    # rounding noise is scaled by the output weight's largest gradient.
     t0 = time.perf_counter()
     cpu_model = omt_config.init_stage(mc, "coarse", 21, device="cpu").model
     gpu_model = copy.deepcopy(cpu_model).to(dev)
@@ -601,35 +635,59 @@ def training_phase(torch, omt_config, mc, dev, card, g, attention):
         loss.backward()
         return loss.item(), {name: p.grad.double().cpu() for name, p in model.named_parameters()}
 
-    counts = (attention.shared_kv_attention_bwd.launches, attention.shared_kv_attention_dbias.launches)
+    bwd = attention.shared_kv_attention_bwd
+    counts = (bwd.launches, bwd.dbias_launches)
     gpu_loss, gpu_grads = loss_and_grads(gpu_model, dev)
-    if (attention.shared_kv_attention_bwd.launches - counts[0],
-            attention.shared_kv_attention_dbias.launches - counts[1]) != (6, 6):
+    if (bwd.launches - counts[0], bwd.dbias_launches - counts[1]) != (6, 6):
         fail("the card's backward did not run kernels 5 and 6 once per layer")
     cpu_loss, cpu_grads = loss_and_grads(cpu_model, "cpu")
     _, f64_grads = loss_and_grads(f64_model, "cpu")
+
+    # the control: the same card model with q, k, v and the bias rounded to
+    # bf16 at the attention, so kernels 1, 5 and 6 run in bf16
+    def bf16_attention(q, k, v, attn_bias=None, key_mask=None, **kw):
+        low = (t.bfloat16() if t is not None else None for t in (q, k, v, attn_bias))
+        return attention.shared_kv_attention_train(*low, key_mask, **kw).float()
+
+    gpu_model.zero_grad()
+    transformer.shared_kv_attention_train = bf16_attention
+    try:
+        _, ctl_grads = loss_and_grads(gpu_model, dev)
+    finally:
+        transformer.shared_kv_attention_train = attention.shared_kv_attention_train
+
     shift = "transformer.rel_pos_bias.out_layer.bias"
     rows = []
-    for name, want in cpu_grads.items():
+    for name, want in f64_grads.items():
         scale = want.abs().max().item()
         if name == shift:
-            scale = cpu_grads["transformer.rel_pos_bias.out_layer.weight"].abs().max().item()
-        errs = [(a - b).abs().max().item() / max(scale, 1e-30) for a, b in (
-            (gpu_grads[name], want), (gpu_grads[name], f64_grads[name]), (want, f64_grads[name]))]
+            scale = f64_grads["transformer.rel_pos_bias.out_layer.weight"].abs().max().item()
+        errs = [(a[name] - want).abs().max().item() / max(scale, 1e-30)
+                for a in (gpu_grads, cpu_grads, ctl_grads)]
         rows.append((errs, name))
     rows.sort(reverse=True)
+    cpu_worst = max(errs[1] for errs, _ in rows)
+    ctl_worst = max(errs[2] for errs, _ in rows)
+    limit = 3 * cpu_worst
     loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
     print(f"training gradients, full-width coarse f32 b2 n{sum(lens) + 2 * len(lens) - 1}: loss card "
           f"{gpu_loss:.6f} CPU {cpu_loss:.6f} (rel {loss_rel:.2e}); {len(rows)} gradient tensors, "
-          f"{time.perf_counter() - t0:.1f} s; max abs err / max|grad| of the worst six "
-          "(card vs CPU f32, card vs CPU f64, CPU f32 vs CPU f64):", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; max abs err / max|grad| against CPU f64 of the worst "
+          "six (card f32, CPU f32, card with bf16 attention):", flush=True)
     for errs, name in rows[:6]:
         print(f"    {name:48s} {errs[0]:.2e} {errs[1]:.2e} {errs[2]:.2e}")
-    if rows[0][0][0] > 5e-4:
-        fail(f"gradient {rows[0][1]}: card vs CPU {rows[0][0][0]:.2e} x max|grad| > 5e-4")
+    print(f"  gradient gate: card f32 worst {rows[0][0][0]:.2e} <= limit {limit:.2e} "
+          f"(3 x CPU f32 worst {cpu_worst:.2e}); control bf16 attention worst {ctl_worst:.2e} "
+          f"must exceed it [{card}]", flush=True)
+    if not cpu_worst <= 3e-4:
+        fail(f"the CPU float32 gradients are {cpu_worst:.2e} x max|grad| from float64 (> 3e-4)")
+    if rows[0][0][0] > limit:
+        fail(f"gradient {rows[0][1]}: card vs CPU f64 {rows[0][0][0]:.2e} x max|grad| > {limit:.2e}")
+    if not ctl_worst > limit:
+        fail(f"the gradient gate passes bf16 attention ({ctl_worst:.2e} <= {limit:.2e})")
     if not loss_rel <= 1e-4:
         fail(f"training loss card {gpu_loss} vs CPU {cpu_loss}")
-    del cpu_model, gpu_model, f64_model, cpu_grads, gpu_grads, f64_grads
+    del cpu_model, gpu_model, f64_model, cpu_grads, gpu_grads, f64_grads, ctl_grads
     torch.cuda.empty_cache()
 
     # 5b. StageTrainer.train on a token store, the coarse trainer config
@@ -662,16 +720,15 @@ def training_phase(torch, omt_config, mc, dev, card, g, attention):
         before = {name: p.detach().clone() for name, p in model.named_parameters()}
         gen = torch.Generator(device=dev).manual_seed(0)
         steps = 3
-        train_kernels = {"prefill_attention": attention.shared_kv_attention_fused,
-                         "attention_bwd": attention.shared_kv_attention_bwd,
-                         "attention_dbias": attention.shared_kv_attention_dbias}
+        train_kernels = {name: counter for name, counter, _, _ in kernels
+                         if name in ("prefill_attention", "attention_bwd", "attention_dbias")}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in train_kernels.values():
-            fn.launches = 0
+        for fn, attr in train_kernels.values():
+            setattr(fn, attr, 0)
         state = trainer.train(state, train_iter, num_steps=steps, generator=gen, valid_iter=valid_iter)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in train_kernels.items()}
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in train_kernels.items()}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         profile_step(torch, trainer, state, next(train_iter), gen, card)
         batches.close()

@@ -9,13 +9,19 @@
 //   dp = dO . v^T,  ds = p * (dp - rowsum(dp * p)),
 //   dq = ds . k * scale,  dk = sum_h ds^T . q * scale,  dv = sum_h p^T . dO,
 //   dbias = sum_b ds.
-// Float32 accumulation; dq, dk, dv in the input type, dbias in float32.
+// Float32 accumulation; dq, dk, dv in the input type. The bias is read in its
+// own type (float32 or bf16, as the caller holds it) and dbias is written in
+// that type, so the wrapper makes no float32 copy of either.
 //
 // What bounds it on the H100: FLOPs. At coarse training (b 2, n = m = 1116)
 // the three products per score entry and the recomputed q.k and dO.v make
-// ~13 GFLOP per layer against ~10 MB of inputs; dbias adds 40 MB of bias
-// read and 40 MB written. These kernels use the CUDA cores in float32, not
-// the tensor cores, so they run far from the bf16 bound (PERF.md).
+// ~13 GFLOP per layer against ~10 MB of inputs; dbias adds the [8, n, m]
+// bias read and its gradient written (20 MB each in bf16). These kernels use
+// the CUDA cores in float32, not the tensor cores, so they run far from the
+// bf16 bound (PERF.md).
+//
+// One entry point, omt_attention_bwd, runs the delta pass once and then
+// kernel 5 (dq, then dk/dv) and, when the caller asks for dbias, kernel 6.
 //
 // The TPU design does not carry over, for two reasons, and this is what
 // the design does about each:
@@ -134,7 +140,8 @@ __device__ void load_key_tile(Tiles& s, const T* __restrict__ k, const T* __rest
 
 // The score pass: p and ds of the tile into s.p / s.ds, and this thread's
 // eight ds values (key lane, rows 8w..8w+7) into ds_out.
-__device__ void score_tile(Tiles& s, const float* __restrict__ bias,
+template <typename B>
+__device__ void score_tile(Tiles& s, const B* __restrict__ bias,
                            const uint8_t* __restrict__ key_mask, int bi, int h, int i0, int j0,
                            const Geometry& g, float (&ds_out)[RPT]) {
   const int c = threadIdx.x % 32;
@@ -163,7 +170,7 @@ __device__ void score_tile(Tiles& s, const float* __restrict__ bias,
     float p = 0.f, d = 0.f;
     if (i < g.n && j < g.m) {
       float sv = dot[rr] * g.scale;
-      if (bias) sv += bias[((size_t)h * g.n + i) * g.m + j];
+      if (bias) sv += omt::to_f32(bias[((size_t)h * g.n + i) * g.m + j]);
       bool allowed = key_ok;
       if (g.causal) {
         bool ok = j <= i + off;
@@ -196,10 +203,10 @@ __global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ do
 }
 
 // Kernel 5b: dq. One block per (query tile, head, batch), looping over key tiles.
-template <typename T>
+template <typename T, typename B>
 __global__ void __launch_bounds__(THREADS) dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const uint8_t* __restrict__ key_mask,
+    const B* __restrict__ bias, const uint8_t* __restrict__ key_mask,
     const T* __restrict__ dout, const float* __restrict__ stats,
     const float* __restrict__ delta, T* __restrict__ dq, Geometry g) {
   __shared__ Tiles s;
@@ -247,10 +254,10 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(
 
 // Kernel 5a: per-head partial dk, dv [h, b, m, D] in float32. One block per
 // (key tile, head, batch), looping over query tiles.
-template <typename T>
+template <typename T, typename B>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const uint8_t* __restrict__ key_mask,
+    const B* __restrict__ bias, const uint8_t* __restrict__ key_mask,
     const T* __restrict__ dout, const float* __restrict__ stats,
     const float* __restrict__ delta, float* __restrict__ dk_part,
     float* __restrict__ dv_part, int batch, Geometry g) {
@@ -318,14 +325,14 @@ __global__ void sum_heads_kernel(const float* __restrict__ dk_part,
   dv[t] = omt::from_f32<T>(b);
 }
 
-// Kernel 6: dbias [h, n, m] float32 = sum over the batch of ds. One block per
+// Kernel 6: dbias [h, n, m] = sum over the batch of ds, in the bias's type. One block per
 // (key tile, query tile, head), looping over b; every element is written.
-template <typename T>
+template <typename T, typename B>
 __global__ void __launch_bounds__(THREADS) dbias_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const uint8_t* __restrict__ key_mask,
+    const B* __restrict__ bias, const uint8_t* __restrict__ key_mask,
     const T* __restrict__ dout, const float* __restrict__ stats,
-    const float* __restrict__ delta, float* __restrict__ dbias, int batch, Geometry g) {
+    const float* __restrict__ delta, B* __restrict__ dbias, int batch, Geometry g) {
   __shared__ Tiles s;
   const int j0 = blockIdx.x * TK, i0 = blockIdx.y * TQ, h = blockIdx.z;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * RPT;
@@ -349,93 +356,66 @@ __global__ void __launch_bounds__(THREADS) dbias_kernel(
 #pragma unroll
   for (int rr = 0; rr < RPT; ++rr) {
     const int i = i0 + r0 + rr;
-    if (i < g.n) dbias[((size_t)h * g.n + i) * g.m + j] = acc[rr];
+    if (i < g.n) dbias[((size_t)h * g.n + i) * g.m + j] = omt::from_f32<B>(acc[rr]);
   }
 }
 
-template <typename T>
-cudaError_t launch_delta(const void* out, const void* dout, float* delta, int b, int heads,
-                         int n, cudaStream_t st) {
-  const int rows = b * n * heads;
-  delta_kernel<T><<<(rows + 127) / 128, 128, 0, st>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows, heads, n);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float* bias,
+template <typename T, typename B>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                        const uint8_t* key_mask, const void* out, const float* stats,
                        const void* dout, float* delta, float* dk_part, float* dv_part, void* dq,
-                       void* dk, void* dv, int b, const Geometry& g, cudaStream_t st) {
-  cudaError_t rc = launch_delta<T>(out, dout, delta, b, g.heads, g.n, st);
-  if (rc != cudaSuccess) return rc;
+                       void* dk, void* dv, void* dbias, int b, const Geometry& g,
+                       cudaStream_t st) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  dq_kernel<T><<<dim3((g.n + TQ - 1) / TQ, g.heads, b), THREADS, 0, st>>>(
-      qt, kt, vt, bias, key_mask, dot, stats, delta, static_cast<T*>(dq), g);
+  const B* bt = static_cast<const B*>(bias);
+  const int rows = b * g.n * g.heads;
+  delta_kernel<T><<<(rows + 127) / 128, 128, 0, st>>>(static_cast<const T*>(out), dot, delta,
+                                                       rows, g.heads, g.n);
+  cudaError_t rc;
   if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
-  dkdv_kernel<T><<<dim3((g.m + TK - 1) / TK, g.heads, b), THREADS, 0, st>>>(
-      qt, kt, vt, bias, key_mask, dot, stats, delta, dk_part, dv_part, b, g);
+  dq_kernel<T, B><<<dim3((g.n + TQ - 1) / TQ, g.heads, b), THREADS, 0, st>>>(
+      qt, kt, vt, bt, key_mask, dot, stats, delta, static_cast<T*>(dq), g);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
+  dkdv_kernel<T, B><<<dim3((g.m + TK - 1) / TK, g.heads, b), THREADS, 0, st>>>(
+      qt, kt, vt, bt, key_mask, dot, stats, delta, dk_part, dv_part, b, g);
   if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
   const size_t count = (size_t)b * g.m * D;
   sum_heads_kernel<T><<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
       dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), g.heads, count);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dbias(const void* q, const void* k, const void* v, const float* bias,
-                         const uint8_t* key_mask, const void* out, const float* stats,
-                         const void* dout, float* delta, float* dbias, int b, const Geometry& g,
-                         cudaStream_t st) {
-  cudaError_t rc = launch_delta<T>(out, dout, delta, b, g.heads, g.n, st);
-  if (rc != cudaSuccess) return rc;
-  dbias_kernel<T><<<dim3((g.m + TK - 1) / TK, (g.n + TQ - 1) / TQ, g.heads), THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      key_mask, static_cast<const T*>(dout), stats, delta, dbias, b, g);
+  if ((rc = cudaGetLastError()) != cudaSuccess || dbias == nullptr) return rc;
+  dbias_kernel<T, B><<<dim3((g.m + TK - 1) / TK, (g.n + TQ - 1) / TQ, g.heads), THREADS, 0, st>>>(
+      qt, kt, vt, bt, key_mask, dot, stats, delta, static_cast<B*>(dbias), b, g);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dq [b, h, n, 64], dk, dv [b, m, 64] in the input type; delta [b, h, n] and
-// dk_part, dv_part [h, b, m, 64] are float32 scratch from the caller.
+// Kernels 5 and 6. dq [b, h, n, 64], dk, dv [b, m, 64] in the input type
+// (dtype); dbias [h, n, m] in the bias's type (bias_dtype), or null to skip
+// kernel 6. delta [b, h, n] and dk_part, dv_part [h, b, m, 64] are float32
+// scratch from the caller.
 extern "C" int omt_attention_bwd(const void* q, const void* k, const void* v, const void* bias,
                                  const void* key_mask, const void* out, const void* stats,
                                  const void* dout, void* delta, void* dk_part, void* dv_part,
-                                 void* dq, void* dk, void* dv, int b, int heads, int n, int m,
-                                 int causal, int ncp, float scale, int dtype, void* stream) {
+                                 void* dq, void* dk, void* dv, void* dbias, int b, int heads,
+                                 int n, int m, int causal, int ncp, float scale, int dtype,
+                                 int bias_dtype, void* stream) {
   const Geometry g{heads, n, m, causal, ncp, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto tag) {
-    using T = decltype(tag);
-    return launch_bwd<T>(q, k, v, static_cast<const float*>(bias),
-                         static_cast<const uint8_t*>(key_mask), out,
-                         static_cast<const float*>(stats), dout, static_cast<float*>(delta),
-                         static_cast<float*>(dk_part), static_cast<float*>(dv_part), dq, dk, dv,
-                         b, g, st);
+  auto run = [&](auto t_tag, auto b_tag) {
+    using T = decltype(t_tag);
+    using B = decltype(b_tag);
+    return launch_bwd<T, B>(q, k, v, bias, static_cast<const uint8_t*>(key_mask), out,
+                            static_cast<const float*>(stats), dout, static_cast<float*>(delta),
+                            static_cast<float*>(dk_part), static_cast<float*>(dv_part), dq, dk,
+                            dv, dbias, b, g, st);
   };
-  const cudaError_t rc = dtype == 0 ? args(float{}) : args(__nv_bfloat16{});
-  return static_cast<int>(rc);
-}
-
-// dbias [h, n, m] float32; delta [b, h, n] float32 scratch from the caller.
-extern "C" int omt_attention_dbias(const void* q, const void* k, const void* v, const void* bias,
-                                   const void* key_mask, const void* out, const void* stats,
-                                   const void* dout, void* delta, void* dbias, int b, int heads,
-                                   int n, int m, int causal, int ncp, float scale, int dtype,
-                                   void* stream) {
-  const Geometry g{heads, n, m, causal, ncp, scale};
-  auto st = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto tag) {
-    using T = decltype(tag);
-    return launch_dbias<T>(q, k, v, static_cast<const float*>(bias),
-                           static_cast<const uint8_t*>(key_mask), out,
-                           static_cast<const float*>(stats), dout, static_cast<float*>(delta),
-                           static_cast<float*>(dbias), b, g, st);
+  auto with_bias = [&](auto t_tag) {
+    return bias_dtype == 0 ? run(t_tag, float{}) : run(t_tag, __nv_bfloat16{});
   };
-  const cudaError_t rc = dtype == 0 ? args(float{}) : args(__nv_bfloat16{});
+  const cudaError_t rc = dtype == 0 ? with_bias(float{}) : with_bias(__nv_bfloat16{});
   return static_cast<int>(rc);
 }

@@ -6,7 +6,8 @@
 //   sim = q . k^T * scale + bias[h, n, m],  masked entries set to -1e9
 //   (key mask, and the causal mask with offset m - n and an optional
 //   bidirectional prefix), then an exact softmax over the keys and  . v.
-// Output [b, n, h * 64]. Float32 accumulation throughout. When ``stats`` is
+// Output [b, n, h * 64]. Float32 accumulation throughout; the bias is read in
+// its own type (float32 or bf16). When ``stats`` is
 // given (the training forward), each row's softmax max and denominator go to
 // stats [b, h, n, 2] float32 for the backward kernels (attention_bwd.cu).
 //
@@ -33,10 +34,10 @@ constexpr int D = 64;
 constexpr int ROWS = 128;  // (head, query) rows per block == threads per block
 constexpr int KT = 32;     // keys per tile
 
-template <typename T>
+template <typename T, typename B>
 __global__ void __launch_bounds__(ROWS) prefill_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, const uint8_t* __restrict__ key_mask, T* __restrict__ out,
+    const B* __restrict__ bias, const uint8_t* __restrict__ key_mask, T* __restrict__ out,
     float* __restrict__ stats, int heads, int n, int m, int causal, int ncp, float scale) {
   __shared__ float ks[KT][D];
   __shared__ float vs[KT][D];
@@ -67,7 +68,7 @@ __global__ void __launch_bounds__(ROWS) prefill_attention_kernel(
   }
   const T* kb = k + (size_t)bi * m * D;
   const T* vb = v + (size_t)bi * m * D;
-  const float* brow = bias ? bias + ((size_t)h * n + i) * m : nullptr;
+  const B* brow = bias ? bias + ((size_t)h * n + i) * m : nullptr;
 
   for (int j0 = 0; j0 < kv_end; j0 += KT) {
     const int nk = min(KT, kv_end - j0);
@@ -89,7 +90,7 @@ __global__ void __launch_bounds__(ROWS) prefill_attention_kernel(
 #pragma unroll
         for (int e = 0; e < D; ++e) dot = fmaf(qr[e], ks[jj][e], dot);
         float sv = dot * scale;
-        if (brow) sv += brow[j];
+        if (brow) sv += omt::to_f32(brow[j]);
         bool allowed = key_mask == nullptr || key_mask[(size_t)bi * m + j] != 0;
         if (causal) {
           bool ok = j <= i + off;
@@ -128,15 +129,15 @@ __global__ void __launch_bounds__(ROWS) prefill_attention_kernel(
   for (int e = 0; e < D; ++e) op[e] = omt::from_f32<T>(acc[e] * inv);
 }
 
-template <typename T>
+template <typename T, typename B>
 void launch(const void* q, const void* k, const void* v, const void* bias, const void* key_mask,
             void* out, float* stats, int b, int heads, int n, int m, int causal, int ncp,
             float scale, cudaStream_t s) {
   const int bq = ROWS / heads;
   const dim3 grid((n + bq - 1) / bq, b);
-  prefill_attention_kernel<T><<<grid, ROWS, 0, s>>>(
+  prefill_attention_kernel<T, B><<<grid, ROWS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<const uint8_t*>(key_mask),
+      static_cast<const B*>(bias), static_cast<const uint8_t*>(key_mask),
       static_cast<T*>(out), stats, heads, n, m, causal, ncp, scale);
 }
 
@@ -146,13 +147,22 @@ extern "C" int omt_prefill_attention(const void* q, const void* k, const void* v
                                      const void* bias, const void* key_mask, void* out,
                                      void* stats, int b,
                                      int heads, int n, int m, int causal, int ncp, float scale,
-                                     int dtype, void* stream) {
+                                     int dtype, int bias_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto st = static_cast<float*>(stats);
+  auto run = [&](auto t_tag, auto b_tag) {
+    launch<decltype(t_tag), decltype(b_tag)>(q, k, v, bias, key_mask, out, st, b, heads, n, m,
+                                             causal, ncp, scale, s);
+  };
+  auto with_bias = [&](auto t_tag) {
+    if (bias_dtype == 0)
+      run(t_tag, float{});
+    else
+      run(t_tag, __nv_bfloat16{});
+  };
   if (dtype == 0)
-    launch<float>(q, k, v, bias, key_mask, out, st, b, heads, n, m, causal, ncp, scale, s);
+    with_bias(float{});
   else
-    launch<__nv_bfloat16>(q, k, v, bias, key_mask, out, st, b, heads, n, m, causal, ncp, scale,
-                          s);
+    with_bias(__nv_bfloat16{});
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,10 +12,13 @@ take the plain version only for tensors on the CPU:
   * ``shared_kv_attention_fused``: kernel 1 (``csrc/prefill_attention.cu``,
     replacing ``shared_kv_attention_pallas``), optionally with each row's
     softmax statistics for the backward;
-  * ``shared_kv_attention_bwd``: kernel 5 (``csrc/attention_bwd.cu``,
-    replacing ``_fused_bwd``'s ``_bwd_kernel``): dq, dk, dv;
-  * ``shared_kv_attention_dbias``: kernel 6 (the same file, replacing
-    ``_dbias_kernel``): the bias gradient summed over the batch.
+  * ``shared_kv_attention_bwd``: kernels 5 and 6 (``csrc/attention_bwd.cu``,
+    replacing ``_fused_bwd``'s ``_bwd_kernel`` and ``_dbias_kernel``): dq,
+    dk, dv and, when asked, the bias gradient summed over the batch. Its
+    ``launches`` counts kernel 5 and its ``dbias_launches`` kernel 6.
+
+The kernels read the bias in its own dtype (float32 or bfloat16) and write
+dbias in it.
 
 ``shared_kv_attention_train`` is the differentiable op the transformer calls:
 a ``torch.autograd.Function`` whose forward is kernel 1 and whose backward is
@@ -145,7 +148,7 @@ def shared_kv_attention_fused(
     rc = cuda_lib.lib().omt_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(attn_bias), _ptr(key_mask),
         out.data_ptr(), _ptr(stats), b, h, n, m, int(causal), int(non_causal_prefix),
-        float(scale), cuda_lib.dtype_code(q.dtype), cuda_lib.stream(q),
+        float(scale), cuda_lib.dtype_code(q.dtype), _bias_code(attn_bias, q), cuda_lib.stream(q),
     )
     cuda_lib.check(rc, name)
     shared_kv_attention_fused.launches += 1
@@ -159,9 +162,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+def _bias_code(attn_bias, q) -> int:
+    """The kernels' dtype code of the bias (q's when there is none)."""
+    return cuda_lib.dtype_code((attn_bias if attn_bias is not None else q).dtype)
+
+
 def _check_attention_args(name, q, k, v, attn_bias, key_mask, *more):
     """Shape, dtype and device checks shared by the kernel wrappers; returns
-    the bias as contiguous float32 and the key mask as uint8."""
+    the bias contiguous in its own dtype and the key mask as uint8."""
     b, h, n, d = q.shape
     m = k.shape[1]
     cuda_lib.require(d == 64, f"{name}: kernel takes dim_head 64, got {d}")
@@ -171,7 +179,8 @@ def _check_attention_args(name, q, k, v, attn_bias, key_mask, *more):
     tensors = [q, k, v, *more]
     if attn_bias is not None:
         cuda_lib.require(attn_bias.shape == (h, n, m), f"{name}: bias shape")
-        attn_bias = attn_bias.float().contiguous()
+        cuda_lib.dtype_code(attn_bias.dtype)
+        attn_bias = attn_bias.contiguous()
         tensors.append(attn_bias)
     if key_mask is not None:
         cuda_lib.require(key_mask.shape == (b, m), f"{name}: key_mask shape")
@@ -181,85 +190,57 @@ def _check_attention_args(name, q, k, v, attn_bias, key_mask, *more):
     return attn_bias, key_mask
 
 
-def _check_bwd_args(name, q, k, v, attn_bias, key_mask, out, stats, dout):
+def shared_kv_attention_bwd(
+    q, k, v, attn_bias, key_mask, out, stats, dout, *,
+    scale: float = 8.0, causal: bool = True, non_causal_prefix: int = 0, dbias: bool = True,
+):
+    """Kernels 5 and 6: (dq, dk, dv, dbias) of the attention, dq/dk/dv in
+    the input dtypes and dbias [h, n, m] summed over the batch in the bias's
+    dtype (None without a bias or with ``dbias=False``, which skips kernel 6).
+
+    ``out`` [b, n, h*d] and ``stats`` [b, h, n, 2] are kernel 1's output and
+    row statistics for these inputs; ``dout`` is the gradient of ``out``.
+    On the CPU the plain backward recomputes everything (stats may be None).
+    """
+    want_dbias = dbias and attn_bias is not None
+    if not q.is_cuda:
+        dq, dk, dv, db = shared_kv_attention_bwd_plain(
+            q, k, v, dout, scale=scale, attn_bias=attn_bias, key_mask=key_mask,
+            causal=causal, non_causal_prefix=non_causal_prefix)
+        return dq, dk, dv, db if want_dbias else None
     b, h, n, d = q.shape
+    m = k.shape[1]
+    name = "shared_kv_attention_bwd"
     cuda_lib.require(out.shape == (b, n, h * d) and dout.shape == (b, n, h * d),
                      f"{name}: out/dout shape")
     cuda_lib.require(out.dtype == q.dtype and dout.dtype == q.dtype, f"{name}: out/dout dtype")
     cuda_lib.require(stats is not None and stats.shape == (b, h, n, 2)
                      and stats.dtype == torch.float32,
                      f"{name}: needs kernel 1's float32 row statistics [b, h, n, 2]")
-    return _check_attention_args(name, q, k, v, attn_bias, key_mask, out, stats, dout)
-
-
-def shared_kv_attention_bwd(
-    q, k, v, attn_bias, key_mask, out, stats, dout, *,
-    scale: float = 8.0, causal: bool = True, non_causal_prefix: int = 0,
-):
-    """Kernel 5: (dq, dk, dv) of the attention, in the input dtypes.
-
-    ``out`` [b, n, h*d] and ``stats`` [b, h, n, 2] are kernel 1's output and
-    row statistics for these inputs; ``dout`` is the gradient of ``out``.
-    On the CPU the plain backward recomputes everything (stats may be None).
-    """
-    if not q.is_cuda:
-        return shared_kv_attention_bwd_plain(
-            q, k, v, dout, scale=scale, attn_bias=attn_bias, key_mask=key_mask,
-            causal=causal, non_causal_prefix=non_causal_prefix)[:3]
-    b, h, n, d = q.shape
-    m = k.shape[1]
-    name = "shared_kv_attention_bwd"
-    attn_bias, key_mask = _check_bwd_args(name, q, k, v, attn_bias, key_mask, out, stats, dout)
+    attn_bias, key_mask = _check_attention_args(
+        name, q, k, v, attn_bias, key_mask, out, stats, dout)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((b, h, n), **f32)
     dk_part = torch.empty((h, b, m, d), **f32)
     dv_part = torch.empty((h, b, m, d), **f32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    db = torch.empty_like(attn_bias) if want_dbias else None
     rc = cuda_lib.lib().omt_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(attn_bias), _ptr(key_mask),
         out.data_ptr(), stats.data_ptr(), dout.data_ptr(), delta.data_ptr(),
         dk_part.data_ptr(), dv_part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, n, m, int(causal), int(non_causal_prefix), float(scale),
-        cuda_lib.dtype_code(q.dtype), cuda_lib.stream(q),
+        _ptr(db), b, h, n, m, int(causal), int(non_causal_prefix), float(scale),
+        cuda_lib.dtype_code(q.dtype), _bias_code(attn_bias, q), cuda_lib.stream(q),
     )
     cuda_lib.check(rc, name)
     shared_kv_attention_bwd.launches += 1
-    return dq, dk, dv
+    if db is not None:
+        shared_kv_attention_bwd.dbias_launches += 1
+    return dq, dk, dv, db
 
 
 shared_kv_attention_bwd.launches = 0
-
-
-def shared_kv_attention_dbias(
-    q, k, v, attn_bias, key_mask, out, stats, dout, *,
-    scale: float = 8.0, causal: bool = True, non_causal_prefix: int = 0,
-) -> torch.Tensor:
-    """Kernel 6: the bias gradient [h, n, m] summed over the batch, in
-    float32 (the caller casts it to the bias dtype). Arguments as for
-    ``shared_kv_attention_bwd``; the bias is required."""
-    if not q.is_cuda:
-        return shared_kv_attention_bwd_plain(
-            q, k, v, dout, scale=scale, attn_bias=attn_bias.float(), key_mask=key_mask,
-            causal=causal, non_causal_prefix=non_causal_prefix)[3]
-    b, h, n, _ = q.shape
-    m = k.shape[1]
-    name = "shared_kv_attention_dbias"
-    cuda_lib.require(attn_bias is not None, f"{name}: needs the bias")
-    attn_bias, key_mask = _check_bwd_args(name, q, k, v, attn_bias, key_mask, out, stats, dout)
-    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    dbias = torch.empty((h, n, m), dtype=torch.float32, device=q.device)
-    rc = cuda_lib.lib().omt_attention_dbias(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), attn_bias.data_ptr(), _ptr(key_mask),
-        out.data_ptr(), stats.data_ptr(), dout.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
-        b, h, n, m, int(causal), int(non_causal_prefix), float(scale),
-        cuda_lib.dtype_code(q.dtype), cuda_lib.stream(q),
-    )
-    cuda_lib.check(rc, name)
-    shared_kv_attention_dbias.launches += 1
-    return dbias
-
-
-shared_kv_attention_dbias.launches = 0
+shared_kv_attention_bwd.dbias_launches = 0
 
 
 class _SharedKVAttention(torch.autograd.Function):
@@ -281,15 +262,8 @@ class _SharedKVAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, bias, key_mask, out, stats = ctx.saved_tensors
         dout = dout.contiguous()
-        if not q.is_cuda:
-            dq, dk, dv, dbias = shared_kv_attention_bwd_plain(
-                q, k, v, dout, attn_bias=bias, key_mask=key_mask, **ctx.opts)
-        else:
-            args = (q, k, v, bias, key_mask, out, stats, dout)
-            dq, dk, dv = shared_kv_attention_bwd(*args, **ctx.opts)
-            dbias = None
-            if bias is not None and ctx.needs_input_grad[3]:
-                dbias = shared_kv_attention_dbias(*args, **ctx.opts).to(bias.dtype)
+        dq, dk, dv, dbias = shared_kv_attention_bwd(
+            q, k, v, bias, key_mask, out, stats, dout, dbias=ctx.needs_input_grad[3], **ctx.opts)
         return dq, dk, dv, dbias, None, None, None, None
 
 

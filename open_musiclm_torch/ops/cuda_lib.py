@@ -39,14 +39,11 @@ _SIGNATURES = {
     # q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, dtype, kv_int8, stream
     "omt_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, bias, key_mask, out, stats, b, heads, n, m, causal, non_causal_prefix, scale,
-    # dtype, stream
-    "omt_prefill_attention": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, key_mask, out, stats, dout, delta, dk_part, dv_part, dq, dk, dv,
-    # b, heads, n, m, causal, non_causal_prefix, scale, dtype, stream
-    "omt_attention_bwd": (_P,) * 14 + (_I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, key_mask, out, stats, dout, delta, dbias,
-    # b, heads, n, m, causal, non_causal_prefix, scale, dtype, stream
-    "omt_attention_dbias": (_P,) * 10 + (_I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # dtype, bias_dtype, stream
+    "omt_prefill_attention": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, bias, key_mask, out, stats, dout, delta, dk_part, dv_part, dq, dk, dv, dbias,
+    # b, heads, n, m, causal, non_causal_prefix, scale, dtype, bias_dtype, stream
+    "omt_attention_bwd": (_P,) * 15 + (_I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # x, gin, wv, sv, wg, sg, conv_v, conv_g, state, g_out, new_state, B, dim, inner, dtype, stream
     "omt_fused_ff_in": (_P,) * 11 + (_I, _I, _I, _I, _P),
     # g, gmid, wo, so, x, y, B, inner, dim, dtype, stream

@@ -49,6 +49,29 @@ def test_prefill_attention_kernel(dev, b, h, n, m, mask, ncp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bias_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_prefill_attention_kernel_bias_dtypes(dev, dtype, bias_dtype):
+    """The kernel reads the bias in its own dtype: against the plain version
+    in float32 on the same values (bf16 output: 2**-7 of the largest)."""
+    g = torch.Generator().manual_seed(11)
+    b, h, n = 2, 8, 45
+    q = attention.l2norm(_randn(g, b, h, n, 64)).to(dev, dtype)
+    k = attention.l2norm(_randn(g, b, n, 64)).to(dev, dtype)
+    v = _randn(g, b, n, 64).to(dev, dtype)
+    bias = _randn(g, h, n, n).to(dev, bias_dtype)
+    key_mask = (torch.rand(b, n, generator=g) > 0.3).to(dev)
+    out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
+    want, want_stats = attention.shared_kv_attention(
+        q.float(), k.float(), v.float(), attn_bias=bias.float(), key_mask=key_mask, causal=True,
+        return_stats=True)
+    assert out.dtype == dtype
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want, atol=rel * max(1.0, want.abs().max().item()), rtol=0)
+    torch.testing.assert_close(stats, want_stats, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_prefill_attention_kernel_fully_masked_row(dev):
     q = attention.l2norm(torch.randn(1, 8, 6, 64)).to(dev)
     k = attention.l2norm(torch.randn(1, 6, 64)).to(dev)
@@ -119,11 +142,12 @@ def test_wrappers_raise_on_bad_input(dev):
         quant.int8_matmul(x.half(), wq, torch.ones(7, device=dev))  # fp16 is not taken
 
 
-# Kernels 5 and 6 (attention backward). bf16 inputs are held against the
-# plain backward in float32 on the same bf16-valued inputs: the kernels
-# round their float32 results once to bf16, and the forward output that
-# enters rowsum(dO * O) is bf16 too; the bound allows 2**-7 of the largest
-# gradient (chip_smoke's bf16 tolerance). float32: summation order only.
+# Kernels 5 and 6 (attention backward). bf16 inputs (the bias too, as the
+# bf16 training path passes it) are held against the plain backward in
+# float32 on the same bf16-valued inputs: the kernels round their float32
+# results once to bf16, and the forward output that enters rowsum(dO * O) is
+# bf16 too; the bound allows 2**-7 of the largest gradient (chip_smoke's bf16
+# tolerance). float32: summation order only.
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
@@ -159,20 +183,21 @@ def _assert_within(name, got, want, rel):
 def test_attention_bwd_kernels(dev, dtype, b, h, n, m, mask, ncp):
     g = torch.Generator().manual_seed(n + m)
     q, k, v, bias, dout, key_mask = _bwd_case(g, b, h, n, m, mask, dev)
-    q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
+    q, k, v, bias, dout = (t.to(dtype) for t in (q, k, v, bias, dout))
     opts = dict(causal=True, non_causal_prefix=ncp)
     out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True, **opts)
     _, want_stats = attention.shared_kv_attention(
-        q.float(), k.float(), v.float(), attn_bias=bias, key_mask=key_mask, return_stats=True, **opts)
+        q.float(), k.float(), v.float(), attn_bias=bias.float(), key_mask=key_mask,
+        return_stats=True, **opts)
     torch.testing.assert_close(stats, want_stats, atol=1e-4, rtol=1e-4)
-    counts = (attention.shared_kv_attention_bwd.launches, attention.shared_kv_attention_dbias.launches)
-    dq, dk, dv = attention.shared_kv_attention_bwd(q, k, v, bias, key_mask, out, stats, dout, **opts)
-    dbias = attention.shared_kv_attention_dbias(q, k, v, bias, key_mask, out, stats, dout, **opts)
-    assert (attention.shared_kv_attention_bwd.launches, attention.shared_kv_attention_dbias.launches) == (
-        counts[0] + 1, counts[1] + 1)
-    assert (dq.dtype, dk.dtype, dv.dtype, dbias.dtype) == (dtype, dtype, dtype, torch.float32)
+    fn = attention.shared_kv_attention_bwd
+    counts = (fn.launches, fn.dbias_launches)
+    dq, dk, dv, dbias = fn(q, k, v, bias, key_mask, out, stats, dout, **opts)
+    assert (fn.launches, fn.dbias_launches) == (counts[0] + 1, counts[1] + 1)
+    assert (dq.dtype, dk.dtype, dv.dtype, dbias.dtype) == (dtype,) * 4
     want = attention.shared_kv_attention_bwd_plain(
-        q.float(), k.float(), v.float(), dout.float(), attn_bias=bias, key_mask=key_mask, **opts)
+        q.float(), k.float(), v.float(), dout.float(), attn_bias=bias.float(), key_mask=key_mask,
+        **opts)
     for name, got, ref in zip(("dq", "dk", "dv", "dbias"), (dq, dk, dv, dbias), want):
         _assert_within(name, got, ref, BWD_REL[dtype])
 
@@ -186,7 +211,6 @@ def test_attention_bwd_kernels_fully_masked_row(dev):
     key_mask[1, :20] = False  # rows 0..19 of batch 1 see no key
     out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
     got = attention.shared_kv_attention_bwd(q, k, v, bias, key_mask, out, stats, dout)
-    got += (attention.shared_kv_attention_dbias(q, k, v, bias, key_mask, out, stats, dout),)
     want = attention.shared_kv_attention_bwd_plain(q, k, v, dout, attn_bias=bias, key_mask=key_mask)
     for name, a, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
         _assert_within(name, a, ref, 1e-4)
@@ -200,9 +224,10 @@ def test_attention_train_autograd_on_card(dev):
     q, k, v, bias, dout, key_mask = _bwd_case(g, 2, 8, 50, 50, True, dev)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)] + [bias.bfloat16().requires_grad_()]
     ref = [t.detach().clone().requires_grad_() for t in leaves]
-    before = attention.shared_kv_attention_bwd.launches
+    fn = attention.shared_kv_attention_bwd
+    before = (fn.launches, fn.dbias_launches)
     attention.shared_kv_attention_train(*leaves, key_mask).backward(dout)
-    assert attention.shared_kv_attention_bwd.launches == before + 1
+    assert (fn.launches, fn.dbias_launches) == (before[0] + 1, before[1] + 1)
     attention.shared_kv_attention(*ref[:3], attn_bias=ref[3], key_mask=key_mask, causal=True).backward(dout)
     assert leaves[3].grad.dtype == torch.bfloat16
     for a, r in zip(leaves, ref):

@@ -215,6 +215,21 @@ def test_attention_bwd_keeps_input_dtypes_and_no_mask_grad():
     assert not key_mask.requires_grad
 
 
+def test_attention_bwd_wrapper_on_cpu():
+    """On CPU tensors the kernels' wrapper returns the plain backward, with
+    dbias only when there is a bias and it is asked for, and counts no launch."""
+    q, k, v, bias, key_mask, dout = (_t(a) for a in _grad_inputs(4, 2, 4, 10, 10, 16))
+    fn = tattn.shared_kv_attention_bwd
+    before = (fn.launches, fn.dbias_launches)
+    want = tattn.shared_kv_attention_bwd_plain(q, k, v, dout, attn_bias=bias, key_mask=key_mask)
+    got = fn(q, k, v, bias, key_mask, None, None, dout)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    assert fn(q, k, v, bias, key_mask, None, None, dout, dbias=False)[3] is None
+    assert fn(q, k, v, None, key_mask, None, None, dout)[3] is None
+    assert (fn.launches, fn.dbias_launches) == before
+
+
 # ---------------------------------------------------------------------------
 # 3. stage loss and every parameter gradient
 # ---------------------------------------------------------------------------
@@ -248,7 +263,8 @@ def test_stage_loss_and_grads_match_jax(stage):
     jmodel = factory(**TINY, **kw)
     rng = np.random.default_rng(len(stage))
     ids = _stage_ids(rng, jmodel.specs, lens, 2)
-    jparams = jmodel.init(jax.random.PRNGKey(3), [jnp.asarray(a) for a in ids])
+    # jit: flax's eager init of the tiny model takes several seconds on the CPU
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(3), [jnp.asarray(a) for a in ids])
     weights = tuple(0.5 + 0.25 * i for i in range(len(lens)))  # every logit head has a loss
 
     def jloss(params):
@@ -350,8 +366,8 @@ def test_trainer_matches_jax(tmp_path):
     difference of ~1e-7 moves a parameter by ~lr x 1e-5: the parameters are
     then held to 1e-6 (lr x 1e-3)."""
     jmodel = JTCT(specs=(JSpec(CB, 2), JSpec(CB, 1)), dim=32, depth=2, heads=2, dim_head=16)
-    jparams = jmodel.init(jax.random.PRNGKey(0), [jnp.zeros((1, 6), jnp.int32),
-                                                  jnp.zeros((1, 8), jnp.int32)])
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0), [jnp.zeros((1, 6), jnp.int32),
+                                                           jnp.zeros((1, 8), jnp.int32)])
     weights = (0.5, 1.0)
     hp = dict(lr=1e-3, wd=1e-2, lr_warmup=2, max_grad_norm=0.5, grad_accum_every=2)
     jtrainer = JStageTrainer(model=jmodel, loss_cfg=JLossConfig(weights, mask_prob=0.0),
