@@ -7,20 +7,28 @@ Phases, each of which fails the run:
   1. build the hand-written kernels from open_musiclm_torch/csrc/ (one nvcc
      process per source, all started together);
   2. hold each kernel against its plain PyTorch version, in float32 and
-     bfloat16, and time both: kernels 1-4 at the serving path's shapes,
-     kernel 1 (with a key mask and its row statistics) and kernels 5 and 6
-     (the attention backward) at the three training shapes;
-     time one PyTorch library call computing the same function where there
-     is one (scaled_dot_product_attention), and compute each kernel's bound
-     (the least time the card could take: bytes over the memory rate or
-     FLOPs over the peak rate, whichever is larger);
-  3. hold the int8 serving decode with kernels (CUDA) against the same decode
-     on the CPU through the plain versions: per-step teacher-forced logits of
-     the full-width semantic stage in float32, both cache modes;
+     bfloat16, and time both: kernels 1-4 and 7 at the serving path's
+     shapes (kernel 2 also with float32 rows, kernel 7 also at an odd
+     batch, at the fine stage's 14 rows and at pos 0, beside one layer of
+     the two-kernel decode step), kernel 1 (with a key mask and its row
+     statistics) and kernels 5 and 6 (the attention backward) at the three
+     training shapes; time one PyTorch library call computing the same
+     function where there is one (scaled_dot_product_attention), and
+     compute each kernel's bound (the least time the card could take: bytes
+     over the memory rate or FLOPs over the peak rate, whichever is larger);
+  3. hold every decode mode with kernels (CUDA) against the same decode on
+     the CPU through the plain versions: per-step teacher-forced logits of
+     the full-width semantic stage in float32, flash_kv "bf16", "int8",
+     "f32", "fused" and None, and the fp decode;
   4. the serving path: MusicLM.generate on musiclm_small at full width
-     (random weights from a seed, bf16, quantized=True, flash_kv="int8"), at
-     batch 8 x 4 s and batch 2 x 12 s, checking waveform shapes, finiteness
-     and that kernels 1-4 launched;
+     (random weights from a seed, bf16): quantized=True, flash_kv="int8" at
+     batch 8 x 4 s and batch 2 x 12 s (kernels 1-4), flash_kv="fused" at
+     batch 8 x 4 s (kernel 7 exactly once per layer and decode step, kernels
+     1 and 4), the fp decode (kernel 1) and flash_kv=None (kernels 1, 3, 4)
+     at batch 2 x 4 s, each checking waveform shapes, finiteness and that
+     exactly its kernels launched; then each mode's decode step on the
+     semantic stage at batch 8: ms a step, CUDA launches a step and device
+     busy time (torch.profiler);
   5. the training path: the full-width coarse stage's loss and every
      parameter gradient on the card (kernels 1, 5, 6) against the plain path
      on the CPU in float64, within 3x the CPU float32 path's own distance
@@ -80,6 +88,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def to_device(tree, dev):
+    """A quantize_stage_params tree (dicts, tuples, tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_device(v, dev) for v in tree)
+    return tree.to(dev)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -111,8 +128,13 @@ def main() -> int:
     try:
         from open_musiclm_torch import config as omt_config
         from open_musiclm_torch.models.musiclm import MusicLM
-        from open_musiclm_torch.models.quant_decode import generate_quantized
-        from open_musiclm_torch.ops import attention, cuda_lib, decode_attention, fused_ff, quant
+        from open_musiclm_torch.models.stages import Stage
+        from open_musiclm_torch.core.sequence import TokenSequenceSpec
+        from open_musiclm_torch.models import token_cond
+        from open_musiclm_torch.models.quant_decode import (
+            flash_quant_decode_step, generate_quantized, quantize_stage_params)
+        from open_musiclm_torch.models.token_cond import TokenConditionedTransformer
+        from open_musiclm_torch.ops import attention, cuda_lib, decode_attention, fused_ff, fused_layer, quant
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
@@ -273,8 +295,10 @@ def main() -> int:
     k, v = attention.l2norm(rand(b, N, D)), rand(b, N, D)
     kq, ks = decode_attention.quantize_kv_row(k)
     vq, vs = decode_attention.quantize_kv_row(v)
+    # "f32": float32 rows whatever the activations' dtype (the "f32" cache mode)
     caches = {"int8": (torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous()),
-              "bf16": (torch.cat([k, v], -1).contiguous(), None)}
+              "bf16": (torch.cat([k, v], -1).contiguous(), None),
+              "f32": (torch.cat([k, v], -1).contiguous(), None)}
     for mode, (kv, sc) in caches.items():
         for pos in (100, N - 1):
             ins = dict(q_t=attention.l2norm(rand(b, H, D)), kv_cache=kv, bias_row=rand(N, H),
@@ -301,7 +325,7 @@ def main() -> int:
                           decode_attention.flash_decode_step(q_t, kv_cache, pos, bias_row, add_mask, sc),
                       lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
                           decode_attention.flash_decode_step_plain(q_t, kv_cache, pos, bias_row, add_mask, sc),
-                      ins, keep_f32=("bias_row", "add_mask"),
+                      ins, keep_f32=("bias_row", "add_mask") + (("kv_cache",) if mode == "f32" else ()),
                       summary=summary if (mode, pos, dt) == ("bf16", N - 1, torch.bfloat16) else None)
     # 3. fused FF: the fine stage's rows at batch 8 (2 windows x 8), and batch 8
     from open_musiclm_torch.models.transformer import ConvFeedForward
@@ -339,6 +363,64 @@ def main() -> int:
                   lambda x: quant.int8_matmul(x, wq, s),
                   lambda x: quant.int8_matmul_plain(x, wq, s), ins,
                   summary=summary if (b, dt) == (8, torch.bfloat16) else None)
+    # 7. one whole decode layer: a full-width layer (seeded weights, LayerNorm
+    #    gains and q/k scales drawn around 1) over the coarse / fine cache
+    #    (N 1280) at b 8 with pos in the first and the last chunk, at the
+    #    fine stage's b 14 (batch 2 x 7 windows), at an odd b 3 and at pos 0.
+    #    The kernel writes the fresh row and the conv state in place, so each
+    #    side gets its own copies. For context, one layer of the two-kernel
+    #    flash_quant_decode_step (kernels 2 and 3 plus the plain projections
+    #    and row write) over the same weights and cache.
+    layer_model = TokenConditionedTransformer(
+        (TokenSequenceSpec(1024, 1),), DIM, 1, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for t in (*layer_model.transformer.attns[0].parameters(), *layer_model.transformer.ffs[0].parameters()):
+            if t.dim() == 1:
+                t.normal_(1.0, 0.1, generator=g)
+    layer_model = layer_model.to(dev).eval()
+    lpacked = fused_layer.pack_layer_weights(layer_model.transformer.attns[0], layer_model.transformer.ffs[0])
+    lfn = fused_layer.fused_layer_decode_step
+    two_model = copy.deepcopy(layer_model).to(torch.bfloat16)
+    two_qp = {"ff_0": {"packed": fused_ff.pack_ff_weights(layer_model.transformer.ffs[0])}}
+    for b, pos in ((8, 100), (8, N - 1), (14, N - 1), (3, 700), (8, 0)):
+        kq, ks = decode_attention.quantize_kv_row(attention.l2norm(rand(b, N, D)))
+        vq, vs = decode_attention.quantize_kv_row(rand(b, N, D))
+        kv, sc = torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous()
+        x32, st32, bias_row = rand(b, DIM), rand(b, 2, 2 * INNER), rand(N, H)
+        add_mask = torch.zeros(b, N, device=dev)
+        label = f"b{b} N{N} pos{pos}"
+        for dt in (torch.bfloat16, torch.float32):
+            x, st = x32.to(dt), st32.to(dt)
+            args = (pos, bias_row, add_mask)
+            want = fused_layer.fused_layer_decode_step_plain(
+                x.float(), lpacked, kv.clone(), sc.clone(), st.float().clone(), *args, heads=H)
+            got = lfn(x, lpacked, kv.clone(), sc.clone(), st.clone(), *args, heads=H)
+            torch.cuda.synchronize()
+            err, ref_max, tol = compare("fused_layer_decode_step", label, dt, got, want)
+            kv_t, sc_t, st_t = kv.clone(), sc.clone(), st.clone()
+            ms = time_ms(lambda: lfn(x, lpacked, kv_t, sc_t, st_t, *args, heads=H))
+            plain_ms = time_ms(lambda: fused_layer.fused_layer_decode_step_plain(
+                x, lpacked, kv_t, sc_t, st_t, *args, heads=H), reps=5)
+            summary = None
+            if (b, pos, dt) == (8, N - 1, torch.bfloat16):
+                # the cache rows j < pos and their scales, the bias rows and
+                # the mask the step reads; every weight once; x and the state
+                # in, y, krow, the state and the fresh row out
+                moved = (nbytes(x, st, *lpacked.values(), *got) + b * pos * (2 * D + 8)
+                         + (pos + 1) * H * 4 + b * pos * 4 + b * (2 * D + 8))
+                flops = (2 * b * DIM * (2 * H * D + 2 * D + 3 * INNER)
+                         + 4 * b * H * D * (pos + 1))
+                summary = (moved, flops, None)  # no one PyTorch call computes a decode layer
+                cache = {"kv": kv.clone()[None], "kvs": sc.clone()[None], "ff": st.clone()[None]}
+                two = time_ms(lambda: flash_quant_decode_step(
+                    two_model, two_qp, x, cache, pos, bias_row, add_mask, int8_kv=True))
+                print(f"    two-kernel flash_quant_decode_step, one layer, {label} {dt}: {two:.4f} ms "
+                      f"(kernels 2 + 3, plain projections, row write, final LayerNorm) [{card}]",
+                      flush=True)
+            report("fused_layer_decode_step", label, dt, err, ref_max, tol, ms, plain_ms, summary)
+            del want, got
+    del layer_model, lpacked, two_model, two_qp
+
     # 1 (training forward), 5 and 6 (the attention backward) at the training
     # shapes (semantic b4 n514, coarse b2 n1116, fine b2 n1217), with the bias
     # in the compute dtype (as the training path passes it) and a key mask
@@ -397,35 +479,41 @@ def main() -> int:
     print("  (plain ms of attention_bwd / attention_dbias: one plain backward computing "
           "dq, dk, dv and dbias together)")
 
-    # ---- 3. the serving decode with kernels vs the plain path on the CPU ----
+    # ---- 3. every decode mode with kernels vs the plain path on the CPU ----
     # float32, 24 teacher-forced steps of the full-width semantic stage. With
-    # "bf16" cache rows (float32 here) only float32 rounding order differs.
-    # With "int8" rows a float32 difference at a rounding boundary can move
-    # one cache element by a quantization step (1/127 of its row's absmax),
-    # so that mode is held to 1e-2 of the largest logit instead of 1e-4.
+    # unquantized cache rows ("bf16" rows are float32 here, "f32", None, and
+    # the fp decode) only float32 rounding order differs: 1e-4 of the largest
+    # logit. With int8 rows ("int8", "fused") a float32 difference at a
+    # rounding boundary can move one cache element by a quantization step
+    # (1/127 of its row's absmax), so those modes are held to 1e-2.
     mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
     stage = omt_config.init_stage(mc, "semantic", 11, device="cpu", quantized=True)
     cond = torch.randint(0, 1024, (2, 12), generator=g)
     teacher = torch.randint(0, 1024, (2, 24, 1), generator=g)
-    qp_cpu = stage.qparams()
+    qp_cpu = quantize_stage_params(stage.model, fused=True)
     model_gpu = copy.deepcopy(stage.model).to(dev)
-    qp_gpu = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else tuple(t.to(dev) for t in v))
-              for k, v in qp_cpu.items()}
-    for mode, rel in (("bf16", 1e-4), ("int8", 1e-2)):
-        kw = dict(max_time_steps=24, temperature=0.0, teacher_ids=teacher, return_logits=True, flash_kv=mode)
-        _, want = generate_quantized(stage.model, qp_cpu, [cond], **kw)
-        _, got = generate_quantized(model_gpu, qp_gpu, [cond.to(dev)], **kw)
+    qp_gpu = to_device(qp_cpu, dev)
+    for mode, rel in (("bf16", 1e-4), ("int8", 1e-2), ("f32", 1e-4), ("fused", 1e-2),
+                      (None, 1e-4), ("fp", 1e-4)):
+        kw = dict(max_time_steps=24, temperature=0.0, teacher_ids=teacher, return_logits=True)
+        if mode == "fp":
+            _, want = token_cond.generate(stage.model, [cond], **kw)
+            _, got = token_cond.generate(model_gpu, [cond.to(dev)], **kw)
+        else:
+            _, want = generate_quantized(stage.model, qp_cpu, [cond], flash_kv=mode, **kw)
+            _, got = generate_quantized(model_gpu, qp_gpu, [cond.to(dev)], flash_kv=mode, **kw)
         got, want = got.cpu()[..., :-1], want[..., :-1]  # the EOS column is -1e9 on both
         err = (got - want).abs().max().item()
         tol = rel * max(1.0, want.abs().max().item())
-        print(f"serving decode, semantic stage f32, flash_kv={mode}, 24 teacher-forced steps: "
-              f"CUDA kernels vs CPU plain logits max_abs_err {err:.3e} tol {tol:.3e} "
-              f"(max |logit| {want.abs().max().item():.2f})", flush=True)
+        name = "fp decode (quantized=False)" if mode == "fp" else f"int8 decode, flash_kv={mode}"
+        print(f"{name}, semantic stage f32, 24 teacher-forced steps: CUDA vs CPU plain logits "
+              f"max_abs_err {err:.3e} tol {tol:.3e} (max |logit| {want.abs().max().item():.2f})",
+              flush=True)
         if not err <= tol:
-            fail(f"serving decode logits ({mode} cache) differ: {err} > {tol}")
+            fail(f"{name} logits differ: {err} > {tol}")
     del model_gpu, qp_gpu, stage
 
-    # ---- 4. the serving path: MusicLM.generate at full width ----
+    # ---- 4. the serving path in every decode mode: MusicLM.generate at full width ----
     bf16 = torch.bfloat16
     stages = {
         f"{name}_stage": omt_config.init_stage(
@@ -448,48 +536,113 @@ def main() -> int:
          "open_musiclm_tpu/ops/pallas_attention.py:420"),
         ("attention_dbias", (bwd, "dbias_launches"), "attention_bwd.cu",
          "open_musiclm_tpu/ops/pallas_attention.py:475"),
+        ("fused_layer_decode_step", (fused_layer.fused_layer_decode_step, "launches"),
+         "fused_layer.cu", "open_musiclm_tpu/ops/fused_layer.py:348"),
     ]
-    serving_kernels = kernels[:4]
-    for _, (fn, attr), _, _ in serving_kernels:
-        setattr(fn, attr, 0)
+    counters = {name: counter for name, counter, _, _ in kernels}
     gen = torch.Generator(device=dev).manual_seed(0)
     n_clap = mc.clap_rvq_cfg.rq_num_quantizers
-    for batch, seconds, want_shape in ((8, 4.0, (8, 96000)), (2, 12.0, (2, 336000))):
-        clap = torch.randint(0, mc.clap_rvq_cfg.codebook_size, (batch, n_clap, 1), generator=g).to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        wave = musiclm.generate(
-            clap_token_ids=clap, generator=gen, output_seconds=seconds,
-            semantic_window_seconds=int(mc.global_cfg.semantic_audio_length_seconds),
-            coarse_window_seconds=int(mc.global_cfg.coarse_audio_length_seconds),
-            fine_window_seconds=int(mc.global_cfg.fine_audio_length_seconds),
-        )
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        audio_s = wave.shape[0] * wave.shape[1] / codec.sample_rate
-        print(f"MusicLM.generate batch {batch} x {seconds} s: wave {tuple(wave.shape)} "
-              f"{wall:.2f} s wall, {audio_s / wall:.3f} audio-s/wall-s, "
-              f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-        if tuple(wave.shape) != want_shape:
-            fail(f"waveform shape {tuple(wave.shape)} != {want_shape}")
-        if not torch.isfinite(wave.float()).all():
-            fail("waveform has non-finite samples")
-    launches = {name: getattr(fn, attr) for name, (fn, attr), _, _ in serving_kernels}
-    print(f"serving-path launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the serving path")
+    windows = dict(
+        semantic_window_seconds=int(mc.global_cfg.semantic_audio_length_seconds),
+        coarse_window_seconds=int(mc.global_cfg.coarse_audio_length_seconds),
+        fine_window_seconds=int(mc.global_cfg.fine_audio_length_seconds),
+    )
+
+    def clap_tokens(batch):
+        return torch.randint(0, mc.clap_rvq_cfg.codebook_size, (batch, n_clap, 1), generator=g).to(dev)
+
+    def drive(musiclm, mode, runs):
+        """MusicLM.generate for each (batch, seconds, waveform shape) of
+        ``runs``, every kernel count set to 0 just before and read just
+        after. Returns the counts."""
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        for batch, seconds, want_shape in runs:
+            clap = clap_tokens(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wave = musiclm.generate(clap_token_ids=clap, generator=gen, output_seconds=seconds, **windows)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            audio_s = wave.shape[0] * wave.shape[1] / codec.sample_rate
+            print(f"MusicLM.generate {mode}, batch {batch} x {seconds} s: wave {tuple(wave.shape)} "
+                  f"{wall:.2f} s wall, {audio_s / wall:.3f} audio-s/wall-s, "
+                  f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+            if tuple(wave.shape) != want_shape:
+                fail(f"{mode}: waveform shape {tuple(wave.shape)} != {want_shape}")
+            if not torch.isfinite(wave.float()).all():
+                fail(f"{mode}: waveform has non-finite samples")
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    def expect(mode, launches, path):
+        """Fail unless exactly the kernels in ``path`` launched (and each did)."""
+        print(f"  {mode} launches: {launches}")
+        for name, n in launches.items():
+            if (n > 0) != (name in path):
+                fail(f"{mode}: kernel {name} launched {n} times; the path runs {sorted(path)}")
+
+    # the int8 serving path (flash_kv="int8"): kernels 1-4
+    launches = drive(musiclm, "flash_kv=int8", ((8, 4.0, (8, 96000)), (2, 12.0, (2, 336000))))
+    expect("flash_kv=int8", launches, {"prefill_attention", "flash_decode_step", "fused_ff_apply", "int8_matmul"})
+    path_launches = dict(launches)
+
+    # the same models in the other decode modes: "fused" (kernel 7 once per
+    # layer and step, kernel 4 once per step for the logits, kernel 1 per
+    # window), the fp decode (kernel 1 only) and flash_kv=None (kernels 1, 3, 4)
+    def restage(**mode):
+        return MusicLM(codec=codec, **{key: Stage(st.model, name=st.name, **mode) for key, st in stages.items()})
+
+    depth = len(stages["semantic_stage"].model.transformer.attns)
+    launches = drive(restage(quantized=True, flash_kv="fused"), "flash_kv=fused", ((8, 4.0, (8, 96000)),))
+    expect("flash_kv=fused", launches, {"prefill_attention", "int8_matmul", "fused_layer_decode_step"})
+    steps = launches["int8_matmul"]  # one logit head a decode step
+    print(f"  flash_kv=fused: {steps} decode steps, kernel 7 {launches['fused_layer_decode_step'] / steps:.2f} "
+          f"launches a step (depth {depth})")
+    if launches["fused_layer_decode_step"] != depth * steps:
+        fail(f"kernel 7 launched {launches['fused_layer_decode_step']} times, want {depth} x {steps}")
+    path_launches["fused_layer_decode_step"] = launches["fused_layer_decode_step"]
+    launches = drive(restage(quantized=False), "fp decode (quantized=False)", ((2, 4.0, (2, 96000)),))
+    expect("fp decode", launches, {"prefill_attention"})
+    launches = drive(restage(quantized=True, flash_kv=None), "flash_kv=None", ((2, 4.0, (2, 96000)),))
+    expect("flash_kv=None", launches, {"prefill_attention", "fused_ff_apply", "int8_matmul"})
+    if launches["fused_ff_apply"] != depth * launches["int8_matmul"]:
+        fail(f"flash_kv=None: kernel 3 launched {launches['fused_ff_apply']} times, "
+             f"want {depth} x {launches['int8_matmul']}")
+
+    # per-step cost of each mode: the semantic stage at batch 8, 16 and 48
+    # decode steps; the difference divided by 32 removes the prefill
+    sem = stages["semantic_stage"].model
+    clap = clap_tokens(8).reshape(8, -1)
+    for mode in (dict(quantized=True, flash_kv="int8"), dict(quantized=True, flash_kv="fused"),
+                 dict(quantized=True, flash_kv=None), dict(quantized=False)):
+        st = Stage(sem, name="semantic", **mode)
+        st.generate([clap], gen, max_time_steps=4)  # warm-up, qparams
+        walls = []
+        for T in (16, 48):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.generate([clap], gen, max_time_steps=T)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        prof = [profile_generate(torch, st, clap, gen, T) for T in (16, 48)]
+        step_ms = (walls[1] - walls[0]) / 32 * 1e3
+        step_launches = (prof[1][0] - prof[0][0]) / 32
+        busy_ms = (prof[1][1] - prof[0][1]) / 32
+        print(f"decode step, semantic b8, {mode}: {step_ms:.3f} ms a step (unprofiled), "
+              f"{step_launches:.1f} CUDA kernel launches a step, device busy {busy_ms:.3f} ms a step "
+              f"(idle share {100 * (1 - busy_ms / step_ms):.1f} % of the unprofiled step) [{card}]",
+              flush=True)
     del musiclm, stages, codec
     torch.cuda.empty_cache()
 
     # ---- 5. the training path ----
-    train_launches = training_phase(torch, omt_config, mc, dev, card, g, attention, kernels)
-    launches.update(attention_bwd=train_launches["attention_bwd"],
-                    attention_dbias=train_launches["attention_dbias"])
+    train_launches = training_phase(torch, omt_config, mc, dev, card, attention, kernels)
+    path_launches.update(attention_bwd=train_launches["attention_bwd"],
+                         attention_dbias=train_launches["attention_dbias"])
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
-         "launches": launches[name], **results[name]}
+         "launches": path_launches[name], **results[name]}
         for name, _, src, tpu in kernels
     ]}
     print(json.dumps(summary))
@@ -558,6 +711,18 @@ def write_token_store(folder, mc, n_tracks: int, seconds: int, seed: int):
     store.close()
 
 
+def profile_generate(torch, stage, clap, gen, steps):
+    """(CUDA kernel launches, device busy ms) of one Stage.generate call of
+    ``steps`` decode steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stage.generate([clap], gen, max_time_steps=steps)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in events), sum(e.self_device_time_total for e in events) / 1e3
+
+
 def profile_step(torch, trainer, state, batch, gen, card):
     """One more train step under torch.profiler: device busy time by kernel
     group and the device's idle share of the (profiled) step."""
@@ -593,7 +758,7 @@ def profile_step(torch, trainer, state, batch, gen, card):
         print(f"    {us / 1e3:9.2f} ms {count:6d}x  {key[:110]}")
 
 
-def training_phase(torch, omt_config, mc, dev, card, g, attention, kernels):
+def training_phase(torch, omt_config, mc, dev, card, attention, kernels):
     """Phase 5. Returns the launches of kernels 1, 5 and 6 during the
     StageTrainer.train run."""
     from open_musiclm_torch.models import transformer
@@ -625,7 +790,9 @@ def training_phase(torch, omt_config, mc, dev, card, g, attention, kernels):
     cpu_model = omt_config.init_stage(mc, "coarse", 21, device="cpu").model
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     f64_model = copy.deepcopy(cpu_model).double()
-    ids = [torch.randint(0, s.codebook_size, (2, n), generator=g) for s, n in zip(cpu_model.specs, lens)]
+    # the phase's own seeded draws, so that phases before it do not change its inputs
+    ids_gen = torch.Generator().manual_seed(1)
+    ids = [torch.randint(0, s.codebook_size, (2, n), generator=ids_gen) for s, n in zip(cpu_model.specs, lens)]
     ids[0][0, -1], ids[0][1, 4] = -1, cpu_model.specs[0].eos_id
     ids[1][1, -3:], ids[1][0, 7] = -1, cpu_model.specs[1].eos_id
     cfg = StageLossConfig((0.5, 0.5, 1.0), mask_prob=0.0)

@@ -7,7 +7,8 @@
 //   out[h] = softmax(sim) @ (V * vs)
 // with the cache packed as [b, N, 2*64] (K in lanes 0:64, V in 64:128), rows
 // in int8 with per-row float32 scales [2, b, N] (K row 0, V row 1) or in
-// the activation dtype without scales. As in the TPU kernel, the K scale is
+// float32 or bf16 without scales, whatever the activations' dtype (the
+// "f32" mode keeps float32 rows under bf16 activations). As in the TPU kernel, the K scale is
 // applied after the dot and the V scale is folded into p after p has been
 // added to the softmax denominator (ops/decode_attention.py:135-151).
 //
@@ -104,35 +105,41 @@ __global__ void flash_decode_kernel(
   o[lane + 32] = omt::from_f32<T>(acc1 * inv);
 }
 
+template <typename T, typename KV, bool QUANT>
+void launch_rows(const void* q, const void* kv, const void* scales, const void* bias_row,
+                 const void* add_mask, void* out, int b, int heads, int N, int pos, float scale,
+                 cudaStream_t s) {
+  flash_decode_kernel<T, KV, QUANT><<<b, 32 * heads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kv), static_cast<const float*>(scales),
+      static_cast<const float*>(bias_row), static_cast<const float*>(add_mask),
+      static_cast<T*>(out), b, heads, N, pos, scale);
+}
+
+// kv_dtype: 0 float32 rows, 1 bf16 rows, 2 int8 rows with scales
 template <typename T>
 void launch(const void* q, const void* kv, const void* scales, const void* bias_row,
             const void* add_mask, void* out, int b, int heads, int N, int pos, float scale,
-            bool kv_int8, cudaStream_t s) {
-  const dim3 grid(b), block(32 * heads);
-  auto qp = static_cast<const T*>(q);
-  auto sc = static_cast<const float*>(scales);
-  auto br = static_cast<const float*>(bias_row);
-  auto am = static_cast<const float*>(add_mask);
-  auto op = static_cast<T*>(out);
-  if (kv_int8)
-    flash_decode_kernel<T, int8_t, true><<<grid, block, 0, s>>>(
-        qp, static_cast<const int8_t*>(kv), sc, br, am, op, b, heads, N, pos, scale);
+            int kv_dtype, cudaStream_t s) {
+  if (kv_dtype == 2)
+    launch_rows<T, int8_t, true>(q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, s);
+  else if (kv_dtype == 0)
+    launch_rows<T, float, false>(q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, s);
   else
-    flash_decode_kernel<T, T, false><<<grid, block, 0, s>>>(
-        qp, static_cast<const T*>(kv), sc, br, am, op, b, heads, N, pos, scale);
+    launch_rows<T, __nv_bfloat16, false>(q, kv, scales, bias_row, add_mask, out, b, heads, N, pos,
+                                         scale, s);
 }
 
 }  // namespace
 
 extern "C" int omt_flash_decode(const void* q, const void* kv, const void* scales,
                                 const void* bias_row, const void* add_mask, void* out, int b,
-                                int heads, int N, int pos, float scale, int dtype, int kv_int8,
+                                int heads, int N, int pos, float scale, int dtype, int kv_dtype,
                                 void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch<float>(q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, kv_int8, s);
+    launch<float>(q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, kv_dtype, s);
   else
     launch<__nv_bfloat16>(q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale,
-                          kv_int8, s);
+                          kv_dtype, s);
   return static_cast<int>(cudaGetLastError());
 }

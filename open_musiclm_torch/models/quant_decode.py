@@ -1,18 +1,21 @@
 """int8 serving decode (port of open_musiclm_tpu/models/quant_decode.py).
 
-The serving path the JAX bench runs: an fp prefill (kernel 1), then one
-decode step per token in which
+An fp prefill (kernel 1), then one decode step per token. ``flash_kv``
+selects the step:
 
-  * attention reads the packed K|V cache through the flash-decode kernel
-    (kernel 2) with int8 ("int8") or activation-dtype ("bf16") cache rows,
-  * the conv-FF block runs through the fused int8 kernel (kernel 3),
-  * the logit head is an int8 matmul (kernel 4).
+  * ``None``: ``quant_decode_step`` over separate K/V caches, attention in
+    plain torch (``shared_kv_decode_step``); with ``fused_ff`` (the default)
+    the attention projections are plain matmuls and the conv-FF block is
+    kernel 3, without it every one of the five layer matmuls is kernel 4;
+  * ``"int8"``, ``"bf16"``, ``"f32"``: ``flash_quant_decode_step`` over the
+    packed K|V cache through the flash-decode kernel (kernel 2) with int8,
+    activation-dtype or float32 rows, then kernel 3;
+  * ``"fused"``: ``fused_layer_step``, one launch of kernel 7 per layer
+    (attention and conv-FF, all weights int8, int8 cache rows).
 
-The attention projections to_q / to_kv / to_out stay plain matmuls in the
-parameter dtype, as in the JAX serving configuration. The decode loop is a
-Python loop with ``pos`` a host integer; caches are updated in place.
-Not ported yet: the ``flash_kv=None`` per-matmul int8 step, ``"f32"`` and
-``"fused"`` cache modes, and per-row sampling keys.
+The logit head is kernel 4 in every mode. The decode loop is a Python loop
+with ``pos`` a host integer; caches are updated in place. Not ported yet:
+per-row sampling keys and the mesh-sharded decode.
 """
 
 from __future__ import annotations
@@ -22,25 +25,38 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..core.sampling import NEG_INF, append_eos_id, mask_out_after_eos_id, sample_top_k_gumbel
-from ..ops.attention import l2norm
+from ..ops.attention import l2norm, shared_kv_decode_step
 from ..ops.decode_attention import flash_decode_step, quantize_kv_row, round_up_chunk
 from ..ops.fused_ff import fused_ff_apply, pack_ff_weights
+from ..ops.fused_layer import fused_layer_decode_step, pack_layer_weights
 from ..ops.quant import int8_matmul, quantize_weight
-from .token_cond import PAD_ID, TokenConditionedTransformer
+from .token_cond import TokenConditionedTransformer, decode_loop, make_prompt
 from .transformer import layer_norm
 
-FLASH_KV_MODES = ("int8", "bf16")
+FLASH_KV_MODES = (None, "bf16", "f32", "int8", "fused")
 
 
 @torch.no_grad()
-def quantize_stage_params(model: TokenConditionedTransformer) -> Dict[str, Any]:
-    """int8 side-tree for the decode path: each layer's packed conv-FF
-    weights, and the final sequence's logit heads as per-head int8 [d, C]
-    with per-column scales ([Q, d, C] and [Q, C])."""
-    q: Dict[str, Any] = {
-        f"ff_{l}": pack_ff_weights(ff) for l, ff in enumerate(model.transformer.ffs)
-    }
+def quantize_stage_params(model: TokenConditionedTransformer, fused: bool = False) -> Dict[str, Any]:
+    """int8 side-tree for the decode paths: per layer the attention
+    projections (``attn_{l}``: to_q, to_kv, to_out) and the conv-FF
+    projections with kernel 3's pack (``ff_{l}``: proj_in, proj_out,
+    packed), each an (int8 [in, out], scale [out]) pair; with ``fused`` also
+    kernel 7's pack (``layer_{l}``). The final sequence's logit heads are
+    per-head int8 [d, C] with per-column scales ([Q, d, C] and [Q, C])."""
+    q: Dict[str, Any] = {}
+    for l, (attn, ff) in enumerate(zip(model.transformer.attns, model.transformer.ffs)):
+        q[f"attn_{l}"] = {
+            name: quantize_weight(getattr(attn, name).weight.detach().t())
+            for name in ("to_q", "to_kv", "to_out")
+        }
+        q[f"ff_{l}"] = {
+            "proj_in": quantize_weight(ff.proj_in.weight.detach().t()),
+            "proj_out": quantize_weight(ff.proj_out.weight.detach().t()),
+            "packed": pack_ff_weights(ff),
+        }
+        if fused:
+            q[f"layer_{l}"] = pack_layer_weights(attn, ff)
     w = model.logit_heads[-1].detach()  # [Q, C, d]
     heads = [quantize_weight(w[i].t()) for i in range(w.shape[0])]
     q["logit_heads"] = (
@@ -50,10 +66,56 @@ def quantize_stage_params(model: TokenConditionedTransformer) -> Dict[str, Any]:
     return q
 
 
-def pack_kv_cache(cache: Dict[str, torch.Tensor], int8: bool) -> Dict[str, torch.Tensor]:
-    """Separate K/V cache -> the flash kernel's packed layout: kv
+def quant_decode_step(
+    model: TokenConditionedTransformer,
+    qparams: Dict[str, Any],
+    x_t: torch.Tensor,  # [b, dim]
+    cache: Dict[str, torch.Tensor],  # separate K/V caches, updated in place
+    pos: int,
+    bias_table: Optional[torch.Tensor],  # [2N-1, h] decode layout
+    *,
+    fused_ff: bool = True,
+) -> torch.Tensor:
+    """The ``flash_kv=None`` step. Returns the normed h [b, dim]."""
+    tfm = model.transformer
+    d, heads = model.dim_head, model.heads
+    k_all, v_all, ff_all = cache["k"], cache["v"], cache["ff"]
+    x = x_t
+    b = x.shape[0]
+    for l, (attn, ff) in enumerate(zip(tfm.attns, tfm.ffs)):
+        qa, qf = qparams[f"attn_{l}"], qparams[f"ff_{l}"]
+        h = layer_norm(x, attn.norm.gamma)
+        # K/V project from the UN-normed residual stream, Q from the normed one
+        if fused_ff:
+            qv, kv = F.linear(h, attn.to_q.weight), F.linear(x, attn.to_kv.weight)
+        else:
+            qv, kv = int8_matmul(h, *qa["to_q"]), int8_matmul(x, *qa["to_kv"])
+        k_t, v_t = kv.chunk(2, dim=-1)
+        qh = l2norm(qv.reshape(b, heads, d)) * attn.q_scale.to(qv.dtype)
+        k_all[l, :, pos] = l2norm(k_t) * attn.k_scale.to(k_t.dtype)
+        v_all[l, :, pos] = v_t
+        out = shared_kv_decode_step(qh, k_all[l], v_all[l], pos, scale=attn.scale, bias_table=bias_table)
+        if fused_ff:
+            x = x + F.linear(out, attn.to_out.weight)
+            x, ff_all[l] = fused_ff_apply(x, qf["packed"], ff_all[l])
+            continue
+        x = x + int8_matmul(out, *qa["to_out"])
+        state = ff_all[l]
+        u_t = int8_matmul(layer_norm(x, ff.norm_in.gamma), *qf["proj_in"])  # [b, 2*inner]
+        w = ff.conv_w.to(u_t.dtype)
+        conv = state[:, 0] * w[0] + state[:, 1] * w[1] + u_t * w[2]
+        g = layer_norm(ff.geglu(conv), ff.norm_mid.gamma)
+        x = x + int8_matmul(g, *qf["proj_out"])
+        ff_all[l] = torch.stack([state[:, 1], u_t], dim=1)
+    return layer_norm(x, tfm.final_norm.gamma)
+
+
+def pack_kv_cache(cache: Dict[str, torch.Tensor], int8: bool,
+                  cache_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """Separate K/V cache -> the flash kernels' packed layout: kv
     [depth, b, N, 2d] (K in lanes 0:d, V in d:2d); int8 mode adds per-row
-    scales kvs [depth, 2, b, N]."""
+    scales kvs [depth, 2, b, N]. ``cache_dtype`` overrides the row dtype of
+    the unquantized modes ("f32": float32 rows)."""
     out = {"ff": cache["ff"]}
     if int8:
         kq, ks = quantize_kv_row(cache["k"])
@@ -61,7 +123,8 @@ def pack_kv_cache(cache: Dict[str, torch.Tensor], int8: bool) -> Dict[str, torch
         out["kv"] = torch.cat([kq, vq], dim=-1).contiguous()
         out["kvs"] = torch.stack([ks, vs], dim=1).contiguous()
     else:
-        out["kv"] = torch.cat([cache["k"], cache["v"]], dim=-1).contiguous()
+        kv = torch.cat([cache["k"], cache["v"]], dim=-1)
+        out["kv"] = kv.to(cache_dtype or kv.dtype).contiguous()
     return out
 
 
@@ -82,7 +145,7 @@ def flash_quant_decode_step(
     kv_all, kvs_all, ff_all = cache["kv"], cache.get("kvs"), cache["ff"]
     x = x_t
     b = x.shape[0]
-    for l, (attn, ff) in enumerate(zip(tfm.attns, tfm.ffs)):
+    for l, attn in enumerate(tfm.attns):
         h = layer_norm(x, attn.norm.gamma)
         # K/V project from the UN-normed residual stream, Q from the normed one
         qh = F.linear(h, attn.to_q.weight).reshape(b, heads, d)
@@ -102,8 +165,29 @@ def flash_quant_decode_step(
             kvs_all[l] if int8_kv else None, scale=attn.scale,
         )
         x = x + F.linear(out, attn.to_out.weight)
-        x, new_state = fused_ff_apply(x, qparams[f"ff_{l}"], ff_all[l])
-        ff_all[l] = new_state
+        x, ff_all[l] = fused_ff_apply(x, qparams[f"ff_{l}"]["packed"], ff_all[l])
+    return layer_norm(x, tfm.final_norm.gamma)
+
+
+def fused_layer_step(
+    model: TokenConditionedTransformer,
+    qparams: Dict[str, Any],
+    x_t: torch.Tensor,  # [b, dim]
+    cache: Dict[str, torch.Tensor],  # packed int8 layout, updated in place
+    pos: int,
+    bias_row: torch.Tensor,
+    add_mask: torch.Tensor,
+) -> torch.Tensor:
+    """One decode step through kernel 7, one launch per layer. The kernel
+    writes each layer's quantized fresh K/V row at ``pos`` and its new conv
+    state in place. Returns the normed h [b, dim]."""
+    tfm = model.transformer
+    x = x_t
+    for l in range(len(tfm.attns)):
+        x, _, _ = fused_layer_decode_step(
+            x, qparams[f"layer_{l}"], cache["kv"][l], cache["kvs"][l], cache["ff"][l],
+            pos, bias_row, add_mask, heads=model.heads, scale=tfm.attns[l].scale,
+        )
     return layer_norm(x, tfm.final_norm.gamma)
 
 
@@ -121,86 +205,54 @@ def generate_quantized(
     allow_eos_in_output: bool = False,
     include_eos_in_output: bool = False,
     append_eos_to_conditioning_tokens: bool = True,
-    flash_kv: str = "int8",
+    fused_ff: bool = True,
+    flash_kv: Optional[str] = "int8",
     teacher_ids: Optional[torch.Tensor] = None,
     return_logits: bool = False,
 ):
-    """Sample the final sequence given the conditioning sequences.
-
-    Returns [b, max_time_steps, Q] token ids (and, with ``return_logits``,
-    the per-step float32 logits [b, n_new, C]). ``init_pred_ids`` is an
-    already generated prefix ([b, t0, Q] or flattened). ``teacher_ids``
-    feeds the teacher token forward instead of the sample, so every step is
-    scored under the teacher's prefix.
-    """
+    """The int8 twin of ``token_cond.generate``: fp prefill, int8 decode
+    steps of the ``flash_kv`` mode (see the module docstring; ``fused_ff``
+    applies to ``flash_kv=None``). Same arguments and returns as
+    ``token_cond.generate``."""
     if flash_kv not in FLASH_KV_MODES:
-        raise NotImplementedError(
-            f"flash_kv={flash_kv!r} is not ported; the port runs {FLASH_KV_MODES}"
-        )
-    specs = model.specs
-    pred_spec = specs[-1]
-    q_num = pred_spec.num_quantizers
-    eos_id = pred_spec.eos_id
-    batch = conditioning_token_ids[0].shape[0]
-    device = model.start_tokens.device
-
-    cond = [t.reshape(t.shape[0], -1).to(device, torch.long) for t in conditioning_token_ids]
-    if append_eos_to_conditioning_tokens:
-        cond = [append_eos_id(t, s.eos_id) for t, s in zip(cond, specs[:-1])]
-    if init_pred_ids is not None:
-        init_flat = init_pred_ids.reshape(batch, -1).to(device, torch.long)
-    else:
-        init_flat = torch.zeros((batch, 0), dtype=torch.long, device=device)
-    n_init = init_flat.shape[-1]
-
-    total_steps = max_time_steps * q_num
-    n_new = total_steps - n_init
-    if n_new <= 0:
-        raise ValueError("nothing to generate")
-    prefill_ids = cond + [init_flat]
-    prefill_len = sum(t.shape[-1] for t in prefill_ids) + len(specs)
-    alloc_len = round_up_chunk(prefill_len + n_new)
-
+        raise ValueError(f"unknown flash_kv mode {flash_kv!r}: expected one of {FLASH_KV_MODES}")
+    if flash_kv == "fused" and "layer_0" not in qparams:
+        raise ValueError("flash_kv='fused' needs quantize_stage_params(model, fused=True)")
+    prompt = make_prompt(model, conditioning_token_ids, max_time_steps=max_time_steps,
+                         init_pred_ids=init_pred_ids, append_eos=append_eos_to_conditioning_tokens)
     tfm = model.transformer
-    x = model.assemble_stream(prefill_ids)
+    batch = prompt.init_flat.shape[0]
+    max_len = prompt.prefill_len + prompt.n_new
+    # the flash caches are padded to whole 256-row chunks, as in the JAX package
+    alloc_len = round_up_chunk(max_len) if flash_kv else max_len
     cache = tfm.init_cache(batch, alloc_len)
     table = tfm.bias_table(alloc_len)
-    h_all, cache = tfm.prefill(x, cache)
-    h_last = h_all[:, -1].contiguous()
-    cache = pack_kv_cache(cache, int8=flash_kv == "int8")
-    add_mask = torch.zeros((batch, alloc_len), dtype=torch.float32, device=device)  # all keys valid
-    if table is None:
-        table = torch.zeros((2 * alloc_len - 1, model.heads), device=device)
-    table = table.float().contiguous()
+    h_all, cache = tfm.prefill(model.assemble_stream(prompt.prefill_ids), cache)
 
-    sampled = torch.full((batch, total_steps), eos_id, dtype=torch.long, device=device)
-    sampled[:, :n_init] = init_flat
-    emb_table = model.embeds[-1].weight
+    if flash_kv is None:
+        def step(emb, pos):
+            return quant_decode_step(model, qparams, emb, cache, pos, table, fused_ff=fused_ff)
+    else:
+        cache = pack_kv_cache(cache, int8=flash_kv in ("int8", "fused"),
+                              cache_dtype=torch.float32 if flash_kv == "f32" else None)
+        device = h_all.device
+        add_mask = torch.zeros((batch, alloc_len), dtype=torch.float32, device=device)  # all keys valid
+        if table is None:
+            table = torch.zeros((2 * alloc_len - 1, model.heads), device=device)
+        table = table.float().contiguous()
+
+        def step(emb, pos):
+            bias_row = table[alloc_len - 1 - pos: 2 * alloc_len - 1 - pos]
+            if flash_kv == "fused":
+                return fused_layer_step(model, qparams, emb, cache, pos, bias_row, add_mask)
+            return flash_quant_decode_step(
+                model, qparams, emb, cache, pos, bias_row, add_mask, int8_kv=flash_kv == "int8")
+
     heads_q, heads_s = qparams["logit_heads"]
-    teacher_flat = teacher_ids.reshape(batch, -1).to(device, torch.long) if teacher_ids is not None else None
-    step_logits = []
-
-    for s in range(n_new):
-        flat_idx = n_init + s
-        q_idx = flat_idx % q_num
-        logits = int8_matmul(h_last, heads_q[q_idx], heads_s[q_idx])  # [b, C]
-        if not (allow_eos_in_output and q_idx == q_num - 1):
-            logits[:, -1] = NEG_INF
-        tok = sample_top_k_gumbel(logits, temperature, filter_thres, generator=generator)
-        sampled[:, flat_idx] = tok
-        fed = teacher_flat[:, flat_idx] if teacher_flat is not None else tok
-        offset = q_idx * pred_spec.codebook_size if q_num > 1 else 0
-        emb = emb_table[fed + offset]
-        pos = prefill_len + s
-        bias_row = table[alloc_len - 1 - pos: 2 * alloc_len - 1 - pos]
-        h_last = flash_quant_decode_step(
-            model, qparams, emb, cache, pos, bias_row, add_mask, int8_kv=flash_kv == "int8"
-        )
-        if return_logits:
-            step_logits.append(logits.float())
-
-    sampled = mask_out_after_eos_id(sampled, eos_id, mask_value=PAD_ID, keep_eos=include_eos_in_output)
-    sampled = sampled.reshape(batch, max_time_steps, q_num)
-    if return_logits:
-        return sampled, torch.stack(step_logits, dim=1)
-    return sampled
+    return decode_loop(
+        model, prompt, h_all[:, -1].contiguous(),
+        lambda h, q_idx: int8_matmul(h, heads_q[q_idx], heads_s[q_idx]), step, generator,
+        filter_thres=filter_thres, temperature=temperature,
+        allow_eos_in_output=allow_eos_in_output, include_eos_in_output=include_eos_in_output,
+        teacher_ids=teacher_ids, return_logits=return_logits,
+    )

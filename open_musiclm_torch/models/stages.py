@@ -1,9 +1,10 @@
 """Stage definitions (port of open_musiclm_tpu/models/stages.py).
 
 The three stage factories, and ``Stage``: a TokenConditionedTransformer
-with its serving mode. The port runs the int8 serving path
-(``quantized=True`` with ``flash_kv`` "int8" or "bf16"); the fp decode path
-and per-row / meshed serving are not ported yet.
+with its decode mode, the JAX package's full mode matrix: the fp decode
+(``quantized=False``) or the int8 serving decode (``quantized=True``) with
+``flash_kv`` None, "bf16", "f32", "int8" or "fused". Per-row sampling keys
+and the mesh-sharded decode are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Any, Optional, Sequence
 import torch
 
 from ..core.sequence import TokenSequenceSpec
-from .token_cond import TokenConditionedTransformer
+from .quant_decode import generate_quantized, quantize_stage_params
+from .token_cond import TokenConditionedTransformer, generate
 
 
 def create_semantic_transformer(
@@ -56,9 +58,12 @@ def create_fine_transformer(
 
 @dataclasses.dataclass
 class Stage:
-    """A stage model and its serving mode. ``quantized=True`` selects the int8
-    serving decode (models/quant_decode.py); ``flash_kv`` picks the resident
-    cache-row dtype of its flash-decode attention."""
+    """A stage model and its decode mode. ``quantized=False`` is the fp
+    decode (``token_cond.generate``); ``quantized=True`` the int8 serving
+    decode (``quant_decode.generate_quantized``), whose ``flash_kv`` picks
+    the step: None (per-step attention in plain torch), the flash-decode
+    kernel over "bf16" (activation-dtype), "f32" or "int8" cache rows, or
+    "fused" (one kernel launch per layer)."""
 
     model: TokenConditionedTransformer
     name: str = "stage"
@@ -70,9 +75,7 @@ class Stage:
 
     def qparams(self):
         if self._qparams is None:
-            from .quant_decode import quantize_stage_params
-
-            self._qparams = quantize_stage_params(self.model)
+            self._qparams = quantize_stage_params(self.model, fused=self.flash_kv == "fused")
         return self._qparams
 
     def generate(
@@ -96,18 +99,14 @@ class Stage:
                 f"flash_kv={self.flash_kv!r} requires quantized=True: the flash "
                 "decode kernel is part of the int8 serving decode."
             )
-        if not self.quantized or self.flash_kv is None:
-            raise NotImplementedError(
-                "the port runs the int8 serving decode only "
-                "(quantized=True, flash_kv='int8' or 'bf16')"
-            )
-        from .quant_decode import generate_quantized
-
-        return generate_quantized(
-            self.model, self.qparams(), list(conditioning_token_ids), generator,
+        kw = dict(
             max_time_steps=int(max_time_steps), init_pred_ids=init_pred_ids,
             filter_thres=filter_thres, temperature=temperature,
-            allow_eos_in_output=allow_eos_in_output,
-            include_eos_in_output=include_eos_in_output, flash_kv=self.flash_kv,
+            allow_eos_in_output=allow_eos_in_output, include_eos_in_output=include_eos_in_output,
             teacher_ids=teacher_forced_ids, return_logits=return_logits,
         )
+        if not self.quantized:
+            return generate(self.model, list(conditioning_token_ids), generator, **kw)
+        return generate_quantized(
+            self.model, self.qparams(), list(conditioning_token_ids), generator,
+            flash_kv=self.flash_kv, **kw)

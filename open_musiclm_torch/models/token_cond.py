@@ -4,8 +4,9 @@
 One decoder over ``[start_0, tokens_0, start_1, tokens_1, ...]``: each
 sequence has its own embedding table (per-quantizer id offsets, PAD = -1
 embeds to zero), start token and per-quantizer logit heads ``[Q, C, d]``.
-KV-cached generation lives in ``models/quant_decode.py``; the training loss
-(``stage_training_loss``) and ``token_accuracy`` live here.
+``generate`` is the fp KV-cached decode (the int8 serving decodes in
+``models/quant_decode.py`` share its prompt set-up and sampling loop); the
+training loss (``stage_training_loss``) and ``token_accuracy`` live here too.
 
 ``compute_dtype`` (None: the parameters' dtype) is the dtype of the stream:
 bfloat16 training on float32 master weights casts the embeddings, start
@@ -15,14 +16,14 @@ tokens and logit heads at their use, as the JAX package's ``dtype`` does.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..core.masks import conditioning_attn_mask, forgetful_causal_mask
-from ..core.sampling import append_eos_id
+from ..core.sampling import NEG_INF, append_eos_id, mask_out_after_eos_id, sample_top_k_gumbel
 from ..core.sequence import SequenceLayout, TokenSequenceSpec, quantizer_offsets
 from .transformer import Transformer
 
@@ -88,6 +89,10 @@ class TokenConditionedTransformer(nn.Module):
             out[:, q::w.shape[0]] = h[:, q::w.shape[0]] @ w[q].t()
         return out
 
+    def step_logits(self, h_t: torch.Tensor, q_idx: int) -> torch.Tensor:
+        """Decode-step logits [b, C] of the final sequence's head ``q_idx``."""
+        return h_t @ self.logit_heads[-1][q_idx].to(h_t.dtype).t()
+
     def forward(self, all_token_ids: Sequence[torch.Tensor], *,
                 self_attn_mask: Optional[torch.Tensor] = None,
                 return_only_final_seq_logits: bool = False,
@@ -110,6 +115,136 @@ class TokenConditionedTransformer(nn.Module):
             n = n + 1 if i == last else n
             out.append(self.sequence_logits(i, h[:, begin:begin + n]))
         return out
+
+
+# ---------------------------------------------------------------------------
+# KV-cached generation (open_musiclm_tpu/models/token_cond.py:generate)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Prompt:
+    """A generate call's prompt: the prefill sequences (conditioning with
+    EOS appended, then the given prefix of the final sequence) and the
+    decode schedule in flat final-sequence positions."""
+
+    prefill_ids: List[torch.Tensor]
+    init_flat: torch.Tensor  # [b, n_init]
+    n_new: int
+    total_steps: int
+    prefill_len: int  # stream positions before the first decoded token
+
+    @property
+    def n_init(self) -> int:
+        return self.init_flat.shape[-1]
+
+
+def make_prompt(model: TokenConditionedTransformer, conditioning_token_ids, *, max_time_steps: int,
+                init_pred_ids: Optional[torch.Tensor], append_eos: bool) -> Prompt:
+    specs = model.specs
+    device = model.start_tokens.device
+    batch = conditioning_token_ids[0].shape[0]
+    cond = [t.reshape(t.shape[0], -1).to(device, torch.long) for t in conditioning_token_ids]
+    if append_eos:
+        cond = [append_eos_id(t, s.eos_id) for t, s in zip(cond, specs[:-1])]
+    if init_pred_ids is not None:
+        init_flat = init_pred_ids.reshape(batch, -1).to(device, torch.long)
+    else:
+        init_flat = torch.zeros((batch, 0), dtype=torch.long, device=device)
+    total_steps = max_time_steps * specs[-1].num_quantizers
+    n_new = total_steps - init_flat.shape[-1]
+    if n_new <= 0:
+        raise ValueError("nothing to generate")
+    prefill_ids = cond + [init_flat]
+    prefill_len = sum(t.shape[-1] for t in prefill_ids) + len(specs)
+    return Prompt(prefill_ids, init_flat, n_new, total_steps, prefill_len)
+
+
+def decode_loop(
+    model: TokenConditionedTransformer,
+    prompt: Prompt,
+    h_last: torch.Tensor,  # [b, dim] normed output at the last prefill position
+    logits_fn: Callable[[torch.Tensor, int], torch.Tensor],  # (h, q_idx) -> [b, C]
+    step_fn: Callable[[torch.Tensor, int], torch.Tensor],  # (embedding, pos) -> next h
+    generator: Optional[torch.Generator],
+    *,
+    filter_thres: float,
+    temperature: float,
+    allow_eos_in_output: bool,
+    include_eos_in_output: bool,
+    teacher_ids: Optional[torch.Tensor],
+    return_logits: bool,
+):
+    """The sampling loop every decode mode shares: per step the head's
+    logits (EOS masked unless allowed at the last quantizer), a top-k gumbel
+    sample, and the fed token's embedding through ``step_fn``. Returns
+    [b, T, Q] ids (and the per-step float32 logits [b, n_new, C])."""
+    spec = model.specs[-1]
+    q_num, eos_id = spec.num_quantizers, spec.eos_id
+    batch, n_init = h_last.shape[0], prompt.n_init
+    sampled = torch.full((batch, prompt.total_steps), eos_id, dtype=torch.long, device=h_last.device)
+    sampled[:, :n_init] = prompt.init_flat
+    emb_table = model.embeds[-1].weight
+    emb_dtype = model.compute_dtype or emb_table.dtype
+    teacher_flat = teacher_ids.reshape(batch, -1).to(h_last.device, torch.long) if teacher_ids is not None else None
+    step_logits = []
+    for s in range(prompt.n_new):
+        flat_idx = n_init + s
+        q_idx = flat_idx % q_num
+        logits = logits_fn(h_last, q_idx)
+        if not (allow_eos_in_output and q_idx == q_num - 1):
+            logits[:, -1] = NEG_INF
+        tok = sample_top_k_gumbel(logits, temperature, filter_thres, generator=generator)
+        sampled[:, flat_idx] = tok
+        fed = teacher_flat[:, flat_idx] if teacher_flat is not None else tok
+        offset = q_idx * spec.codebook_size if q_num > 1 else 0
+        h_last = step_fn(emb_table[fed + offset].to(emb_dtype), prompt.prefill_len + s)
+        if return_logits:
+            step_logits.append(logits.float())
+    sampled = mask_out_after_eos_id(sampled, eos_id, mask_value=PAD_ID, keep_eos=include_eos_in_output)
+    sampled = sampled.reshape(batch, -1, q_num)
+    if return_logits:
+        return sampled, torch.stack(step_logits, dim=1)
+    return sampled
+
+
+@torch.no_grad()
+def generate(
+    model: TokenConditionedTransformer,
+    conditioning_token_ids: Sequence[torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    *,
+    max_time_steps: int,
+    init_pred_ids: Optional[torch.Tensor] = None,
+    filter_thres: float = 0.9,
+    temperature: float = 1.0,
+    allow_eos_in_output: bool = False,
+    include_eos_in_output: bool = False,
+    append_eos_to_conditioning_tokens: bool = True,
+    teacher_ids: Optional[torch.Tensor] = None,
+    return_logits: bool = False,
+):
+    """The fp decode: sample the final sequence given the conditioning
+    sequences. Returns [b, max_time_steps, Q] ids (and, with
+    ``return_logits``, the per-step float32 logits [b, n_new, C]).
+    ``init_pred_ids`` is an already generated prefix ([b, t0, Q] or
+    flattened); ``teacher_ids`` feeds the teacher's token forward instead of
+    the sample, so every step is scored under the teacher's prefix."""
+    prompt = make_prompt(model, conditioning_token_ids, max_time_steps=max_time_steps,
+                         init_pred_ids=init_pred_ids, append_eos=append_eos_to_conditioning_tokens)
+    tfm = model.transformer
+    batch = prompt.init_flat.shape[0]
+    max_len = prompt.prefill_len + prompt.n_new
+    cache = tfm.init_cache(batch, max_len)
+    table = tfm.bias_table(max_len)
+    h_all, cache = tfm.prefill(model.assemble_stream(prompt.prefill_ids), cache)
+    return decode_loop(
+        model, prompt, h_all[:, -1], model.step_logits,
+        lambda emb, pos: tfm.decode_step(emb, cache, pos, table), generator,
+        filter_thres=filter_thres, temperature=temperature,
+        allow_eos_in_output=allow_eos_in_output, include_eos_in_output=include_eos_in_output,
+        teacher_ids=teacher_ids, return_logits=return_logits,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@
 
 ``forward`` is the full causal pass (training, with an optional key mask
 and FF dropout in ``train()`` mode); ``prefill`` is the same pass that also
-fills the decode cache (per-layer K, V and the conv-FF tap state). The
-decode step itself lives in ``models/quant_decode.py``.
+fills the decode cache (per-layer K, V and the conv-FF tap state);
+``decode_step`` is the fp decode step over that cache (the int8 serving
+steps live in ``models/quant_decode.py``).
 
 Parameters may be float32 master weights while the pass runs in bfloat16
 (the JAX package's ``dtype=bfloat16`` with float32 params): every weight is
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import l2norm, shared_kv_attention_train
+from ..ops.attention import l2norm, shared_kv_attention_train, shared_kv_decode_step
 from ..ops.relpos import init_linear_, lecun_normal_, linear, make_bias
 
 
@@ -102,6 +103,12 @@ class Attention(nn.Module):
         )
         return linear(out, self.to_out), (k, v)
 
+    def decode_qkv(self, x_t: torch.Tensor):
+        """One-token projections of x_t [b, dim]: (q [b, heads, d], k_t [b, d],
+        v_t [b, d]); K/V from the un-normed input, as in ``qkv``."""
+        q, k, v = self.qkv(self.norm(x_t[:, None]), x_t[:, None])
+        return q[:, :, 0], k[:, 0], v[:, 0]
+
 
 class ConvFeedForward(nn.Module):
     """LN -> Linear(2*inner) -> causal depthwise conv(k=3) -> GEGLU -> LN ->
@@ -148,6 +155,15 @@ class ConvFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.forward_with_state(x, generator)[0]
+
+    def decode(self, x_t: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One token: x_t [b, dim], conv state [b, 2, 2*inner] = (u_{t-2},
+        u_{t-1}). Returns (out [b, dim], new state)."""
+        u_t = linear(self.norm_in(x_t), self.proj_in)
+        w = self.conv_w.to(u_t.dtype)
+        conv = state[:, 0] * w[0] + state[:, 1] * w[1] + u_t * w[2]
+        out = linear(self.norm_mid(self.geglu(conv)), self.proj_out)
+        return out, torch.stack([state[:, 1], u_t], dim=1)
 
 
 class Transformer(nn.Module):
@@ -224,3 +240,20 @@ class Transformer(nn.Module):
             cache["v"][i, :, :n] = v
             cache["ff"][i] = tail
         return self.final_norm(x), cache
+
+    def decode_step(self, x_t: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
+                    bias_table: Optional[torch.Tensor]) -> torch.Tensor:
+        """One fp decode step for the token at ``pos`` (embedding x_t [b, dim]):
+        writes each layer's cache row ``pos`` and conv state in place and
+        returns the normed output [b, dim]."""
+        x = grad_shrink(x_t, self.grad_shrink_alpha)
+        for i, (attn, ff) in enumerate(zip(self.attns, self.ffs)):
+            q, k_t, v_t = attn.decode_qkv(x)
+            cache["k"][i, :, pos] = k_t
+            cache["v"][i, :, pos] = v_t
+            out = shared_kv_decode_step(
+                q, cache["k"][i], cache["v"][i], pos, scale=attn.scale, bias_table=bias_table)
+            x = linear(out, attn.to_out) + x
+            u, cache["ff"][i] = ff.decode(x, cache["ff"][i])
+            x = u + x
+        return self.final_norm(x)

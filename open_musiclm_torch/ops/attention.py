@@ -6,7 +6,8 @@ Queries are multi-head ``[b, h, n, d]``; keys and values are ONE head
 scaled; the similarity uses a fixed scale (8).
 
 ``shared_kv_attention`` is the plain forward and ``shared_kv_attention_bwd_plain``
-the plain backward. The kernel wrappers launch a kernel on CUDA tensors and
+the plain backward; ``shared_kv_decode_step`` is the fp decode step's
+attention over the cache (plain torch, as it is plain XLA in the JAX package). The kernel wrappers launch a kernel on CUDA tensors and
 take the plain version only for tensors on the CPU:
 
   * ``shared_kv_attention_fused``: kernel 1 (``csrc/prefill_attention.cu``,
@@ -67,6 +68,35 @@ def shared_kv_attention(
     mx = sim.float().amax(dim=-1)
     denom = torch.exp(sim.float() - mx[..., None]).sum(dim=-1)
     return out, torch.stack([mx, denom], dim=-1)
+
+
+def shared_kv_decode_step(
+    q_t: torch.Tensor,  # [b, h, d] query at position ``pos`` (l2norm * q_scale)
+    k_cache: torch.Tensor,  # [b, N, d] processed keys; rows > pos are junk
+    v_cache: torch.Tensor,  # [b, N, d]
+    pos: int,
+    *,
+    scale: float = 8.0,
+    bias_table: Optional[torch.Tensor] = None,  # [2N-1, h] decode layout
+    key_mask: Optional[torch.Tensor] = None,  # [b, N] bool, True = attend
+) -> torch.Tensor:
+    """One KV-cached decode step of the fp path, [b, h*d] in q_t's dtype.
+
+    Scores and softmax are float32. The step's bias row is the slice
+    ``[N-1-pos, 2N-1-pos)`` of the decode-layout table
+    (``Transformer.bias_table``); keys ``j > pos`` are masked."""
+    b, h, d = q_t.shape
+    N = k_cache.shape[1]
+    sim = torch.einsum("bhd,bnd->bhn", q_t.float(), k_cache.float()) * scale
+    if bias_table is not None:
+        sim = sim + bias_table[N - 1 - pos: 2 * N - 1 - pos].t()[None].float()
+    j = torch.arange(N, device=q_t.device)
+    sim = sim.masked_fill(j[None, None, :] > pos, NEG_INF)
+    if key_mask is not None:
+        sim = sim.masked_fill(~key_mask[:, None, :], NEG_INF)
+    attn = torch.softmax(sim, dim=-1)
+    out = torch.einsum("bhn,bnd->bhd", attn, v_cache.float())
+    return out.reshape(b, h * d).to(q_t.dtype)
 
 
 def _masked_scores(q, k, scale, attn_bias, key_mask, causal, non_causal_prefix):

@@ -36,7 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, scale, out, B, K, N, dtype, stream
     "omt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, dtype, kv_int8, stream
+    # q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, dtype, kv_dtype, stream
     "omt_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, bias, key_mask, out, stats, b, heads, n, m, causal, non_causal_prefix, scale,
     # dtype, bias_dtype, stream
@@ -48,6 +48,9 @@ _SIGNATURES = {
     "omt_fused_ff_in": (_P,) * 11 + (_I, _I, _I, _I, _P),
     # g, gmid, wo, so, x, y, B, inner, dim, dtype, stream
     "omt_fused_ff_out": (_P,) * 6 + (_I, _I, _I, _I, _P),
+    # x, the 19 weights of fused_layer._packed_specs in its order, kv, kv_scale, bias_row,
+    # add_mask, state, y, work, work_floats, b, heads, dim, inner, N, pos, scale, dtype, stream
+    "omt_fused_layer": (_P,) * 27 + (ctypes.c_longlong,) + (_I,) * 6 + (_F, _I, _P),
 }
 
 _lib = None

@@ -2,8 +2,8 @@
 (port of open_musiclm_tpu/ops/decode_attention.py).
 
 The cache is ``[b, N, 2d]`` with K in lanes 0:d and V in d:2d, either in
-the activation dtype or in int8 with per-row float32 scales ``[2, b, N]``
-(K row 0, V row 1). ``N`` is a multiple of ``CHUNK``, as in the JAX
+float32 or bfloat16 (whatever the activations' dtype) or in int8 with
+per-row float32 scales ``[2, b, N]`` (K row 0, V row 1). ``N`` is a multiple of ``CHUNK``, as in the JAX
 package, so a decode step's rel-pos bias row is the same slice of the
 decode-layout table in both packages.
 
@@ -23,6 +23,7 @@ from . import cuda_lib
 
 NEG_INF = -1e9
 CHUNK = 256  # cache buffers are padded to a multiple of this many rows
+KV_INT8 = 2  # kernel 2's row-dtype code for int8 rows (0 and 1: cuda_lib.dtype_code)
 
 
 def round_up_chunk(n: int) -> int:
@@ -90,8 +91,8 @@ def flash_decode_step(
     cuda_lib.require(kv_cache.shape == (b, N, 2 * d), f"{name}: kv_cache [b, N, 2d]")
     cuda_lib.require(0 <= pos < N, f"{name}: pos {pos} outside the {N}-row cache")
     cuda_lib.require(
-        kv_cache.dtype == (torch.int8 if int8 else q_t.dtype),
-        f"{name}: cache dtype {kv_cache.dtype} (int8 needs kv_scale, else q's dtype)",
+        (kv_cache.dtype == torch.int8) == int8,
+        f"{name}: cache dtype {kv_cache.dtype} (int8 rows need kv_scale, other rows none)",
     )
     cuda_lib.require(bias_row.dtype == torch.float32 and bias_row.shape == (N, h), f"{name}: bias_row f32 [N, h]")
     cuda_lib.require(add_mask.dtype == torch.float32 and add_mask.shape == (b, N), f"{name}: add_mask f32 [b, N]")
@@ -104,7 +105,8 @@ def flash_decode_step(
     rc = cuda_lib.lib().omt_flash_decode(
         q_t.data_ptr(), kv_cache.data_ptr(), kv_scale.data_ptr() if int8 else None,
         bias_row.data_ptr(), add_mask.data_ptr(), out.data_ptr(),
-        b, h, N, int(pos), float(scale), cuda_lib.dtype_code(q_t.dtype), int(int8),
+        b, h, N, int(pos), float(scale), cuda_lib.dtype_code(q_t.dtype),
+        KV_INT8 if int8 else cuda_lib.dtype_code(kv_cache.dtype),
         cuda_lib.stream(q_t),
     )
     cuda_lib.check(rc, name)

@@ -13,8 +13,8 @@ accumulation in another order.
 import pytest
 import torch
 
-from open_musiclm_torch.ops import attention, decode_attention, fused_ff, quant
-from open_musiclm_torch.models.transformer import ConvFeedForward
+from open_musiclm_torch.ops import attention, decode_attention, fused_ff, fused_layer, quant
+from open_musiclm_torch.models.transformer import Attention, ConvFeedForward
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -101,6 +101,23 @@ def test_flash_decode_kernel(dev, int8, pos):
     want = decode_attention.flash_decode_step_plain(q, kv, pos, bias_row, add_mask, sc)
     got = decode_attention.flash_decode_step(q, kv, pos, bias_row, add_mask, sc)
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 300, 511])
+def test_flash_decode_kernel_f32_rows_bf16_q(dev, pos):
+    """The "f32" cache mode: float32 rows under bf16 queries, against the
+    plain version in float32 on the same values (bf16 output)."""
+    g = torch.Generator().manual_seed(pos)
+    b, h, N = 3, 8, 512
+    q = attention.l2norm(_randn(g, b, h, 64)).to(dev, torch.bfloat16)
+    kv = torch.cat([attention.l2norm(_randn(g, b, N, 64)), _randn(g, b, N, 64)], -1).to(dev)
+    bias_row = _randn(g, N, h).to(dev)
+    add_mask = torch.zeros(b, N, device=dev)
+    got = decode_attention.flash_decode_step(q, kv, pos, bias_row, add_mask)
+    want = decode_attention.flash_decode_step_plain(q.float(), kv, pos, bias_row, add_mask)
+    assert got.dtype == torch.bfloat16
+    _assert_within("out", got, want, 2.0 ** -7)
 
 
 @pytest.mark.cuda
@@ -232,3 +249,75 @@ def test_attention_train_autograd_on_card(dev):
     assert leaves[3].grad.dtype == torch.bfloat16
     for a, r in zip(leaves, ref):
         _assert_within("grad", a.grad, r.grad, 2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+# Kernel 7 (one whole decode layer) at dim 256, 8 heads of 64, inner 682
+# (the FF out-projection padded to 688), a 512-row int8 cache. bf16 inputs
+# are held against the plain version in float32 on the same values (2**-7
+# of the largest output, as above); float32: summation order only.
+LAYER_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _layer_case(g, dev, b, dim=256, heads=8, N=512):
+    attn, ff = Attention(dim, heads, 64, generator=g), ConvFeedForward(dim, generator=g)
+    with torch.no_grad():
+        for gamma in (attn.norm.gamma, ff.norm_in.gamma, ff.norm_mid.gamma):
+            gamma.normal_(1.0, 0.2, generator=g)
+        attn.q_scale.normal_(1.0, 0.1, generator=g)
+        attn.k_scale.normal_(1.0, 0.1, generator=g)
+    packed = {k: t.to(dev) for k, t in fused_layer.pack_layer_weights(attn, ff).items()}
+    kq, ks = decode_attention.quantize_kv_row(attention.l2norm(_randn(g, b, N, 64)))
+    vq, vs = decode_attention.quantize_kv_row(_randn(g, b, N, 64))
+    add_mask = torch.where(torch.rand(b, N, generator=g) > 0.2, 0.0, -1e9)
+    add_mask[:, 0] = 0.0
+    return packed, dict(
+        x=_randn(g, b, dim).to(dev), kv_cache=torch.cat([kq, vq], -1).to(dev),
+        kv_scale=torch.stack([ks, vs]).to(dev), ff_state=_randn(g, b, 2, 2 * ff.inner_dim).to(dev),
+        bias_row=_randn(g, N, heads).to(dev), add_mask=add_mask.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("pos", [0, 5, 256, 289])
+def test_fused_layer_kernel(dev, dtype, b, pos):
+    g = torch.Generator().manual_seed(10 * pos + b)
+    packed, ins = _layer_case(g, dev, b)
+    x, state = ins["x"].to(dtype), ins["ff_state"].to(dtype)
+    cache = (ins["kv_cache"].clone(), ins["kv_scale"].clone())
+    want = fused_layer.fused_layer_decode_step_plain(
+        x.float(), packed, *cache, state.float().clone(), pos, ins["bias_row"], ins["add_mask"], heads=8)
+    kv, sc = ins["kv_cache"].clone(), ins["kv_scale"].clone()
+    before = fused_layer.fused_layer_decode_step.launches
+    got = fused_layer.fused_layer_decode_step(
+        x, packed, kv, sc, state, pos, ins["bias_row"], ins["add_mask"], heads=8)
+    torch.cuda.synchronize()
+    assert fused_layer.fused_layer_decode_step.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32 and got[2] is state
+    for name, a, ref in zip(("y", "krow", "state"), got, want):
+        _assert_within(name, a, ref, LAYER_REL[dtype])
+    # the row written at pos is the kernel's own krow quantized as
+    # quantize_kv_row does on the CPU (PyTorch's CUDA division by the scalar
+    # 127 multiplies by its reciprocal, which can differ in the last bit)
+    krow = got[1].cpu()
+    kq, ks = decode_attention.quantize_kv_row(krow[:, :64])
+    vq, vs = decode_attention.quantize_kv_row(krow[:, 64:])
+    assert torch.equal(kv[:, pos].cpu(), torch.cat([kq, vq], -1))
+    assert torch.equal(sc[:, :, pos].cpu(), torch.stack([ks, vs]))
+    others = torch.arange(kv.shape[1], device=dev) != pos
+    assert torch.equal(kv[:, others], ins["kv_cache"][:, others])
+    assert torch.equal(sc[:, :, others], ins["kv_scale"][:, :, others])
+
+
+@pytest.mark.cuda
+def test_fused_layer_wrapper_raises_on_bad_input(dev):
+    g = torch.Generator().manual_seed(0)
+    packed, ins = _layer_case(g, dev, 2)
+    args = [ins[k] for k in ("x", "kv_cache", "kv_scale", "ff_state")]
+    tail = (5, ins["bias_row"], ins["add_mask"])
+    with pytest.raises(ValueError):  # heads that do not match the bias row
+        fused_layer.fused_layer_decode_step(args[0], packed, *args[1:], *tail, heads=4)
+    with pytest.raises(ValueError):  # a float cache
+        fused_layer.fused_layer_decode_step(args[0], packed, args[1].float(), *args[2:], *tail, heads=8)
+    with pytest.raises(ValueError):  # pos outside the cache
+        fused_layer.fused_layer_decode_step(*args[:1], packed, *args[1:], 512, *tail[1:], heads=8)

@@ -22,6 +22,7 @@ from open_musiclm_tpu.core import sampling as jsampling
 from open_musiclm_tpu.ops import attention as jattn
 from open_musiclm_tpu.ops import decode_attention as jdec
 from open_musiclm_tpu.ops import fused_ff as jff
+from open_musiclm_tpu.ops import fused_layer as jfl
 from open_musiclm_tpu.ops import quant as jquant
 from open_musiclm_tpu.ops import relpos as jrelpos
 from open_musiclm_tpu.ops.pallas_attention import shared_kv_attention_pallas
@@ -32,6 +33,7 @@ from open_musiclm_torch.core import sequence as tsequence
 from open_musiclm_torch.ops import attention as tattn
 from open_musiclm_torch.ops import decode_attention as tdec
 from open_musiclm_torch.ops import fused_ff as tff
+from open_musiclm_torch.ops import fused_layer as tfl
 from open_musiclm_torch.ops import quant as tquant
 from open_musiclm_torch.ops import relpos as trelpos
 from open_musiclm_torch.convert import stage_state_dict
@@ -237,6 +239,132 @@ def test_fused_ff_plain_matches_jax(b):
     assert tff.fused_ff_apply.launches == launches
     _close(y2, y.numpy(), atol=0, rtol=0)
     _close(st2, st.numpy(), atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: one whole decode layer
+# ---------------------------------------------------------------------------
+
+# dim 80 gives inner = int(80 * 8 / 3) = 213: off the port's 16-wide and the
+# TPU kernel's 128-lane padding of the FF out-projection
+FL_DIM, FL_HEADS, FL_D = 80, 2, 8
+FL_INNER = int(FL_DIM * 8 / 3)
+
+
+def _layer_params(seed):
+    rng = np.random.default_rng(seed)
+    dim, hd, d = FL_DIM, FL_HEADS * FL_D, FL_D
+    a_params = {
+        "norm": {"gamma": (1 + 0.1 * rng.standard_normal(dim)).astype(np.float32)},
+        "to_q": {"kernel": (0.1 * rng.standard_normal((dim, hd))).astype(np.float32)},
+        "to_kv": {"kernel": (0.1 * rng.standard_normal((dim, 2 * d))).astype(np.float32)},
+        "to_out": {"kernel": (0.1 * rng.standard_normal((hd, dim))).astype(np.float32)},
+        "q_scale": (1.1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+        "k_scale": (0.9 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+    }
+    return a_params, _ff_params(seed + 1, dim, FL_INNER)
+
+
+def _port_attn(a_params):
+    from open_musiclm_torch.models.transformer import Attention
+
+    attn = Attention(FL_DIM, FL_HEADS, FL_D)
+    attn.load_state_dict({
+        "norm.gamma": _t(a_params["norm"]["gamma"]),
+        "to_q.weight": _t(a_params["to_q"]["kernel"].T.copy()),
+        "to_kv.weight": _t(a_params["to_kv"]["kernel"].T.copy()),
+        "q_scale": _t(a_params["q_scale"]), "k_scale": _t(a_params["k_scale"]),
+        "to_out.weight": _t(a_params["to_out"]["kernel"].T.copy()),
+    })
+    return attn
+
+
+def test_pack_layer_weights_matches_jax():
+    """The port stores the int8 weights output-major ([out, in]) and pads
+    inner to 16 (not 128): the same values and scales in another layout."""
+    a_params, f_params = _layer_params(0)
+    jp = jfl.pack_layer_weights(a_params, f_params)
+    tp = tfl.pack_layer_weights(_port_attn(a_params), _port_ff(f_params))
+    jf, inner = jp["ff"], FL_INNER
+    int8_pairs = {
+        "wqT": jp["wqT"], "wkvT": jp["wkvT"], "woT": np.asarray(jp["wo_attn"]).T,
+        "wvT": np.asarray(jf["wv"])[:, :inner].T, "wgT": np.asarray(jf["wg"])[:, :inner].T,
+        "ff_woT": np.asarray(jf["wo"])[:inner].T,
+    }
+    for key, want in int8_pairs.items():
+        got = tp[key].numpy()
+        if key == "ff_woT":
+            assert got.shape == (FL_DIM, 224) and not got[:, inner:].any()
+            got = got[:, :inner]
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=key)
+    scale_pairs = {
+        "sq": np.asarray(jp["sqh"]).reshape(-1), "skv": np.asarray(jp["skv2"]).reshape(-1),
+        "so": jp["so_attn"], "sv": np.asarray(jf["sv"])[:inner], "sg": np.asarray(jf["sg"])[:inner],
+        "ff_so": jf["so"], "gamma": jp["attn_gamma"], "q_scale": jp["q_scale"],
+        "k_scale": jp["k_scale"], "gin": jf["gin"], "gmid": np.asarray(jf["gmid"])[:inner],
+        "conv_v": np.asarray(jf["conv_v"])[:3, :inner], "conv_g": np.asarray(jf["conv_g"])[:3, :inner],
+    }
+    for key, want in scale_pairs.items():
+        _close(tp[key], want, atol=0, rtol=1e-6)
+
+
+def _layer_state(seed, b):
+    rng = np.random.default_rng(seed)
+    N, d = 2 * tdec.CHUNK, FL_D
+    k = rng.standard_normal((b, N, d)).astype(np.float32)
+    k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    kq, ks = tdec.quantize_kv_row(_t(k))
+    vq, vs = tdec.quantize_kv_row(_t(rng.standard_normal((b, N, d)).astype(np.float32)))
+    return dict(
+        x=rng.standard_normal((b, FL_DIM)).astype(np.float32),
+        kv_cache=torch.cat([kq, vq], -1).numpy(),
+        kv_scale=torch.stack([ks, vs]).numpy(),
+        ff_state=(rng.standard_normal((b, 2, 2 * FL_INNER)) / 4).astype(np.float32),
+        bias_row=rng.standard_normal((N, FL_HEADS)).astype(np.float32),
+        add_mask=np.where(rng.random((b, N)) > 0.2, 0.0, -1e9).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("b", [3, 4])
+@pytest.mark.parametrize("pos", [0, 5, tdec.CHUNK, tdec.CHUNK + 33])
+def test_fused_layer_plain_matches_jax(pos, b):
+    """The plain version against the Pallas kernel in interpret mode and
+    the XLA twin, float32, atol 2e-4 (the JAX test's own tolerance); batch
+    3 is ragged for the TPU kernel's blocks. Beyond the JAX contract it
+    writes the fresh row, quantized, into the cache at pos and the new conv
+    state in place: held against the JAX caller's (fused_layer_step) write."""
+    a_params, f_params = _layer_params(pos + b)
+    jpacked = jfl.pack_layer_weights(a_params, f_params)
+    tpacked = tfl.pack_layer_weights(_port_attn(a_params), _port_ff(f_params))
+    st = _layer_state(pos * 7 + b, b)
+    args = [st[k] for k in ("x", "kv_cache", "kv_scale", "ff_state")]
+    jargs = (args[0], jpacked, *args[1:], jnp.int32(pos), st["bias_row"], st["add_mask"])
+    want_xla = jfl.fused_layer_decode_step_xla(*jargs, heads=FL_HEADS)
+    want_kernel = jfl.fused_layer_decode_step(*jargs, heads=FL_HEADS, interpret=True)
+    kv, sc, state = (_t(a) for a in args[1:])
+    got = tfl.fused_layer_decode_step_plain(
+        _t(st["x"]), tpacked, kv, sc, state, pos, _t(st["bias_row"]), _t(st["add_mask"]),
+        heads=FL_HEADS)
+    for g, wx, wk in zip(got, want_xla, want_kernel):
+        _close(g, wx, atol=2e-4, rtol=0)
+        _close(g, wk, atol=2e-4, rtol=0)
+    assert got[2] is state  # the conv state is updated in place
+    # the cache row pos, quantized as the JAX caller does it
+    d = FL_D
+    krow = np.asarray(want_xla[1])
+    jkq, jks = jdec.quantize_kv_row(krow[:, :d])
+    jvq, jvs = jdec.quantize_kv_row(krow[:, d:])
+    np.testing.assert_array_equal(kv[:, pos].numpy(), np.concatenate([jkq, jvq], -1))
+    _close(sc[:, :, pos], np.stack([jks, jvs]), atol=0, rtol=1e-5)
+    untouched = np.arange(kv.shape[1]) != pos
+    np.testing.assert_array_equal(kv[:, untouched].numpy(), args[1][:, untouched])
+    launches = tfl.fused_layer_decode_step.launches
+    again = tfl.fused_layer_decode_step(
+        _t(st["x"]), tpacked, _t(args[1]), _t(args[2]), _t(args[3]), pos,
+        _t(st["bias_row"]), _t(st["add_mask"]), heads=FL_HEADS)
+    assert tfl.fused_layer_decode_step.launches == launches  # CPU: plain version
+    for a, g in zip(again, got):
+        _close(a, g.numpy(), atol=0, rtol=0)
 
 
 # ---------------------------------------------------------------------------

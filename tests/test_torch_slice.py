@@ -162,10 +162,7 @@ def test_encodec_decode_matches_jax(geom):
     "quantized,flash_kv,error",
     [
         (False, "int8", ValueError),  # the JAX package's check, kept
-        (True, None, NotImplementedError),  # per-matmul int8 step: not ported
-        (False, None, NotImplementedError),  # fp decode: not ported
-        (True, "f32", NotImplementedError),
-        (True, "fused", NotImplementedError),
+        (True, "nonsense", ValueError),  # an unknown mode, as the JAX package raises
     ],
 )
 def test_stage_rejects_modes_it_does_not_run(quantized, flash_kv, error):
@@ -176,10 +173,11 @@ def test_stage_rejects_modes_it_does_not_run(quantized, flash_kv, error):
         )
 
 
-def jax_tiny_musiclm() -> JMusicLM:
+def jax_tiny_musiclm(quantized=True, flash_kv="int8") -> JMusicLM:
     """open_musiclm_tpu.testing.tiny_musiclm's doll-house stages and codec,
-    as int8 serving stages, without its CLAP towers: both packages condition
-    on the same CLAP tokens, and the towers take a minute to initialise."""
+    as stages of the given decode mode (by default int8 serving), without
+    its CLAP towers: both packages condition on the same CLAP tokens, and
+    the towers take a minute to initialise."""
     codec = JEncodec(sample_rate=60, ratios=(2, 2), num_quantizers=4, codebook_size=CB,
                      dimension=8, n_filters=2)
     acoustic = dict(acoustic_codebook_size=CB, num_coarse_quantizers=2)
@@ -191,7 +189,7 @@ def jax_tiny_musiclm() -> JMusicLM:
         make_tiny_stage(jstages.create_fine_transformer, jax.random.PRNGKey(6),
                         num_fine_quantizers=2, **acoustic),
     ]
-    stages = [dataclasses.replace(st, quantized=True, flash_kv="int8") for st in stages]
+    stages = [dataclasses.replace(st, quantized=quantized, flash_kv=flash_kv) for st in stages]
     return JMusicLM(
         clap=None, codec=codec, codec_params=_init_decoder(codec, 3),
         semantic_stage=stages[0], coarse_stage=stages[1], fine_stage=stages[2],
