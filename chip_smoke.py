@@ -8,14 +8,16 @@ Phases, each of which fails the run:
      process per source, all started together);
   2. hold each kernel against its plain PyTorch version, in float32 and
      bfloat16, and time both: kernels 1-4 and 7 at the serving path's
-     shapes (kernel 2 also with float32 rows, kernel 7 also at an odd
-     batch, at the fine stage's 14 rows and at pos 0, beside one layer of
-     the two-kernel decode step), kernel 1 (with a key mask and its row
+     shapes (kernel 2 at b 8, 2 and 16 and pos 0 to 1279 with int8,
+     activation-dtype and float32 rows, kernel 7 also at an odd batch, at
+     the fine stage's 14 rows and at pos 0, beside one layer of the
+     two-kernel decode step), kernel 1 (with a key mask and its row
      statistics) and kernels 5 and 6 (the attention backward) at the three
      training shapes; time one PyTorch library call computing the same
-     function where there is one (scaled_dot_product_attention), and
-     compute each kernel's bound (the least time the card could take: bytes
-     over the memory rate or FLOPs over the peak rate, whichever is larger);
+     function where there is one (scaled_dot_product_attention, and
+     torch._weight_int8pack_mm where it runs on the card), and compute each
+     kernel's bound (the least time the card could take: bytes over the
+     memory rate or FLOPs over the peak rate, whichever is larger);
   3. hold every decode mode with kernels (CUDA) against the same decode on
      the CPU through the plain versions: per-step teacher-forced logits of
      the full-width semantic stage in float32, flash_kv "bf16", "int8",
@@ -40,8 +42,17 @@ Phases, each of which fails the run:
      on float32 master weights, dropout 0.1, forgetful mask 0.15): 3 steps,
      one eval step, a checkpoint round trip, and kernels 1, 5, 6 launched.
 
+Kernel times are device time a call (CUDA events around 20 calls that the
+host enqueued while a spin kernel held the stream), with the stream time a
+call (the same events without the spin) beside the kernel's; for kernels
+of a few microseconds the latter is the host's time to launch them.
+
 Prints the card, the kernels' JSON summary, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
+
+    python3 chip_smoke.py --kernels-only --root DIR   # phase 2 only, on the
+        open_musiclm_torch of another checkout (e.g. a parent commit
+        unpacked with git archive), to compare two versions in one call
 """
 
 from __future__ import annotations
@@ -119,7 +130,17 @@ def allowed_pairs(b: int, n: int, m: int, key_mask) -> int:
     return int((allowed[None] & key_mask.cpu()[:, None, :]).sum())
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(ROOT),
+                    help="checkout whose open_musiclm_torch to drive (default: this script's)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (the kernels against their plain versions)")
+    opts = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(opts.root).resolve()))
+
     import torch
 
     if not torch.cuda.is_available():
@@ -165,10 +186,44 @@ def main() -> int:
     def rand(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    def time_ms(fn, reps=20):
+    def stream_ms(fn, reps=20):
+        """ms a call on the stream: CUDA events around ``reps`` calls after a
+        warm-up. For a kernel of a few microseconds this is the host's time
+        to launch it (Python wrapper included), not the card's."""
         fn()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    spin = {}  # torch.cuda._sleep cycles a millisecond on this card
+
+    def time_ms(fn, reps=20):
+        """Device ms a call: CUDA events around ``reps`` calls enqueued while a
+        spin kernel (torch.cuda._sleep) holds the stream for 1.5x the host's
+        time to enqueue them, so the card runs the calls back to back and
+        the events time its work, not the host's launches."""
+        if not spin:
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            torch.cuda._sleep(10_000_000)
+            b.record()
+            b.synchronize()
+            spin["per_ms"] = 10_000_000 / a.elapsed_time(b)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin["per_ms"] * (1.5 * host_ms + 1.0)))
         start.record()
         for _ in range(reps):
             fn()
@@ -191,13 +246,19 @@ def main() -> int:
         tol = TOL_REL[str(dtype).removeprefix("torch.")] * max(1.0, ref_max)
         return err, ref_max, tol
 
-    def report(name, label, dtype, err, ref_max, tol, ms, plain_ms, summary=None):
-        """Print one case; ``summary`` (bytes, flops, library ms or None) marks
-        the case whose numbers go into the kernels' JSON line."""
+    def report(name, label, dtype, err, ref_max, tol, ms, plain_ms, summary=None, library=None,
+               stream=None):
+        """Print one case (ms: device time a call); ``summary`` (bytes, flops,
+        library ms or None) marks the case whose numbers go into the kernels'
+        JSON line; ``library`` (ms) prints kernel/library for another case;
+        ``stream`` (ms) the kernel's stream time a call."""
         ok = err <= tol
+        lib_txt = f" kernel/library {ms / library:.2f}x" if library else ""
+        stream_txt = f" (stream {stream:.4f})" if stream is not None else ""
         print(f"  {name:26s} {label:30s} {str(dtype):14s} max_abs_err {err:.3e} "
               f"max|ref| {ref_max:.3e} rel_err {err / max(ref_max, 1e-30):.3e} tol {tol:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {'ok' if ok else 'FAIL'}", flush=True)
+              f"kernel {ms:.4f} ms{stream_txt} plain {plain_ms:.4f} ms{lib_txt} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name} {label} {dtype}: max abs err {err} > {tol}")
         r = results.setdefault(name, {"max_abs_err": 0.0})
@@ -206,17 +267,20 @@ def main() -> int:
             n_bytes, flops, library_ms = summary
             b_ms, b_by = bound_ms(n_bytes, flops, str(dtype).removeprefix("torch."))
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-            lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+            lib_txt = (f"{library_ms:.4f} ms, kernel/library {ms / library_ms:.2f}x"
+                       if library_ms is not None else "none")
             print(f"    -> summary case {label} {dtype}: {n_bytes / 1e6:.2f} MB, "
                   f"{flops / 1e9:.3f} GFLOP, bound {b_ms * 1e3:.2f} us ({b_by}), "
                   f"kernel/bound {ms / b_ms:.1f}x, library {lib_txt} [{card}]", flush=True)
 
-    def check(name, label, dtype, kernel_fn, plain_fn, inputs, keep_f32=(), summary=None):
+    def check(name, label, dtype, kernel_fn, plain_fn, inputs, keep_f32=(), summary=None,
+              library=None):
         """kernel_fn on the inputs in ``dtype`` (int8 inputs and those named in
         keep_f32 stay as they are) against plain_fn on float32 copies of
         those same values; both sides are then timed on the ``dtype`` inputs.
         ``summary(low_inputs, output)`` -> (bytes, flops, library ms or None)
-        marks the JSON case."""
+        marks the JSON case; ``library(low_inputs)`` -> ms prints
+        kernel/library for another case."""
         low = {k: v.to(dtype) if v.is_floating_point() and k not in keep_f32 else v
                for k, v in inputs.items()}
         ref_in = {k: v.float() if v.is_floating_point() else v for k, v in low.items()}
@@ -227,7 +291,9 @@ def main() -> int:
         ms = time_ms(lambda: kernel_fn(**low))
         plain_ms = time_ms(lambda: plain_fn(**low))
         report(name, label, dtype, err, ref_max, tol, ms, plain_ms,
-               summary(low, got) if summary is not None else None)
+               summary(low, got) if summary is not None else None,
+               library(low) if library is not None else None,
+               stream_ms(lambda: kernel_fn(**low)))
 
     def sdpa_backend(fn):
         """The first SDPA backend that takes these inputs, to time it under."""
@@ -289,44 +355,51 @@ def main() -> int:
                   lambda q, k, v, attn_bias: attention.shared_kv_attention(
                       q, k, v, attn_bias=attn_bias, causal=True),
                   ins, summary=summary if (b, n, dt) == (8, 216, torch.bfloat16) else None)
-    # 2. flash decode: the coarse / fine cache (N 1280) at b 8, pos in the
-    #    first and in the last 256-row chunk, int8 and activation-dtype rows
-    b, N = 8, 1280
-    k, v = attention.l2norm(rand(b, N, D)), rand(b, N, D)
-    kq, ks = decode_attention.quantize_kv_row(k)
-    vq, vs = decode_attention.quantize_kv_row(v)
-    # "f32": float32 rows whatever the activations' dtype (the "f32" cache mode)
-    caches = {"int8": (torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous()),
-              "bf16": (torch.cat([k, v], -1).contiguous(), None),
-              "f32": (torch.cat([k, v], -1).contiguous(), None)}
-    for mode, (kv, sc) in caches.items():
-        for pos in (100, N - 1):
-            ins = dict(q_t=attention.l2norm(rand(b, H, D)), kv_cache=kv, bias_row=rand(N, H),
-                       add_mask=torch.zeros(b, N, device=dev))
+    # 2. flash decode: the coarse / fine cache (N 1280) at b 8, 2 and 16 (the
+    #    bench's batch, one long request, the fine stage's windows) and pos 0,
+    #    100, 700 and 1279 (one split to 20), with int8, activation-dtype and
+    #    float32 rows (the "f32" cache mode). Beside every bf16 case, SDPA's
+    #    one-query call over the same live rows (bf16 K/V expanded to 8 heads,
+    #    bias row + mask as a float attn_mask) as kernel/library.
+    N = 1280
+    for b in (8, 2, 16):
+        k, v = attention.l2norm(rand(b, N, D)), rand(b, N, D)
+        kq, ks = decode_attention.quantize_kv_row(k)
+        vq, vs = decode_attention.quantize_kv_row(v)
+        caches = {"int8": (torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous()),
+                  "bf16": (torch.cat([k, v], -1).contiguous(), None),
+                  "f32": (torch.cat([k, v], -1).contiguous(), None)}
+        ins = dict(q_t=attention.l2norm(rand(b, H, D)), bias_row=rand(N, H),
+                   add_mask=torch.zeros(b, N, device=dev))
+        for pos in (0, 100, 700, N - 1):
+            q4 = ins["q_t"].to(torch.bfloat16)[:, :, None]
+            kvx = caches["bf16"][0].to(torch.bfloat16)
+            kx = kvx[:, None, :, :D].expand(b, H, N, D)
+            vx = kvx[:, None, :, D:].expand(b, H, N, D)
+            j = torch.arange(N, device=dev)
+            mask = (ins["bias_row"].t()[None, :, None, :] + ins["add_mask"][:, None, None, :])
+            mask = mask.masked_fill(j > pos, -1e9).to(torch.bfloat16)
+            lib_ms = library_time(f"SDPA one query b{b} N{N} pos{pos}",
+                                  lambda: F.scaled_dot_product_attention(q4, kx, vx, attn_mask=mask, scale=8.0))[0]
 
-            def summary(low, out, pos=pos):
+            def summary(low, out, pos=pos, b=b, lib_ms=lib_ms):
                 rows = pos + 1  # the kernel reads cache rows <= pos only
-                q4 = low["q_t"][:, :, None]
-                kx = low["kv_cache"][:, None, :, :D].expand(b, H, N, D)
-                vx = low["kv_cache"][:, None, :, D:].expand(b, H, N, D)
-                j = torch.arange(N, device=dev)
-                mask = (low["bias_row"].t()[None, :, None, :] + low["add_mask"][:, None, None, :])
-                mask = mask.masked_fill(j > pos, -1e9).to(q4.dtype)
-                lib = library_time(f"SDPA one query b{b} N{N} pos{pos}",
-                                   lambda: F.scaled_dot_product_attention(q4, kx, vx, attn_mask=mask, scale=8.0))[0]
                 row_bytes = low["kv_cache"].element_size() * 2 * D
                 moved = (nbytes(low["q_t"], out) + b * rows * row_bytes
                          + rows * H * low["bias_row"].element_size() + b * rows * 4)
-                return moved, 4 * b * H * D * rows, lib
+                return moved, 4 * b * H * D * rows, lib_ms
 
-            for dt in (torch.bfloat16, torch.float32):
-                check("flash_decode_step", f"{mode} b{b} N{N} pos{pos}", dt,
-                      lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
-                          decode_attention.flash_decode_step(q_t, kv_cache, pos, bias_row, add_mask, sc),
-                      lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
-                          decode_attention.flash_decode_step_plain(q_t, kv_cache, pos, bias_row, add_mask, sc),
-                      ins, keep_f32=("bias_row", "add_mask") + (("kv_cache",) if mode == "f32" else ()),
-                      summary=summary if (mode, pos, dt) == ("bf16", N - 1, torch.bfloat16) else None)
+            for mode, (kv, sc) in caches.items():
+                for dt in (torch.bfloat16, torch.float32):
+                    check("flash_decode_step", f"{mode} b{b} N{N} pos{pos}", dt,
+                          lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
+                              decode_attention.flash_decode_step(q_t, kv_cache, pos, bias_row, add_mask, sc),
+                          lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
+                              decode_attention.flash_decode_step_plain(q_t, kv_cache, pos, bias_row, add_mask, sc),
+                          dict(ins, kv_cache=kv),
+                          keep_f32=("bias_row", "add_mask") + (("kv_cache",) if mode == "f32" else ()),
+                          summary=summary if (b, mode, pos, dt) == (8, "bf16", N - 1, torch.bfloat16) else None,
+                          library=(lambda low, lib_ms=lib_ms: lib_ms) if dt == torch.bfloat16 else None)
     # 3. fused FF: the fine stage's rows at batch 8 (2 windows x 8), and batch 8
     from open_musiclm_torch.models.transformer import ConvFeedForward
 
@@ -351,12 +424,27 @@ def main() -> int:
     # 4. int8 matmul: the 1025-way logit head at b 8 and the fine rows b 16
     wq, s = quant.quantize_weight(torch.randn(DIM, C, generator=g))
     wq, s = wq.to(dev), s.to(dev)
+
+    def int8pack_library(x, out):
+        """ms of torch._weight_int8pack_mm (x @ int8 W[out, in]^T * scales in
+        x's dtype), the one PyTorch call computing kernel 4's function, where
+        the installed PyTorch has it for CUDA; None, with its error, where not."""
+        w_t, sc = wq.t().contiguous(), s.to(x.dtype)
+        try:
+            y = torch._weight_int8pack_mm(x, w_t, sc)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"    library: torch._weight_int8pack_mm: none on this card: {str(e).splitlines()[0][:300]}")
+            return None
+        ms = time_ms(lambda: torch._weight_int8pack_mm(x, w_t, sc))
+        print(f"    library: torch._weight_int8pack_mm b{x.shape[0]}: {ms:.4f} ms (max abs diff from "
+              f"the kernel {(y.float() - out.float()).abs().max().item():.3e}, scales in {x.dtype})")
+        return ms
     for b in (8, 16):
         ins = dict(x=rand(b, DIM))
 
         def summary(low, out, b=b):
-            # no PyTorch call multiplies activations by int8 weights with column scales
-            return nbytes(low["x"], wq, s, out), 2 * b * DIM * C, None
+            return nbytes(low["x"], wq, s, out), 2 * b * DIM * C, int8pack_library(low["x"], out)
 
         for dt in (torch.bfloat16, torch.float32):
             check("int8_matmul", f"b{b} {DIM}x{C}", dt,
@@ -412,9 +500,9 @@ def main() -> int:
                          + 4 * b * H * D * (pos + 1))
                 summary = (moved, flops, None)  # no one PyTorch call computes a decode layer
                 cache = {"kv": kv.clone()[None], "kvs": sc.clone()[None], "ff": st.clone()[None]}
-                two = time_ms(lambda: flash_quant_decode_step(
+                two = stream_ms(lambda: flash_quant_decode_step(
                     two_model, two_qp, x, cache, pos, bias_row, add_mask, int8_kv=True))
-                print(f"    two-kernel flash_quant_decode_step, one layer, {label} {dt}: {two:.4f} ms "
+                print(f"    two-kernel flash_quant_decode_step, one layer, {label} {dt}: {two:.4f} ms on the stream "
                       f"(kernels 2 + 3, plain projections, row write, final LayerNorm) [{card}]",
                       flush=True)
             report("fused_layer_decode_step", label, dt, err, ref_max, tol, ms, plain_ms, summary)
@@ -450,8 +538,23 @@ def main() -> int:
             ms1 = time_ms(lambda: attention.shared_kv_attention_fused(*fwd_args, return_stats=True))
             plain1 = time_ms(lambda: attention.shared_kv_attention(
                 q, k, v, attn_bias=bias, key_mask=key_mask, causal=True, return_stats=True))
+            lib1 = None
+            if (stage_name, dt) == ("coarse", torch.bfloat16):
+                # the library forward: SDPA with K/V expanded to 8 heads and the
+                # bias + causal and key masks as a float attn_mask (no stats)
+                mask = causal_float_mask(bias, key_mask, n, n, dt)
+                kx, vx = (t[:, None].expand(b, H, n, D) for t in (k, v))
+                lib1 = library_time(f"SDPA forward b{b} n{n} key mask", lambda: F.scaled_dot_product_attention(
+                    q, kx, vx, attn_mask=mask, scale=8.0))[0]
+                n_bytes = nbytes(q, k, v, bias, key_mask, out, stats)
+                b_ms, b_by = bound_ms(n_bytes, 4 * D * H * allowed_pairs(b, n, n, key_mask), "bfloat16")
+                print(f"    -> kernel 1 {label} bf16 with stats: {n_bytes / 1e6:.2f} MB, bound "
+                      f"{b_ms * 1e3:.2f} us ({b_by}), kernel {ms1:.4f} ms = {ms1 / b_ms:.1f}x bound, "
+                      f"{ms1 / lib1:.2f}x library [{card}]", flush=True)
+                del mask, kx, vx
             report("prefill_attention", label, dt,
-                   *compare("prefill_attention", label, dt, out, want_out), ms1, plain1)
+                   *compare("prefill_attention", label, dt, out, want_out), ms1, plain1, library=lib1,
+                   stream=stream_ms(lambda: attention.shared_kv_attention_fused(*fwd_args, return_stats=True)))
             report("prefill_attention", label + " stats", dt,
                    *compare("prefill_attention", label + " stats", dt,
                             max_and_log_denom(stats), max_and_log_denom(want_stats)), ms1, plain1)
@@ -478,6 +581,10 @@ def main() -> int:
             del out, stats, want_out, want_stats, args, want, got
     print("  (plain ms of attention_bwd / attention_dbias: one plain backward computing "
           "dq, dk, dv and dbias together)")
+    if opts.kernels_only:
+        print(json.dumps({"kernels": [{"name": name, **r} for name, r in results.items()]}))
+        print(f"card: {card}")
+        return 0
 
     # ---- 3. every decode mode with kernels vs the plain path on the CPU ----
     # float32, 24 teacher-forced steps of the full-width semantic stage. With
@@ -734,7 +841,7 @@ def profile_step(torch, trainer, state, batch, gen, card):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {
-        "kernel 1 (prefill_attention)": ("prefill_attention_kernel",),
+        "kernel 1 (prefill_attention)": ("prefill_attention",),
         "kernels 5, 6 (attention bwd)": ("dq_kernel", "dkdv_kernel", "dbias_kernel",
                                           "delta_kernel", "sum_heads_kernel"),
         "matmuls (cuBLAS)": ("gemm", "Kernel2", "nvjet", "cutlass", "xmma"),

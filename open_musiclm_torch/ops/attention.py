@@ -35,6 +35,7 @@ import torch
 from . import cuda_lib
 
 NEG_INF = -1e9
+MAX_MASKED_KEYS = 16384  # kernel 1 keeps a key mask as bits in shared memory
 
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -162,7 +163,9 @@ def shared_kv_attention_fused(
     non_causal_prefix: int = 0,
     return_stats: bool = False,
 ):
-    """Kernel 1 (prefill attention). Same contract as ``shared_kv_attention``."""
+    """Kernel 1 (prefill attention). Same contract as ``shared_kv_attention``.
+    bf16 runs on the tensor cores, float32 in float32 on the CUDA cores; both
+    skip the key tiles that the causal mask hides."""
     if not q.is_cuda:
         return shared_kv_attention(
             q, k, v, scale=scale, attn_bias=attn_bias, key_mask=key_mask,
@@ -171,8 +174,12 @@ def shared_kv_attention_fused(
     b, h, n, _ = q.shape
     m = k.shape[1]
     name = "shared_kv_attention_fused"
-    cuda_lib.require(128 % h == 0, f"{name}: heads must divide 128, got {h}")
+    cuda_lib.require(64 % h == 0, f"{name}: heads must divide 64 (a block's rows), got {h}")
     attn_bias, key_mask = _check_attention_args(name, q, k, v, attn_bias, key_mask)
+    cuda_lib.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+                     f"{name}: q, k and v must be 16-byte aligned")
+    cuda_lib.require(key_mask is None or m <= MAX_MASKED_KEYS,
+                     f"{name}: a key mask covers at most {MAX_MASKED_KEYS} keys, got {m}")
     out = torch.empty((b, n, h * q.shape[-1]), dtype=q.dtype, device=q.device)
     stats = torch.empty((b, h, n, 2), dtype=torch.float32, device=q.device) if return_stats else None
     rc = cuda_lib.lib().omt_prefill_attention(

@@ -36,8 +36,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, scale, out, B, K, N, dtype, stream
     "omt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, kv, scales, bias_row, add_mask, out, b, heads, N, pos, scale, dtype, kv_dtype, stream
-    "omt_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, kv, scales, bias_row, add_mask, out, part, ticket, b, heads, N, pos, splits, per,
+    # scale, dtype, kv_dtype, stream
+    "omt_flash_decode": (_P,) * 8 + (_I,) * 6 + (_F, _I, _I, _P),
     # q, k, v, bias, key_mask, out, stats, b, heads, n, m, causal, non_causal_prefix, scale,
     # dtype, bias_dtype, stream
     "omt_prefill_attention": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _F, _I, _I, _P),

@@ -11,6 +11,7 @@ decode-layout table in both packages.
 (``csrc/flash_decode.cu``, replacing the Pallas kernel
 ``ops/decode_attention.py:flash_decode_step``); ``flash_decode_step_plain``
 is the plain version (the JAX ``flash_decode_step_xla`` twin).
+``decode_splits`` chooses how kernel 2 splits the live cache across blocks.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ from . import cuda_lib
 NEG_INF = -1e9
 CHUNK = 256  # cache buffers are padded to a multiple of this many rows
 KV_INT8 = 2  # kernel 2's row-dtype code for int8 rows (0 and 1: cuda_lib.dtype_code)
+SPLIT_ROWS = 64  # cache rows a chunk of kernel 2 (csrc/flash_decode.cu: CH)
+TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+PART_WIDTH = 2 + 64  # a split's record per head: max, denominator, 64 accumulators
 
 
 def round_up_chunk(n: int) -> int:
@@ -66,6 +70,34 @@ def flash_decode_step_plain(
     return out.reshape(b, h * d).to(q_t.dtype)
 
 
+def decode_splits(b: int, pos: int, N: int) -> Tuple[int, int]:
+    """(splits, chunks per split) of kernel 2's grid for a decode step at
+    ``pos``: the live rows 0..pos form ``pos // 64 + 1`` chunks of 64, and
+    split s covers chunks [s * per, min((s + 1) * per, chunks)). Enough
+    splits that b x splits reaches ``TARGET_BLOCKS`` where the cache allows,
+    one chunk a split at the least, so that no split is empty and a step
+    with pos < 64 is one block a batch row."""
+    if not 0 <= pos < N:
+        raise ValueError(f"pos {pos} outside the {N}-row cache")
+    chunks = pos // SPLIT_ROWS + 1
+    want = min(chunks, -(-TARGET_BLOCKS // b))
+    per = -(-chunks // want)
+    return -(-chunks // per), per
+
+
+# device -> int32 [>= b]: kernel 2's atomic ticket a batch row, 0 between
+# launches (its launches on a device run in stream order: one stream)
+_tickets: dict = {}
+
+
+def _ticket_buffer(device: torch.device, b: int) -> torch.Tensor:
+    t = _tickets.get(device)
+    if t is None or t.numel() < b:
+        t = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
+
+
 def flash_decode_step(
     q_t: torch.Tensor,
     kv_cache: torch.Tensor,
@@ -77,7 +109,8 @@ def flash_decode_step(
     scale: float = 8.0,
 ) -> torch.Tensor:
     """Kernel 2. Same contract as ``flash_decode_step_plain``; reads only
-    cache rows ``<= pos``."""
+    cache rows ``<= pos``, split across blocks as ``decode_splits`` says, in
+    one launch."""
     if not q_t.is_cuda:
         return flash_decode_step_plain(
             q_t, kv_cache, pos, bias_row, add_mask, kv_scale, scale=scale
@@ -101,11 +134,16 @@ def flash_decode_step(
         cuda_lib.require(kv_scale.dtype == torch.float32 and kv_scale.shape == (2, b, N), f"{name}: kv_scale f32 [2, b, N]")
         tensors.append(kv_scale)
     cuda_lib.require_cuda(name, *tensors)
-    out = torch.empty((b, h * d), dtype=q_t.dtype, device=q_t.device)
+    cuda_lib.require(kv_cache.data_ptr() % 16 == 0, f"{name}: kv_cache must be 16-byte aligned")
+    splits, per = decode_splits(b, pos, N)
+    dev = q_t.device
+    out = torch.empty((b, h * d), dtype=q_t.dtype, device=dev)
+    part = torch.empty((b, splits, h, PART_WIDTH), dtype=torch.float32, device=dev) if splits > 1 else None
     rc = cuda_lib.lib().omt_flash_decode(
         q_t.data_ptr(), kv_cache.data_ptr(), kv_scale.data_ptr() if int8 else None,
         bias_row.data_ptr(), add_mask.data_ptr(), out.data_ptr(),
-        b, h, N, int(pos), float(scale), cuda_lib.dtype_code(q_t.dtype),
+        part.data_ptr() if part is not None else None, _ticket_buffer(dev, b).data_ptr(),
+        b, h, N, int(pos), splits, per, float(scale), cuda_lib.dtype_code(q_t.dtype),
         KV_INT8 if int8 else cuda_lib.dtype_code(kv_cache.dtype),
         cuda_lib.stream(q_t),
     )

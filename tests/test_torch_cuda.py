@@ -81,6 +81,58 @@ def test_prefill_attention_kernel_fully_masked_row(dev):
     torch.testing.assert_close(attention.shared_kv_attention_fused(q, k, v, None, key_mask), want, **TOL)
 
 
+# Kernel 1's tiles: bf16 on the tensor cores (64 rows a block, 64 keys a
+# tile), float32 on the CUDA cores (32 keys a tile), both skipping the key
+# tiles the causal mask hides, with or without a key mask. Each case is held
+# against the plain version in float32 on the same values, output and row
+# statistics: bf16 output within 2**-7 of the largest (one rounding of a
+# float32 result, and p rounded to bf16 for p.v), float32 1e-4; the stats
+# are float32 sums of float32 scores in both dtypes (1e-4).
+ATTN_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [4, 8])
+@pytest.mark.parametrize("b,n,m,mask,ncp", [
+    (2, 100, 100, None, 0),      # n off the tile and off a block's queries
+    (2, 77, 150, "random", 0),   # m > n: the queries are the last n keys
+    (1, 130, 130, None, 70),     # a non-causal prefix across the 64-key tile edge
+    (2, 200, 260, "random", 66),  # all three, with the key mask and skipped tiles
+    (2, 150, 150, "head", 0),    # rows 0..79 of batch 1 see no key: skipped tiles added back
+])
+def test_prefill_attention_kernel_tiles(dev, dtype, h, b, n, m, mask, ncp):
+    g = torch.Generator().manual_seed(n + m + h)
+    q = attention.l2norm(_randn(g, b, h, n, 64)).to(dev, dtype)
+    k = attention.l2norm(_randn(g, b, m, 64)).to(dev, dtype)
+    v = _randn(g, b, m, 64).to(dev, dtype)
+    bias = _randn(g, h, n, m).to(dev, dtype)
+    key_mask = None
+    if mask == "random":
+        key_mask = (torch.rand(b, m, generator=g) > 0.3).to(dev)
+    elif mask == "head":
+        key_mask = torch.ones(b, m, dtype=torch.bool, device=dev)
+        key_mask[1, :80] = False
+    opts = dict(causal=True, non_causal_prefix=ncp)
+    before = attention.shared_kv_attention_fused.launches
+    out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True, **opts)
+    assert attention.shared_kv_attention_fused.launches == before + 1
+    want, want_stats = attention.shared_kv_attention(
+        q.float(), k.float(), v.float(), attn_bias=bias.float(), key_mask=key_mask,
+        return_stats=True, **opts)
+    assert out.dtype == dtype and out.shape == (b, n, h * 64)
+    _assert_within("out", out, want, ATTN_REL[dtype])
+    torch.testing.assert_close(stats, want_stats, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_prefill_attention_wrapper_raises_on_heads(dev):
+    q = torch.zeros(1, 3, 8, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # 3 heads do not divide a block's 64 rows
+        attention.shared_kv_attention_fused(q, k, k)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("pos", [0, 63, 64, 255, 256, 511])
@@ -118,6 +170,42 @@ def test_flash_decode_kernel_f32_rows_bf16_q(dev, pos):
     want = decode_attention.flash_decode_step_plain(q.float(), kv, pos, bias_row, add_mask)
     assert got.dtype == torch.bfloat16
     _assert_within("out", got, want, 2.0 ** -7)
+
+
+# Kernel 2's split cache: positions at the chunk and split edges (b 16 at
+# pos 1151 / 1152: 9 full splits of two chunks / a 10th split of one row),
+# every batch size of the decode paths, every row dtype. Each case runs the
+# kernel twice on the same stream with fresh queries: a batch row's ticket
+# left non-zero by the first launch would leave the second's output unfolded.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("b", [1, 2, 8, 16])
+@pytest.mark.parametrize("pos", [0, 63, 64, 700, 1151, 1152, 1279])
+def test_flash_decode_kernel_splits(dev, rows, b, pos):
+    g = torch.Generator().manual_seed(pos + 7 * b)
+    h, N = 8, 1280
+    k, v = attention.l2norm(_randn(g, b, N, 64)), _randn(g, b, N, 64)
+    sc, q_dtype = None, torch.bfloat16
+    if rows == "int8":
+        kq, ks = decode_attention.quantize_kv_row(k)
+        vq, vs = decode_attention.quantize_kv_row(v)
+        kv, sc, q_dtype = torch.cat([kq, vq], -1).to(dev), torch.stack([ks, vs]).to(dev), torch.float32
+    else:  # bf16 rows under bf16 queries; float32 rows under bf16 ("f32" mode)
+        kv = torch.cat([k, v], -1).to(dev, torch.bfloat16 if rows == "bf16" else torch.float32)
+    bias_row = _randn(g, N, h).to(dev)
+    add_mask = torch.where(torch.rand(b, N, generator=g) > 0.2, 0.0, -1e9).to(dev)
+    add_mask[:, 0] = 0.0
+    splits, _ = decode_attention.decode_splits(b, pos, N)
+    assert splits == 1 or pos >= 64
+    for call in range(2):
+        q = attention.l2norm(_randn(g, b, h, 64)).to(dev, q_dtype)
+        before = decode_attention.flash_decode_step.launches
+        got = decode_attention.flash_decode_step(q, kv, pos, bias_row, add_mask, sc)
+        assert decode_attention.flash_decode_step.launches == before + 1
+        want = decode_attention.flash_decode_step_plain(q.float(), kv, pos, bias_row, add_mask, sc)
+        assert got.dtype == q_dtype
+        _assert_within(f"out (call {call + 1}, {splits} splits)", got, want,
+                       1e-4 if q_dtype == torch.float32 else 2.0 ** -7)
 
 
 @pytest.mark.cuda

@@ -175,6 +175,28 @@ def test_round_up_chunk():
     ] == [256, 256, 512, 1280]
 
 
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 14, 16])
+def test_decode_splits_cover_every_row(b):
+    """Kernel 2's split of the live cache, at every position of a 1280-row
+    cache: the splits cover rows 0..pos exactly once, in order, none empty;
+    a step with pos < 64 is one block a batch row, and the grid reaches 132
+    blocks (one an SM) wherever the live chunks allow."""
+    N, chunk = 1280, tdec.SPLIT_ROWS
+    for pos in range(N):
+        splits, per = tdec.decode_splits(b, pos, N)
+        assert per >= 1
+        # split s reads chunks [s * per, (s + 1) * per) of rows <= pos (csrc/flash_decode.cu)
+        rows = [(s * per * chunk, min((s + 1) * per * chunk, pos + 1)) for s in range(splits)]
+        assert rows[0][0] == 0 and rows[-1][1] == pos + 1
+        assert all(start < stop for start, stop in rows)
+        assert all(a[1] == c[0] for a, c in zip(rows, rows[1:]))
+        assert b * splits >= min(132, b * (pos // chunk + 1))
+        if pos < chunk:
+            assert splits == 1
+    with pytest.raises(ValueError):
+        tdec.decode_splits(b, N, N)
+
+
 # ---------------------------------------------------------------------------
 # kernel 3: fused conv-FF
 # ---------------------------------------------------------------------------
