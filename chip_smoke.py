@@ -42,17 +42,19 @@ Phases, each of which fails the run:
      on float32 master weights, dropout 0.1, forgetful mask 0.15): 3 steps,
      one eval step, a checkpoint round trip, and kernels 1, 5, 6 launched.
 
-Kernel times are device time a call (CUDA events around 20 calls that the
-host enqueued while a spin kernel held the stream), with the stream time a
-call (the same events without the spin) beside the kernel's; for kernels
-of a few microseconds the latter is the host's time to launch them.
+Times a call, two readings of each kernel and library call:
+  ms         stream time: CUDA events around 20 calls as the host launches
+             them; for a kernel of a few microseconds this is the host's
+             time to launch it (the Python wrapper included);
+  device ms  the card's time: each of 20 calls between its own pair of
+             events, all enqueued while a spin kernel holds the stream (the
+             run is repeated with a longer spin if the spin ends before the
+             host has enqueued them), and a 128 MiB buffer written between
+             calls outside the events, so that every call finds the 50 MB L2
+             cold, as a decode step's kernels find their layer's data.
 
 Prints the card, the kernels' JSON summary, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
-
-    python3 chip_smoke.py --kernels-only --root DIR   # phase 2 only, on the
-        open_musiclm_torch of another checkout (e.g. a parent commit
-        unpacked with git archive), to compare two versions in one call
 """
 
 from __future__ import annotations
@@ -130,17 +132,7 @@ def allowed_pairs(b: int, n: int, m: int, key_mask) -> int:
     return int((allowed[None] & key_mask.cpu()[:, None, :]).sum())
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=str(ROOT),
-                    help="checkout whose open_musiclm_torch to drive (default: this script's)")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 2 (the kernels against their plain versions)")
-    opts = ap.parse_args(argv)
-    sys.path.insert(0, str(Path(opts.root).resolve()))
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -186,8 +178,8 @@ def main(argv=None) -> int:
     def rand(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    def stream_ms(fn, reps=20):
-        """ms a call on the stream: CUDA events around ``reps`` calls after a
+    def time_ms(fn, reps=20):
+        """Stream ms a call: CUDA events around ``reps`` calls after a
         warm-up. For a kernel of a few microseconds this is the host's time
         to launch it (Python wrapper included), not the card's."""
         fn()
@@ -200,13 +192,16 @@ def main(argv=None) -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    spin = {}  # torch.cuda._sleep cycles a millisecond on this card
+    spin = {}  # torch.cuda._sleep cycles a millisecond on this card, the L2 flush buffer
 
-    def time_ms(fn, reps=20):
-        """Device ms a call: CUDA events around ``reps`` calls enqueued while a
-        spin kernel (torch.cuda._sleep) holds the stream for 1.5x the host's
-        time to enqueue them, so the card runs the calls back to back and
-        the events time its work, not the host's launches."""
+    def device_ms(fn, reps=20):
+        """Device ms a call: ``reps`` calls, each between its own pair of
+        CUDA events and after a write of a 128 MiB buffer (outside the events),
+        all enqueued while a spin kernel (torch.cuda._sleep) holds the
+        stream, so that the card runs them back to back and each finds L2
+        cold. The spin lasts 1.5x the host's time to enqueue them, doubled
+        until an event recorded just after it is still pending once the
+        host has enqueued the last call."""
         if not spin:
             torch.cuda.synchronize()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -215,21 +210,36 @@ def main(argv=None) -> int:
             b.record()
             b.synchronize()
             spin["per_ms"] = 10_000_000 / a.elapsed_time(b)
-        fn()
+            spin["flush"] = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)  # 2.5x the 50 MB L2
+
+        def enqueue():
+            events = []
+            for _ in range(reps):
+                spin["flush"].zero_()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                events.append((start, end))
+            return events
+
+        enqueue()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        enqueue()
+        spin_ms = 1.5 * (time.perf_counter() - t0) * 1e3 + 1.0
         torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(spin["per_ms"] * (1.5 * host_ms + 1.0)))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
+        for _ in range(6):
+            held = torch.cuda.Event()
+            torch.cuda._sleep(int(spin["per_ms"] * spin_ms))
+            held.record()
+            events = enqueue()
+            held_through = not held.query()
+            torch.cuda.synchronize()
+            if held_through:
+                return sum(a.elapsed_time(b) for a, b in events) / reps
+            spin_ms *= 2
+        fail(f"the spin kernel ran out before the host enqueued {reps} calls, {spin_ms / 2:.1f} ms at last")
 
     results = {}
 
@@ -246,41 +256,50 @@ def main(argv=None) -> int:
         tol = TOL_REL[str(dtype).removeprefix("torch.")] * max(1.0, ref_max)
         return err, ref_max, tol
 
-    def report(name, label, dtype, err, ref_max, tol, ms, plain_ms, summary=None, library=None,
-               stream=None):
-        """Print one case (ms: device time a call); ``summary`` (bytes, flops,
-        library ms or None) marks the case whose numbers go into the kernels'
-        JSON line; ``library`` (ms) prints kernel/library for another case;
-        ``stream`` (ms) the kernel's stream time a call."""
+    def both_ms(fn, reps=20):
+        """(stream ms, device ms) a call of ``fn``."""
+        return time_ms(fn, reps), device_ms(fn, reps)
+
+    def ratio(kernel, library):
+        """kernel/library on both readings: (stream, device) pairs."""
+        return f"kernel/library {kernel[0] / library[0]:.2f}x stream, {kernel[1] / library[1]:.2f}x device"
+
+    def report(name, label, dtype, err, ref_max, tol, ms, plain_ms, summary=None, library=None):
+        """Print one case; ``ms`` is the kernel's (stream ms, device ms) a
+        call, ``plain_ms`` the plain version's stream ms; ``summary``
+        (bytes, flops, library (stream, device) ms or None) marks the case
+        whose numbers go into the kernels' JSON line; ``library`` ((stream,
+        device) ms) prints kernel/library for another case."""
         ok = err <= tol
-        lib_txt = f" kernel/library {ms / library:.2f}x" if library else ""
-        stream_txt = f" (stream {stream:.4f})" if stream is not None else ""
+        lib_txt = f" {ratio(ms, library)}" if library else ""
         print(f"  {name:26s} {label:30s} {str(dtype):14s} max_abs_err {err:.3e} "
               f"max|ref| {ref_max:.3e} rel_err {err / max(ref_max, 1e-30):.3e} tol {tol:.3e} "
-              f"kernel {ms:.4f} ms{stream_txt} plain {plain_ms:.4f} ms{lib_txt} "
+              f"kernel {ms[0]:.4f} ms (device {ms[1]:.4f}) plain {plain_ms:.4f} ms{lib_txt} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name} {label} {dtype}: max abs err {err} > {tol}")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if summary is not None:
-            n_bytes, flops, library_ms = summary
+            n_bytes, flops, lib = summary
             b_ms, b_by = bound_ms(n_bytes, flops, str(dtype).removeprefix("torch."))
-            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-            lib_txt = (f"{library_ms:.4f} ms, kernel/library {ms / library_ms:.2f}x"
-                       if library_ms is not None else "none")
+            r.update(ms=ms[0], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib[0] if lib else None, device_ms=ms[1],
+                     library_device_ms=lib[1] if lib else None)
+            lib_txt = f"{lib[0]:.4f} ms (device {lib[1]:.4f}), {ratio(ms, lib)}" if lib else "none"
             print(f"    -> summary case {label} {dtype}: {n_bytes / 1e6:.2f} MB, "
-                  f"{flops / 1e9:.3f} GFLOP, bound {b_ms * 1e3:.2f} us ({b_by}), "
-                  f"kernel/bound {ms / b_ms:.1f}x, library {lib_txt} [{card}]", flush=True)
+                  f"{flops / 1e9:.3f} GFLOP, bound {b_ms * 1e3:.2f} us ({b_by}), kernel/bound "
+                  f"{ms[0] / b_ms:.1f}x stream, {ms[1] / b_ms:.1f}x device, library {lib_txt} [{card}]",
+                  flush=True)
 
     def check(name, label, dtype, kernel_fn, plain_fn, inputs, keep_f32=(), summary=None,
               library=None):
         """kernel_fn on the inputs in ``dtype`` (int8 inputs and those named in
         keep_f32 stay as they are) against plain_fn on float32 copies of
         those same values; both sides are then timed on the ``dtype`` inputs.
-        ``summary(low_inputs, output)`` -> (bytes, flops, library ms or None)
-        marks the JSON case; ``library(low_inputs)`` -> ms prints
-        kernel/library for another case."""
+        ``summary(low_inputs, output)`` -> (bytes, flops, library (stream,
+        device) ms or None) marks the JSON case; ``library(low_inputs)`` ->
+        (stream, device) ms prints kernel/library for another case."""
         low = {k: v.to(dtype) if v.is_floating_point() and k not in keep_f32 else v
                for k, v in inputs.items()}
         ref_in = {k: v.float() if v.is_floating_point() else v for k, v in low.items()}
@@ -288,12 +307,11 @@ def main(argv=None) -> int:
         want = plain_fn(**ref_in)
         torch.cuda.synchronize()
         err, ref_max, tol = compare(name, label, dtype, got, want)
-        ms = time_ms(lambda: kernel_fn(**low))
+        ms = both_ms(lambda: kernel_fn(**low))
         plain_ms = time_ms(lambda: plain_fn(**low))
         report(name, label, dtype, err, ref_max, tol, ms, plain_ms,
                summary(low, got) if summary is not None else None,
-               library(low) if library is not None else None,
-               stream_ms(lambda: kernel_fn(**low)))
+               library(low) if library is not None else None)
 
     def sdpa_backend(fn):
         """The first SDPA backend that takes these inputs, to time it under."""
@@ -312,15 +330,16 @@ def main(argv=None) -> int:
         fail("no scaled_dot_product_attention backend takes these inputs")
 
     def library_time(label, fn, backend=None):
-        """ms of ``fn`` (one scaled_dot_product_attention call) under
-        ``backend``, by default the first that takes the inputs; the port
-        never calls it. Returns (ms, backend)."""
+        """(stream ms, device ms) of ``fn`` (one scaled_dot_product_attention
+        call) under ``backend``, by default the first that takes the inputs;
+        the port never calls it. Returns (ms pair, backend)."""
         from torch.nn.attention import sdpa_kernel
 
         be = backend or sdpa_backend(fn)
         with sdpa_kernel([be]):
-            ms = time_ms(fn)
-        print(f"    library: {label}: {ms:.4f} ms on SDPA backend {be.name}", flush=True)
+            ms = both_ms(fn)
+        print(f"    library: {label}: {ms[0]:.4f} ms (device {ms[1]:.4f}) on SDPA backend {be.name}",
+              flush=True)
         return ms, be
 
     def causal_float_mask(bias, key_mask, n, m, dtype):
@@ -426,9 +445,10 @@ def main(argv=None) -> int:
     wq, s = wq.to(dev), s.to(dev)
 
     def int8pack_library(x, out):
-        """ms of torch._weight_int8pack_mm (x @ int8 W[out, in]^T * scales in
-        x's dtype), the one PyTorch call computing kernel 4's function, where
-        the installed PyTorch has it for CUDA; None, with its error, where not."""
+        """(stream, device) ms of torch._weight_int8pack_mm (x @ int8
+        W[out, in]^T * scales in x's dtype), the one PyTorch call computing
+        kernel 4's function, where the installed PyTorch has it for CUDA;
+        None, with its error, where not."""
         w_t, sc = wq.t().contiguous(), s.to(x.dtype)
         try:
             y = torch._weight_int8pack_mm(x, w_t, sc)
@@ -436,8 +456,8 @@ def main(argv=None) -> int:
         except (RuntimeError, NotImplementedError) as e:
             print(f"    library: torch._weight_int8pack_mm: none on this card: {str(e).splitlines()[0][:300]}")
             return None
-        ms = time_ms(lambda: torch._weight_int8pack_mm(x, w_t, sc))
-        print(f"    library: torch._weight_int8pack_mm b{x.shape[0]}: {ms:.4f} ms (max abs diff from "
+        ms = both_ms(lambda: torch._weight_int8pack_mm(x, w_t, sc))
+        print(f"    library: torch._weight_int8pack_mm b{x.shape[0]}: {ms[0]:.4f} ms (device {ms[1]:.4f}; max abs diff from "
               f"the kernel {(y.float() - out.float()).abs().max().item():.3e}, scales in {x.dtype})")
         return ms
     for b in (8, 16):
@@ -486,7 +506,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             err, ref_max, tol = compare("fused_layer_decode_step", label, dt, got, want)
             kv_t, sc_t, st_t = kv.clone(), sc.clone(), st.clone()
-            ms = time_ms(lambda: lfn(x, lpacked, kv_t, sc_t, st_t, *args, heads=H))
+            ms = both_ms(lambda: lfn(x, lpacked, kv_t, sc_t, st_t, *args, heads=H))
             plain_ms = time_ms(lambda: fused_layer.fused_layer_decode_step_plain(
                 x, lpacked, kv_t, sc_t, st_t, *args, heads=H), reps=5)
             summary = None
@@ -500,7 +520,7 @@ def main(argv=None) -> int:
                          + 4 * b * H * D * (pos + 1))
                 summary = (moved, flops, None)  # no one PyTorch call computes a decode layer
                 cache = {"kv": kv.clone()[None], "kvs": sc.clone()[None], "ff": st.clone()[None]}
-                two = stream_ms(lambda: flash_quant_decode_step(
+                two = time_ms(lambda: flash_quant_decode_step(
                     two_model, two_qp, x, cache, pos, bias_row, add_mask, int8_kv=True))
                 print(f"    two-kernel flash_quant_decode_step, one layer, {label} {dt}: {two:.4f} ms on the stream "
                       f"(kernels 2 + 3, plain projections, row write, final LayerNorm) [{card}]",
@@ -535,7 +555,7 @@ def main(argv=None) -> int:
                 return torch.stack([st[..., 0], torch.log(st[..., 1])], dim=-1)
 
             torch.cuda.synchronize()
-            ms1 = time_ms(lambda: attention.shared_kv_attention_fused(*fwd_args, return_stats=True))
+            ms1 = both_ms(lambda: attention.shared_kv_attention_fused(*fwd_args, return_stats=True))
             plain1 = time_ms(lambda: attention.shared_kv_attention(
                 q, k, v, attn_bias=bias, key_mask=key_mask, causal=True, return_stats=True))
             lib1 = None
@@ -549,12 +569,12 @@ def main(argv=None) -> int:
                 n_bytes = nbytes(q, k, v, bias, key_mask, out, stats)
                 b_ms, b_by = bound_ms(n_bytes, 4 * D * H * allowed_pairs(b, n, n, key_mask), "bfloat16")
                 print(f"    -> kernel 1 {label} bf16 with stats: {n_bytes / 1e6:.2f} MB, bound "
-                      f"{b_ms * 1e3:.2f} us ({b_by}), kernel {ms1:.4f} ms = {ms1 / b_ms:.1f}x bound, "
-                      f"{ms1 / lib1:.2f}x library [{card}]", flush=True)
+                      f"{b_ms * 1e3:.2f} us ({b_by}), kernel {ms1[0]:.4f} ms (device {ms1[1]:.4f}) = "
+                      f"{ms1[0] / b_ms:.1f}x bound stream, {ms1[1] / b_ms:.1f}x device, "
+                      f"{ratio(ms1, lib1)} [{card}]", flush=True)
                 del mask, kx, vx
             report("prefill_attention", label, dt,
-                   *compare("prefill_attention", label, dt, out, want_out), ms1, plain1, library=lib1,
-                   stream=stream_ms(lambda: attention.shared_kv_attention_fused(*fwd_args, return_stats=True)))
+                   *compare("prefill_attention", label, dt, out, want_out), ms1, plain1, library=lib1)
             report("prefill_attention", label + " stats", dt,
                    *compare("prefill_attention", label + " stats", dt,
                             max_and_log_denom(stats), max_and_log_denom(want_stats)), ms1, plain1)
@@ -565,26 +585,23 @@ def main(argv=None) -> int:
                 key_mask=key_mask)
             got = bwd(*args)
             torch.cuda.synchronize()
-            ms5 = time_ms(lambda: bwd(*args, dbias=False))
-            ms56 = time_ms(lambda: bwd(*args))
+            ms5 = both_ms(lambda: bwd(*args, dbias=False))
+            ms56 = both_ms(lambda: bwd(*args))
             plain_ms = time_ms(lambda: attention.shared_kv_attention_bwd_plain(
                 q, k, v, dout, attn_bias=bias, key_mask=key_mask), reps=5)
-            print(f"    kernels 5 + 6 in one call {ms56:.4f} ms, kernel 5 alone {ms5:.4f} ms", flush=True)
+            print(f"    kernels 5 + 6 in one call {ms56[0]:.4f} ms (device {ms56[1]:.4f}), kernel 5 alone "
+                  f"{ms5[0]:.4f} ms (device {ms5[1]:.4f})", flush=True)
             sums = (None, None)
             if (stage_name, dt) == ("coarse", torch.bfloat16):
-                sums = backward_summaries(torch, F, dev, args, key_mask, library_time,
-                                          causal_float_mask, time_ms)
+                sums = backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float_mask)
             report("attention_bwd", label, dt, *compare("attention_bwd", label, dt, got[:3], want[:3]),
                    ms5, plain_ms, sums[0])
             report("attention_dbias", label, dt, *compare("attention_dbias", label, dt, got[3], want[3]),
-                   ms56 - ms5, plain_ms, sums[1])
+                   (ms56[0] - ms5[0], ms56[1] - ms5[1]), plain_ms, sums[1])
             del out, stats, want_out, want_stats, args, want, got
     print("  (plain ms of attention_bwd / attention_dbias: one plain backward computing "
           "dq, dk, dv and dbias together)")
-    if opts.kernels_only:
-        print(json.dumps({"kernels": [{"name": name, **r} for name, r in results.items()]}))
-        print(f"card: {card}")
-        return 0
+    spin.clear()  # frees the L2 flush buffer before the phases that read peak memory
 
     # ---- 3. every decode mode with kernels vs the plain path on the CPU ----
     # float32, 24 teacher-forced steps of the full-width semantic stage. With
@@ -759,8 +776,8 @@ def main(argv=None) -> int:
     return 0
 
 
-def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float_mask, time_ms):
-    """(bytes, FLOPs, library ms) of kernels 5 and 6 on these inputs. The
+def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float_mask):
+    """(bytes, FLOPs, library (stream, device) ms) of kernels 5 and 6 on these inputs. The
     library call is scaled_dot_product_attention with K/V expanded to the 8
     heads and the bias plus masks as a float attn_mask: its backward (fwd +
     bwd less fwd) with the mask not requiring grad computes kernel 5's dq,
@@ -789,7 +806,7 @@ def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float
         tag = "with the mask's gradient" if mask_grad else "dq, dk, dv"
         t_fb, be = library_time(f"SDPA forward + backward ({tag}) b{b} n{n}", fwd_bwd)
         t_f, _ = library_time(f"SDPA forward b{b} n{n}", fwd, be)
-        libs.append(t_fb - t_f)
+        libs.append((t_fb[0] - t_f[0], t_fb[1] - t_f[1]))
     sum5 = (inputs + nbytes(q, k, v), 10 * d * pairs, libs[0])
     sum6 = (inputs + nbytes(bias), 4 * d * pairs, libs[1])
     return sum5, sum6

@@ -162,7 +162,9 @@ __global__ void __launch_bounds__(ROWS) prefill_attention_f32_kernel(
 constexpr int BR = 64;  // (head, query) rows a block, 16 a warp
 constexpr int BK = 64;  // keys a tile
 constexpr int NT = 128;
-constexpr int MAX_MASKED_KEYS = 16384;  // keys a key mask may cover (a bit each in shared memory)
+// keys a key mask may cover in bf16 (a bit each in shared memory); the
+// wrapper checks it against MAX_MASKED_KEYS in ops/attention.py
+constexpr int MAX_MASKED_KEYS = 16384;
 
 // byte offset of element (row, col) in a [64][64] bf16 tile whose 16-byte
 // units are XOR-swizzled by row (col a multiple of 8)

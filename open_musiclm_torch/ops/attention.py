@@ -35,7 +35,9 @@ import torch
 from . import cuda_lib
 
 NEG_INF = -1e9
-MAX_MASKED_KEYS = 16384  # kernel 1 keeps a key mask as bits in shared memory
+# kernel 1's bf16 route keeps a key mask as bits in shared memory; must match
+# MAX_MASKED_KEYS in csrc/prefill_attention.cu
+MAX_MASKED_KEYS = 16384
 
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -178,8 +180,8 @@ def shared_kv_attention_fused(
     attn_bias, key_mask = _check_attention_args(name, q, k, v, attn_bias, key_mask)
     cuda_lib.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                      f"{name}: q, k and v must be 16-byte aligned")
-    cuda_lib.require(key_mask is None or m <= MAX_MASKED_KEYS,
-                     f"{name}: a key mask covers at most {MAX_MASKED_KEYS} keys, got {m}")
+    cuda_lib.require(key_mask is None or q.dtype != torch.bfloat16 or m <= MAX_MASKED_KEYS,
+                     f"{name}: in bf16 a key mask covers at most {MAX_MASKED_KEYS} keys, got {m}")
     out = torch.empty((b, n, h * q.shape[-1]), dtype=q.dtype, device=q.device)
     stats = torch.empty((b, h, n, 2), dtype=torch.float32, device=q.device) if return_stats else None
     rc = cuda_lib.lib().omt_prefill_attention(

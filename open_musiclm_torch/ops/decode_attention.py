@@ -85,17 +85,23 @@ def decode_splits(b: int, pos: int, N: int) -> Tuple[int, int]:
     return -(-chunks // per), per
 
 
-# device -> int32 [>= b]: kernel 2's atomic ticket a batch row, 0 between
-# launches (its launches on a device run in stream order: one stream)
-_tickets: dict = {}
+# (device, stream) -> kernel 2's scratch: int32 tickets, one a batch row and
+# 0 between launches, and float32 partials, written and read within one
+# launch. Launches in stream order can share them; keyed by stream so that
+# only those do.
+_scratch: dict = {}
 
 
-def _ticket_buffer(device: torch.device, b: int) -> torch.Tensor:
-    t = _tickets.get(device)
-    if t is None or t.numel() < b:
-        t = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
-        _tickets[device] = t
-    return t
+def _scratch_buffers(device: torch.device, stream: int, b: int, part_numel: int):
+    """(tickets [>= b], partials [>= part_numel]) for launches on ``stream``,
+    grown when a call needs more."""
+    tickets, part = _scratch.get((device, stream), (None, None))
+    if tickets is None or tickets.numel() < b:
+        tickets = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
+    if part is None or part.numel() < part_numel:
+        part = torch.empty(part_numel, dtype=torch.float32, device=device)
+    _scratch[(device, stream)] = (tickets, part)
+    return tickets, part
 
 
 def flash_decode_step(
@@ -136,16 +142,16 @@ def flash_decode_step(
     cuda_lib.require_cuda(name, *tensors)
     cuda_lib.require(kv_cache.data_ptr() % 16 == 0, f"{name}: kv_cache must be 16-byte aligned")
     splits, per = decode_splits(b, pos, N)
-    dev = q_t.device
+    dev, stream = q_t.device, cuda_lib.stream(q_t)
     out = torch.empty((b, h * d), dtype=q_t.dtype, device=dev)
-    part = torch.empty((b, splits, h, PART_WIDTH), dtype=torch.float32, device=dev) if splits > 1 else None
+    # the partials of b x splits blocks, [b, splits, h, PART_WIDTH]
+    tickets, part = _scratch_buffers(dev, stream, b, b * splits * h * PART_WIDTH)
     rc = cuda_lib.lib().omt_flash_decode(
         q_t.data_ptr(), kv_cache.data_ptr(), kv_scale.data_ptr() if int8 else None,
         bias_row.data_ptr(), add_mask.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None, _ticket_buffer(dev, b).data_ptr(),
+        part.data_ptr() if splits > 1 else None, tickets.data_ptr(),
         b, h, N, int(pos), splits, per, float(scale), cuda_lib.dtype_code(q_t.dtype),
-        KV_INT8 if int8 else cuda_lib.dtype_code(kv_cache.dtype),
-        cuda_lib.stream(q_t),
+        KV_INT8 if int8 else cuda_lib.dtype_code(kv_cache.dtype), stream,
     )
     cuda_lib.check(rc, name)
     flash_decode_step.launches += 1

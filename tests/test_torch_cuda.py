@@ -134,6 +134,45 @@ def test_prefill_attention_wrapper_raises_on_heads(dev):
 
 
 @pytest.mark.cuda
+def test_prefill_attention_kernel_long_key_mask(dev):
+    """A key mask over more keys than the bf16 route keeps as bits: float32
+    reads the mask from global memory and takes it, bf16 raises."""
+    g = torch.Generator().manual_seed(3)
+    b, h, n, m = 1, 8, 40, attention.MAX_MASKED_KEYS + 64
+    q = attention.l2norm(_randn(g, b, h, n, 64)).to(dev)
+    k = attention.l2norm(_randn(g, b, m, 64)).to(dev)
+    v = _randn(g, b, m, 64).to(dev)
+    key_mask = (torch.rand(b, m, generator=g) > 0.3).to(dev)
+    want = attention.shared_kv_attention(q, k, v, key_mask=key_mask, causal=True)
+    torch.testing.assert_close(attention.shared_kv_attention_fused(q, k, v, None, key_mask), want, **TOL)
+    with pytest.raises(ValueError):
+        attention.shared_kv_attention_fused(*(t.to(torch.bfloat16) for t in (q, k, v)), None, key_mask)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_two_streams(dev):
+    """Kernel 2 on two streams at once: each stream folds its splits with
+    its own tickets, so both outputs are whole."""
+    g = torch.Generator().manual_seed(5)
+    b, h, N, pos = 8, 8, 1280, 1279
+    kv = torch.cat([attention.l2norm(_randn(g, b, N, 64)), _randn(g, b, N, 64)], -1).to(dev, torch.bfloat16)
+    bias_row, add_mask = _randn(g, N, h).to(dev), torch.zeros(b, N, device=dev)
+    qs = [attention.l2norm(_randn(g, b, h, 64)).to(dev, torch.bfloat16) for _ in range(2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        with torch.cuda.stream(side):
+            outs[0].append(decode_attention.flash_decode_step(qs[0], kv, pos, bias_row, add_mask))
+        outs[1].append(decode_attention.flash_decode_step(qs[1], kv, pos, bias_row, add_mask))
+    torch.cuda.synchronize()
+    for q, got in zip(qs, outs):
+        want = decode_attention.flash_decode_step_plain(q.float(), kv, pos, bias_row, add_mask)
+        for i, o in enumerate(got):
+            _assert_within(f"out (call {i + 1})", o, want, 2.0 ** -7)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("pos", [0, 63, 64, 255, 256, 511])
 def test_flash_decode_kernel(dev, int8, pos):

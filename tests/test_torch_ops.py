@@ -197,6 +197,23 @@ def test_decode_splits_cover_every_row(b):
         tdec.decode_splits(b, N, N)
 
 
+def test_decode_scratch_kept_per_stream():
+    """Kernel 2's scratch (tickets, partials): one pair per (device, stream),
+    tickets zeroed, each grown when a call needs more, kept otherwise."""
+    cpu = torch.device("cpu")
+    tickets, part = tdec._scratch_buffers(cpu, 101, 8, 1000)
+    assert tickets.dtype == torch.int32 and not tickets.any() and part.dtype == torch.float32
+    assert tdec._scratch_buffers(cpu, 101, 4, 500) == (tickets, part)
+    other = tdec._scratch_buffers(cpu, 102, 8, 1000)
+    assert other[0] is not tickets and other[1] is not part
+    grown = tdec._scratch_buffers(cpu, 101, tickets.numel() + 1, 1000)
+    assert grown[0].numel() > tickets.numel() and not grown[0].any() and grown[1] is part
+    grown = tdec._scratch_buffers(cpu, 101, 8, 2000)
+    assert grown[1].numel() == 2000
+    for stream in (101, 102):
+        tdec._scratch.pop((cpu, stream))
+
+
 # ---------------------------------------------------------------------------
 # kernel 3: fused conv-FF
 # ---------------------------------------------------------------------------
