@@ -17,7 +17,9 @@ Phases, each of which fails the run:
      function where there is one (scaled_dot_product_attention, and
      torch._weight_int8pack_mm where it runs on the card), and compute each
      kernel's bound (the least time the card could take: bytes over the
-     memory rate or FLOPs over the peak rate, whichever is larger);
+     memory rate or FLOPs over the peak rate, whichever is larger); kernel 3
+     at b 8 and 16 also as GB/s and a share of 3.35 TB/s, kernel 5 (bf16) at
+     each training shape as TFLOP/s beside SDPA's backward;
   3. hold every decode mode with kernels (CUDA) against the same decode on
      the CPU through the plain versions: per-step teacher-forced logits of
      the full-width semantic stage in float32, flash_kv "bf16", "int8",
@@ -299,7 +301,8 @@ def main() -> int:
         those same values; both sides are then timed on the ``dtype`` inputs.
         ``summary(low_inputs, output)`` -> (bytes, flops, library (stream,
         device) ms or None) marks the JSON case; ``library(low_inputs)`` ->
-        (stream, device) ms prints kernel/library for another case."""
+        (stream, device) ms prints kernel/library for another case. Returns
+        the kernel's (stream, device) ms."""
         low = {k: v.to(dtype) if v.is_floating_point() and k not in keep_f32 else v
                for k, v in inputs.items()}
         ref_in = {k: v.float() if v.is_floating_point() else v for k, v in low.items()}
@@ -312,6 +315,7 @@ def main() -> int:
         report(name, label, dtype, err, ref_max, tol, ms, plain_ms,
                summary(low, got) if summary is not None else None,
                library(low) if library is not None else None)
+        return ms
 
     def sdpa_backend(fn):
         """The first SDPA backend that takes these inputs, to time it under."""
@@ -436,10 +440,17 @@ def main() -> int:
                     2 * b * (DIM * 2 * INNER + INNER * DIM), None)
 
         for dt in (torch.bfloat16, torch.float32):
-            check("fused_ff_apply", f"b{b} dim{DIM} inner{INNER}", dt,
-                  lambda x, state: fused_ff.fused_ff_apply(x, packed, state),
-                  lambda x, state: fused_ff.fused_ff_apply_plain(x, packed, state), ins,
-                  summary=summary if (b, dt) == (8, torch.bfloat16) else None)
+            ms = check("fused_ff_apply", f"b{b} dim{DIM} inner{INNER}", dt,
+                       lambda x, state: fused_ff.fused_ff_apply(x, packed, state),
+                       lambda x, state: fused_ff.fused_ff_apply_plain(x, packed, state), ins,
+                       summary=summary if (b, dt) == (8, torch.bfloat16) else None)
+            if dt == torch.bfloat16:
+                # x and the state in, y and the new state out, every weight once
+                moved = 2 * nbytes(ins["x"].to(dt), ins["state"].to(dt)) + nbytes(*packed.values())
+                rate = moved / (ms[1] * 1e-3)
+                print(f"    -> kernel 3 b{b} bf16: device {ms[1]:.4f} ms, {moved / 1e6:.2f} MB moved, "
+                      f"{rate / 1e9:.1f} GB/s = {100 * rate / HBM_BYTES_PER_S:.1f} % of "
+                      f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s [{card}]", flush=True)
     # 4. int8 matmul: the 1025-way logit head at b 8 and the fine rows b 16
     wq, s = quant.quantize_weight(torch.randn(DIM, C, generator=g))
     wq, s = wq.to(dev), s.to(dev)
@@ -592,8 +603,17 @@ def main() -> int:
             print(f"    kernels 5 + 6 in one call {ms56[0]:.4f} ms (device {ms56[1]:.4f}), kernel 5 alone "
                   f"{ms5[0]:.4f} ms (device {ms5[1]:.4f})", flush=True)
             sums = (None, None)
-            if (stage_name, dt) == ("coarse", torch.bfloat16):
-                sums = backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float_mask)
+            if dt == torch.bfloat16:
+                coarse = stage_name == "coarse"
+                sum5, sum6 = backward_summaries(torch, F, dev, args, key_mask, library_time,
+                                                causal_float_mask, with_dbias=coarse)
+                if coarse:
+                    sums = (sum5, sum6)
+                lib5 = sum5[2]
+                print(f"    -> kernel 5 {label} bf16: device {ms5[1]:.4f} ms, {sum5[1] / 1e9:.2f} GFLOP, "
+                      f"{sum5[1] / (ms5[1] * 1e-3) / 1e12:.1f} TFLOP/s, SDPA backward (dq, dk, dv) "
+                      f"device {lib5[1]:.4f} ms: kernel/SDPA {ms5[1] / lib5[1]:.2f}x device, "
+                      f"{ms5[0] / lib5[0]:.2f}x stream [{card}]", flush=True)
             report("attention_bwd", label, dt, *compare("attention_bwd", label, dt, got[:3], want[:3]),
                    ms5, plain_ms, sums[0])
             report("attention_dbias", label, dt, *compare("attention_dbias", label, dt, got[3], want[3]),
@@ -776,13 +796,15 @@ def main() -> int:
     return 0
 
 
-def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float_mask):
-    """(bytes, FLOPs, library (stream, device) ms) of kernels 5 and 6 on these inputs. The
-    library call is scaled_dot_product_attention with K/V expanded to the 8
-    heads and the bias plus masks as a float attn_mask: its backward (fwd +
-    bwd less fwd) with the mask not requiring grad computes kernel 5's dq,
-    dk, dv; with the mask requiring grad it also computes kernel 6's dbias
-    (summed over the batch afterwards, outside the timing)."""
+def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float_mask,
+                       with_dbias=True):
+    """(bytes, FLOPs, library (stream, device) ms) of kernels 5 and 6 on these inputs (kernel
+    6's None without ``with_dbias``). The library call is
+    scaled_dot_product_attention with K/V expanded to the 8 heads and the
+    bias plus masks as a float attn_mask: its backward (fwd + bwd less fwd)
+    with the mask not requiring grad computes kernel 5's dq, dk, dv; with the
+    mask requiring grad it also computes kernel 6's dbias (summed over the
+    batch afterwards, outside the timing)."""
     q, k, v, bias, _, out, stats, dout = args
     b, h, n, d = q.shape
     pairs = h * allowed_pairs(b, n, n, key_mask)
@@ -792,7 +814,7 @@ def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float
     vx = v[:, None].expand(b, h, n, d).contiguous()
     mask = causal_float_mask(bias, key_mask, n, n, q.dtype)
     libs = []
-    for mask_grad in (False, True):
+    for mask_grad in (False, True)[:2 if with_dbias else 1]:
         leaves = [q.detach().requires_grad_(), kx.requires_grad_(), vx.requires_grad_()]
         m = mask.clone().requires_grad_(mask_grad)
         wrt = leaves + ([m] if mask_grad else [])
@@ -808,7 +830,7 @@ def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float
         t_f, _ = library_time(f"SDPA forward b{b} n{n}", fwd, be)
         libs.append((t_fb[0] - t_f[0], t_fb[1] - t_f[1]))
     sum5 = (inputs + nbytes(q, k, v), 10 * d * pairs, libs[0])
-    sum6 = (inputs + nbytes(bias), 4 * d * pairs, libs[1])
+    sum6 = (inputs + nbytes(bias), 4 * d * pairs, libs[1]) if with_dbias else None
     return sum5, sum6
 
 
@@ -859,8 +881,8 @@ def profile_step(torch, trainer, state, batch, gen, card):
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {
         "kernel 1 (prefill_attention)": ("prefill_attention",),
-        "kernels 5, 6 (attention bwd)": ("dq_kernel", "dkdv_kernel", "dbias_kernel",
-                                          "delta_kernel", "sum_heads_kernel"),
+        "kernels 5, 6 (attention bwd)": ("bwd_bf16_kernel", "dq_kernel", "dkdv_kernel",
+                                          "dbias_kernel", "delta_kernel", "sum_heads_kernel"),
         "matmuls (cuBLAS)": ("gemm", "Kernel2", "nvjet", "cutlass", "xmma"),
     }
     by_group, n_kernels, rows = {}, 0, []

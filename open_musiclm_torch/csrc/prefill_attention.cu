@@ -44,27 +44,19 @@
 //     holds float32 to float64, and bf16 or TF32 products would fail it):
 //     one CUDA-core thread per row over 32-key tiles, as before, with the
 //     same causal tile skipping and fully-masked epilogue.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using omt::causal_ok;
+using omt::swz;
+using omt::visible_end;
 
 constexpr int D = 64;
 
 // ---- float32: one thread per (head, query) row on the CUDA cores ----
 constexpr int ROWS = 128;  // rows per block == threads per block
 constexpr int KT = 32;     // keys per tile
-
-// one past the last key any row of queries [i0, i1) may see
-__device__ __forceinline__ int visible_end(int i0, int i1, int n, int m, int causal, int ncp) {
-  if (!causal) return m;
-  int end = min(i1, n) - 1 + (m - n) + 1;
-  if (i0 < ncp) end = max(end, ncp + (m - n));
-  return min(end, m);
-}
-
-__device__ __forceinline__ bool causal_ok(int i, int j, int off, int causal, int ncp) {
-  return !causal || j <= i + off || (i < ncp && j < ncp + off);
-}
 
 template <typename B>
 __global__ void __launch_bounds__(ROWS) prefill_attention_f32_kernel(
@@ -166,61 +158,6 @@ constexpr int NT = 128;
 // wrapper checks it against MAX_MASKED_KEYS in ops/attention.py
 constexpr int MAX_MASKED_KEYS = 16384;
 
-// byte offset of element (row, col) in a [64][64] bf16 tile whose 16-byte
-// units are XOR-swizzled by row (col a multiple of 8)
-__device__ __forceinline__ unsigned swz(int row, int col) {
-  return row * 128 + ((((col >> 3) ^ row) & 7) << 4);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// a pair of bias elements j, j + 1 of a row, kept in the bias's own type;
-// load(): one load when paired, else j and (if ``second``) j + 1
-template <typename B>
-struct BiasPair;
-template <>
-struct BiasPair<float> {
-  using T = float2;
-  static __device__ __forceinline__ T zero() { return make_float2(0.f, 0.f); }
-  static __device__ __forceinline__ T load(const float* p, bool paired, bool second) {
-    if (paired) return __ldg(reinterpret_cast<const float2*>(p));
-    return make_float2(__ldg(p), second ? __ldg(p + 1) : 0.f);
-  }
-  static __device__ __forceinline__ float2 f32(T v) { return v; }
-};
-template <>
-struct BiasPair<__nv_bfloat16> {
-  using T = __nv_bfloat162;
-  static __device__ __forceinline__ T zero() { return __float2bfloat162_rn(0.f); }
-  static __device__ __forceinline__ T load(const __nv_bfloat16* p, bool paired, bool second) {
-    if (paired) return __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
-    return __halves2bfloat162(__ldg(p), second ? __ldg(p + 1) : __float2bfloat16(0.f));
-  }
-  static __device__ __forceinline__ float2 f32(T v) { return __bfloat1622float2(v); }
-};
-
 template <typename B>
 __global__ void __launch_bounds__(NT, 3) prefill_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -232,7 +169,7 @@ __global__ void __launch_bounds__(NT, 3) prefill_attention_bf16_kernel(
   __shared__ __align__(128) unsigned char ks[2][BK * D * 2];
   __shared__ __align__(128) unsigned char vs[2][BK * D * 2];
   __shared__ unsigned kbits[MAX_MASKED_KEYS / 32];  // the key mask, a bit a key
-  using BP = BiasPair<B>;
+  using BP = omt::BiasPair<B>;
   const int qb = BR / heads;  // query positions a block
   const int bi = blockIdx.y;
   // the blocks with the most key tiles (the last queries) start first
@@ -287,19 +224,9 @@ __global__ void __launch_bounds__(NT, 3) prefill_attention_bf16_kernel(
   }
 
   // the bias of a tile in the score fragment's layout, in its own type (so
-  // that the loads stay in flight until the tile is scored): [8 key groups
-  // of 8][row A, row B], keys 8 nt + 2 tq and 8 nt + 2 tq + 1
+  // that the loads stay in flight until the tile is scored)
   typename BP::T bfr[8][2];
-  auto load_bias = [&](int t) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int j = t * BK + nt * 8 + 2 * tq;
-#pragma unroll
-      for (int x = 0; x < 2; ++x)
-        bfr[nt][x] = brow[x] != nullptr && j < m ? BP::load(brow[x] + j, bias_paired, j + 1 < m)
-                                                 : BP::zero();
-    }
-  };
+  auto load_bias = [&](int t) { omt::load_bias_frag<B>(bfr, brow, t * BK, m, bias_paired); };
   load_bias(0);
 
   float o[8][4];
@@ -318,8 +245,7 @@ __global__ void __launch_bounds__(NT, 3) prefill_attention_bf16_kernel(
     if (t == 0) {
 #pragma unroll
       for (int ds = 0; ds < 4; ++ds)
-        ldmatrix_x4(omt::smem_addr(qs) + swz(warp * 16 + (lane & 15), ds * 16 + (lane >> 4) * 8),
-                    qa[ds]);
+        omt::load_a(omt::smem_addr(qs), warp, ds, qa[ds]);
     }
 
     // S = Q K^T: 16 rows x 64 keys a warp
@@ -328,18 +254,7 @@ __global__ void __launch_bounds__(NT, 3) prefill_attention_bf16_kernel(
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
-    const unsigned kbase = omt::smem_addr(ks[stage]);
-#pragma unroll
-    for (int ds = 0; ds < 4; ++ds) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int mi = lane >> 3;
-        unsigned r[4];
-        ldmatrix_x4(kbase + swz(np * 16 + (mi >> 1) * 8 + (lane & 7), ds * 16 + (mi & 1) * 8), r);
-        mma_bf16(s[2 * np], qa[ds], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qa[ds], r[2], r[3]);
-      }
-    }
+    omt::mma_a_bt(s, qa, omt::smem_addr(ks[stage]));
 
     // scale, bias, masks; then the online softmax
     float tmax[2] = {-INFINITY, -INFINITY};
@@ -388,22 +303,7 @@ __global__ void __launch_bounds__(NT, 3) prefill_attention_bf16_kernel(
       for (int c = 0; c < 4; ++c) o[dn][c] *= alpha[c >> 1];
 
     // O += P V: P's C fragments of key groups 2 ks, 2 ks + 1 are the A fragment of step ks
-    const unsigned vbase = omt::smem_addr(vs[stage]);
-#pragma unroll
-    for (int kstep = 0; kstep < 4; ++kstep) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kstep][0], s[2 * kstep][1]),
-                              pack_bf16(s[2 * kstep][2], s[2 * kstep][3]),
-                              pack_bf16(s[2 * kstep + 1][0], s[2 * kstep + 1][1]),
-                              pack_bf16(s[2 * kstep + 1][2], s[2 * kstep + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        const int mi = lane >> 3;
-        unsigned r[4];
-        ldmatrix_x4_trans(vbase + swz(kstep * 16 + (mi & 1) * 8 + (lane & 7), dp * 16 + (mi >> 1) * 8), r);
-        mma_bf16(o[2 * dp], pa, r[0], r[1]);
-        mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
-      }
-    }
+    omt::mma_c_b(o, s, omt::smem_addr(vs[stage]));
   }
 
   // epilogue: the rows' denominators over the quad, fully masked rows, stats, output

@@ -17,6 +17,8 @@ take the plain version only for tensors on the CPU:
     replacing ``_fused_bwd``'s ``_bwd_kernel`` and ``_dbias_kernel``): dq,
     dk, dv and, when asked, the bias gradient summed over the batch. Its
     ``launches`` counts kernel 5 and its ``dbias_launches`` kernel 6.
+    ``bwd_kv_splits`` chooses how kernel 5's bf16 route splits each key
+    tile's work over its dk/dv blocks.
 
 The kernels read the bias in its own dtype (float32 or bfloat16) and write
 dbias in it.
@@ -28,16 +30,18 @@ kernels 5 and 6 (on the CPU, the plain forward and backward).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from . import cuda_lib
 
 NEG_INF = -1e9
-# kernel 1's bf16 route keeps a key mask as bits in shared memory; must match
-# MAX_MASKED_KEYS in csrc/prefill_attention.cu
+# the bf16 routes of kernels 1 and 5 keep a key mask as bits in shared
+# memory; must match MAX_MASKED_KEYS in csrc/prefill_attention.cu
 MAX_MASKED_KEYS = 16384
+BWD_TILE = 64  # keys a dk/dv block of kernel 5's bf16 route; queries a tile (csrc/attention_bwd.cu: BT)
+BWD_PAIRS_PER_BLOCK = 12  # (head, query tile) pairs a dk/dv block of kernel 5's bf16 route takes
 
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -229,6 +233,48 @@ def _check_attention_args(name, q, k, v, attn_bias, key_mask, *more):
     return attn_bias, key_mask
 
 
+def bwd_kv_splits(h: int, n: int, m: int, causal: bool = True,
+                  non_causal_prefix: int = 0) -> List[int]:
+    """dk/dv blocks of each 64-key tile of kernel 5's bf16 route, for one
+    batch row. Key tile jt is visible to the (head, query tile) pairs whose
+    queries see one of its keys through the causal mask or the
+    bidirectional prefix (and to tiles holding a fully masked row, which
+    are not counted here); its splits take those pairs in turn (block s the
+    pairs of rank s, s + splits, ...), ``BWD_PAIRS_PER_BLOCK`` each at most
+    when no row is fully masked, and their float32 partials are summed in
+    split order. The kernel takes these counts as given."""
+    n_qt = -(-n // BWD_TILE)
+    out = []
+    for jt in range(-(-m // BWD_TILE)):
+        vis = n_qt
+        if causal:
+            off, j0 = m - n, jt * BWD_TILE
+            lo = n_qt  # the first query tile whose last row sees key j0
+            if j0 - off <= n - 1:
+                lo = max(0, j0 - off) // BWD_TILE
+            pre = 0
+            if non_causal_prefix > 0 and j0 < non_causal_prefix + off:
+                pre = -(-non_causal_prefix // BWD_TILE)
+            vis = n_qt - lo + min(pre, lo)
+        out.append(max(1, -(-(h * vis) // BWD_PAIRS_PER_BLOCK)))
+    return out
+
+
+# (device, key tiles' splits) -> their running sums [0, s0, s0 + s1, ...] as
+# int32 on the device, made once for each training shape
+_split_prefixes: dict = {}
+
+
+def _split_prefix(device: torch.device, splits: List[int]) -> torch.Tensor:
+    key = (device, tuple(splits))
+    if key not in _split_prefixes:
+        sums = [0]
+        for s in splits:
+            sums.append(sums[-1] + s)
+        _split_prefixes[key] = torch.tensor(sums, dtype=torch.int32, device=device)
+    return _split_prefixes[key]
+
+
 def shared_kv_attention_bwd(
     q, k, v, attn_bias, key_mask, out, stats, dout, *,
     scale: float = 8.0, causal: bool = True, non_causal_prefix: int = 0, dbias: bool = True,
@@ -258,18 +304,37 @@ def shared_kv_attention_bwd(
                      f"{name}: needs kernel 1's float32 row statistics [b, h, n, 2]")
     attn_bias, key_mask = _check_attention_args(
         name, q, k, v, attn_bias, key_mask, out, stats, dout)
+    cuda_lib.require(64 % h == 0, f"{name}: heads must divide 64 (a block's rows), got {h}")
+    bf16 = q.dtype == torch.bfloat16
+    cuda_lib.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout)),
+                     f"{name}: q, k, v, out and dout must be 16-byte aligned")
+    if bf16:
+        cuda_lib.require(attn_bias is None or attn_bias.data_ptr() % 4 == 0,
+                         f"{name}: the bias must be 4-byte aligned")
+        cuda_lib.require(key_mask is None or m <= MAX_MASKED_KEYS,
+                         f"{name}: in bf16 a key mask covers at most {MAX_MASKED_KEYS} keys, got {m}")
     f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((b, h, n), **f32)
-    dk_part = torch.empty((h, b, m, d), **f32)
-    dv_part = torch.empty((h, b, m, d), **f32)
+    delta, inv_l = torch.empty((b, h, n), **f32), torch.empty((b, h, n), **f32)
+    tile_dead = torch.empty((b, h, -(-n // BWD_TILE)), dtype=torch.uint8, device=q.device)
+    if bf16:  # dk/dv partials of the key tiles' splits, folded by ticket in the launch
+        splits = bwd_kv_splits(h, n, m, causal, non_causal_prefix)
+        prefix, n_splits = _split_prefix(q.device, splits), sum(splits)
+        part_numel = n_splits * b * BWD_TILE * d if max(splits) > 1 else 0
+        tickets, part = cuda_lib.stream_scratch("attention_bwd", q, b * len(splits), 2 * part_numel)
+        dk_ptr, dv_ptr = part.data_ptr(), part.data_ptr() + 4 * part_numel
+    else:  # float32: per-head partials [h, b, m, d], summed by a small pass
+        tickets, prefix, n_splits = None, None, 0
+        dk_part, dv_part = torch.empty((h, b, m, d), **f32), torch.empty((h, b, m, d), **f32)
+        dk_ptr, dv_ptr = dk_part.data_ptr(), dv_part.data_ptr()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     db = torch.empty_like(attn_bias) if want_dbias else None
     rc = cuda_lib.lib().omt_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(attn_bias), _ptr(key_mask),
-        out.data_ptr(), stats.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-        dk_part.data_ptr(), dv_part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _ptr(db), b, h, n, m, int(causal), int(non_causal_prefix), float(scale),
-        cuda_lib.dtype_code(q.dtype), _bias_code(attn_bias, q), cuda_lib.stream(q),
+        out.data_ptr(), stats.data_ptr(), dout.data_ptr(), delta.data_ptr(), inv_l.data_ptr(),
+        tile_dead.data_ptr(), dk_ptr, dv_ptr, _ptr(tickets), _ptr(prefix), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _ptr(db), b, h, n, m, int(causal), int(non_causal_prefix),
+        float(scale), cuda_lib.dtype_code(q.dtype), _bias_code(attn_bias, q), n_splits,
+        cuda_lib.stream(q),
     )
     cuda_lib.check(rc, name)
     shared_kv_attention_bwd.launches += 1

@@ -42,13 +42,16 @@ _SIGNATURES = {
     # q, k, v, bias, key_mask, out, stats, b, heads, n, m, causal, non_causal_prefix, scale,
     # dtype, bias_dtype, stream
     "omt_prefill_attention": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
-    # q, k, v, bias, key_mask, out, stats, dout, delta, dk_part, dv_part, dq, dk, dv, dbias,
-    # b, heads, n, m, causal, non_causal_prefix, scale, dtype, bias_dtype, stream
-    "omt_attention_bwd": (_P,) * 15 + (_I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
-    # x, gin, wv, sv, wg, sg, conv_v, conv_g, state, g_out, new_state, B, dim, inner, dtype, stream
-    "omt_fused_ff_in": (_P,) * 11 + (_I, _I, _I, _I, _P),
-    # g, gmid, wo, so, x, y, B, inner, dim, dtype, stream
-    "omt_fused_ff_out": (_P,) * 6 + (_I, _I, _I, _I, _P),
+    # q, k, v, bias, key_mask, out, stats, dout, delta, inv_l, tile_dead, dk_part, dv_part,
+    # tickets, kv_split_prefix, dq, dk, dv, dbias, b, heads, n, m, causal, non_causal_prefix,
+    # scale, dtype, bias_dtype, kv_splits, stream
+    "omt_attention_bwd": (_P,) * 19 + (_I,) * 6 + (_F, _I, _I, _I, _P),
+    # x, gin, wv, sv, wg, sg, conv_v, conv_g, state, g_out, new_state, xstats, part,
+    # part_stats, midstats, tickets, B, dim, inner, cols, col_blocks, splits, per, dtype, stream
+    "omt_fused_ff_in": (_P,) * 16 + (_I,) * 8 + (_P,),
+    # g, midstats, gmid, wo, so, x, y, part, tickets, B, inner, dim, cols, col_blocks, splits,
+    # per, dtype, stream
+    "omt_fused_ff_out": (_P,) * 9 + (_I,) * 8 + (_P,),
     # x, the 19 weights of fused_layer._packed_specs in its order, kv, kv_scale, bias_row,
     # add_mask, state, y, work, work_floats, b, heads, dim, inner, N, pos, scale, dtype, stream
     "omt_fused_layer": (_P,) * 27 + (ctypes.c_longlong,) + (_I,) * 6 + (_F, _I, _P),
@@ -139,6 +142,32 @@ def check(rc: int, name: str) -> None:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# (kernel, device, stream) -> (int32 tickets, float32 partials) of the
+# kernels that fold across blocks in one launch (kernels 2, 3 and 5)
+_scratch: dict = {}
+
+
+def scratch(kernel: str, device: torch.device, stream_id: int, n_tickets: int, n_floats: int):
+    """(tickets [>= n_tickets] int32, floats [>= n_floats] float32) of
+    ``kernel`` for launches on stream ``stream_id`` of ``device``, grown when
+    a call needs more. Tickets are 0 between launches (the block that folds
+    resets its own) and partials are written and read within a launch, so
+    launches in stream order can share them, and only those do."""
+    key = (kernel, device, stream_id)
+    tickets, floats = _scratch.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 64), dtype=torch.int32, device=device)
+    if floats is None or floats.numel() < n_floats:
+        floats = torch.empty(n_floats, dtype=torch.float32, device=device)
+    _scratch[key] = (tickets, floats)
+    return tickets, floats
+
+
+def stream_scratch(kernel: str, t: torch.Tensor, n_tickets: int, n_floats: int):
+    """``scratch`` for launches on the current stream of ``t``'s device."""
+    return scratch(kernel, t.device, stream(t), n_tickets, n_floats)
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -264,6 +264,67 @@ def test_fused_ff_kernel(dev, b, dim):
     torch.testing.assert_close(got[1], want[1], **TOL)
 
 
+def _ff_case(g, dev, b, dim):
+    ff = ConvFeedForward(dim, generator=g)
+    with torch.no_grad():
+        ff.norm_in.gamma.normal_(1.0, 0.2, generator=g)
+        ff.norm_mid.gamma.normal_(1.0, 0.2, generator=g)
+    packed = {key: t.to(dev) for key, t in fused_ff.pack_ff_weights(ff).items()}
+    return packed, _randn(g, b, dim).to(dev), _randn(g, b, 2, 2 * ff.inner_dim).to(dev)
+
+
+# Kernel 3's weight stream: column blocks of up to 128 columns, each split
+# over k (ops/fused_ff.py:ff_in_grid, ff_out_grid), 8 activation rows a pass
+# (b 17 and 40 take 3 and 5 passes), inner 170 and 2730 off every block
+# width and rows of Wv and Wg off 4-byte alignment (shifted words); dim 35
+# (inner 93) makes weight arrays of an odd byte count, whose last word is
+# read bytewise. float32 within TOL of the plain
+# version; bf16 against the plain version on the same bf16 values within
+# 2**-7 of the largest output (both round their float32 result once to bf16).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dim", [35, 64, 1024])
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 40])
+def test_fused_ff_kernel_rows(dev, dtype, dim, b):
+    g = torch.Generator().manual_seed(b + dim)
+    packed, x, state = _ff_case(g, dev, b, dim)
+    x, state = x.to(dtype), state.to(dtype)
+    before = fused_ff.fused_ff_apply.launches
+    got = fused_ff.fused_ff_apply(x, packed, state)
+    assert fused_ff.fused_ff_apply.launches == before + 1
+    want = fused_ff.fused_ff_apply_plain(x.float(), packed, state.float())
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    for name, a, ref in zip(("y", "state"), got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, ref, **TOL)
+        else:
+            _assert_within(name, a, ref, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_fused_ff_kernel_two_streams(dev):
+    """Kernel 3 on two streams at once: each stream folds with its own
+    tickets and partials, so both results are whole, and equal from call to
+    call."""
+    g = torch.Generator().manual_seed(9)
+    packed, x, state = _ff_case(g, dev, 8, 1024)
+    xs = [x.to(torch.bfloat16), _randn(g, 8, 1024).to(dev, torch.bfloat16)]
+    state = state.to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        with torch.cuda.stream(side):
+            outs[0].append(fused_ff.fused_ff_apply(xs[0], packed, state))
+        outs[1].append(fused_ff.fused_ff_apply(xs[1], packed, state))
+    torch.cuda.synchronize()
+    for xi, got in zip(xs, outs):
+        want = fused_ff.fused_ff_apply_plain(xi.float(), packed, state.float())
+        for i, (y, st) in enumerate(got):
+            _assert_within(f"y (call {i + 1})", y, want[0], 2.0 ** -7)
+            assert torch.equal(y, got[0][0]) and torch.equal(st, got[0][1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K,N", [(1, 1024, 1025), (17, 100, 33), (300, 64, 1025)])
 def test_int8_matmul_kernel(dev, B, K, N):
@@ -358,6 +419,57 @@ def test_attention_bwd_kernels_fully_masked_row(dev):
     want = attention.shared_kv_attention_bwd_plain(q, k, v, dout, attn_bias=bias, key_mask=key_mask)
     for name, a, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
         _assert_within(name, a, ref, 1e-4)
+
+
+# Kernel 5's bf16 route on the tensor cores: dk/dv blocks over (64-key tile,
+# split, batch row) with a key tile's splits folded by ticket, dq blocks of 64
+# (head, query) rows. Shapes off the 64-key tile (n 130, 200 / m 260) with a
+# non-causal prefix across a tile edge, a key mask, 4 or 8 heads, key tiles
+# of several splits (ops/attention.py:bwd_kv_splits), and a batch row whose
+# first 80 queries see no key: dead rows in query tiles 0 and 1 of every
+# head, whose gradient spreads over all m keys (so key tiles the causal mask
+# hides from those queries visit them, in whichever split their rank falls).
+# Held against the float32 plain backward on the same bf16 values within
+# 2**-7 of the largest gradient.
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [4, 8])
+@pytest.mark.parametrize("b,n,m,mask,ncp", [
+    (2, 130, 130, "random", 70), (1, 200, 260, "random", 66), (2, 150, 150, "head", 0),
+    (3, 64, 64, None, 0), (2, 300, 300, "head", 5),
+])
+def test_attention_bwd_kernel_bf16_splits(dev, h, b, n, m, mask, ncp):
+    g = torch.Generator().manual_seed(n + m + h)
+    q, k, v, bias, dout, key_mask = _bwd_case(g, b, h, n, m, mask == "random", dev)
+    if mask == "head":
+        key_mask = torch.ones(b, m, dtype=torch.bool, device=dev)
+        key_mask[1, :80] = False
+    q, k, v, bias, dout = (t.to(torch.bfloat16) for t in (q, k, v, bias, dout))
+    opts = dict(causal=True, non_causal_prefix=ncp)
+    out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True, **opts)
+    got = attention.shared_kv_attention_bwd(q, k, v, bias, key_mask, out, stats, dout, **opts)
+    want = attention.shared_kv_attention_bwd_plain(
+        q.float(), k.float(), v.float(), dout.float(), attn_bias=bias.float(), key_mask=key_mask,
+        **opts)
+    for name, a, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == torch.bfloat16
+        _assert_within(name, a, ref, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_bwd_kernel_deterministic(dev, dtype):
+    """Kernel 5 twice on the same inputs gives the same bits: every
+    cross-block sum (a key tile's splits of dk/dv in bf16) is folded in a
+    fixed order, whichever block finishes last."""
+    g = torch.Generator().manual_seed(17)
+    q, k, v, bias, dout, key_mask = _bwd_case(g, 2, 8, 514, 514, True, dev)
+    q, k, v, bias, dout = (t.to(dtype) for t in (q, k, v, bias, dout))
+    out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
+    first = attention.shared_kv_attention_bwd(q, k, v, bias, key_mask, out, stats, dout)
+    for _ in range(3):
+        again = attention.shared_kv_attention_bwd(q, k, v, bias, key_mask, out, stats, dout)
+        for name, a, ref in zip(("dq", "dk", "dv", "dbias"), again, first):
+            assert torch.equal(a, ref), name
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from open_musiclm_tpu.ops.pallas_attention import shared_kv_attention_pallas
 from open_musiclm_torch import config as tconfig
 from open_musiclm_torch.core import sampling as tsampling
 from open_musiclm_torch.core import sequence as tsequence
+from open_musiclm_torch.ops import cuda_lib
 from open_musiclm_torch.ops import attention as tattn
 from open_musiclm_torch.ops import decode_attention as tdec
 from open_musiclm_torch.ops import fused_ff as tff
@@ -201,17 +202,17 @@ def test_decode_scratch_kept_per_stream():
     """Kernel 2's scratch (tickets, partials): one pair per (device, stream),
     tickets zeroed, each grown when a call needs more, kept otherwise."""
     cpu = torch.device("cpu")
-    tickets, part = tdec._scratch_buffers(cpu, 101, 8, 1000)
+    tickets, part = cuda_lib.scratch("flash_decode", cpu, 101, 8, 1000)
     assert tickets.dtype == torch.int32 and not tickets.any() and part.dtype == torch.float32
-    assert tdec._scratch_buffers(cpu, 101, 4, 500) == (tickets, part)
-    other = tdec._scratch_buffers(cpu, 102, 8, 1000)
+    assert cuda_lib.scratch("flash_decode", cpu, 101, 4, 500) == (tickets, part)
+    other = cuda_lib.scratch("flash_decode", cpu, 102, 8, 1000)
     assert other[0] is not tickets and other[1] is not part
-    grown = tdec._scratch_buffers(cpu, 101, tickets.numel() + 1, 1000)
+    grown = cuda_lib.scratch("flash_decode", cpu, 101, tickets.numel() + 1, 1000)
     assert grown[0].numel() > tickets.numel() and not grown[0].any() and grown[1] is part
-    grown = tdec._scratch_buffers(cpu, 101, 8, 2000)
+    grown = cuda_lib.scratch("flash_decode", cpu, 101, 8, 2000)
     assert grown[1].numel() == 2000
     for stream in (101, 102):
-        tdec._scratch.pop((cpu, stream))
+        cuda_lib._scratch.pop(("flash_decode", cpu, stream))
 
 
 # ---------------------------------------------------------------------------
