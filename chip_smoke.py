@@ -10,8 +10,9 @@ Phases, each of which fails the run:
      bfloat16, and time both: kernels 1-4 and 7 at the serving path's
      shapes (kernel 2 at b 8, 2 and 16 and pos 0 to 1279 with int8,
      activation-dtype and float32 rows, kernel 7 also at an odd batch, at
-     the fine stage's 14 rows and at pos 0, beside one layer of the
-     two-kernel decode step), kernel 1 (with a key mask and its row
+     the fine stage's 14 rows, at pos 0 and at musiclm_large's 16 heads,
+     with its plan (grid, shared memory and weight share a block), beside
+     one layer of the two-kernel decode step), kernel 1 (with a key mask and its row
      statistics) and kernels 5 and 6 (the attention backward) at the three
      training shapes; time one PyTorch library call computing the same
      function where there is one (scaled_dot_product_attention, and
@@ -485,59 +486,74 @@ def main() -> int:
     # 7. one whole decode layer: a full-width layer (seeded weights, LayerNorm
     #    gains and q/k scales drawn around 1) over the coarse / fine cache
     #    (N 1280) at b 8 with pos in the first and the last chunk, at the
-    #    fine stage's b 14 (batch 2 x 7 windows), at an odd b 3 and at pos 0.
-    #    The kernel writes the fresh row and the conv state in place, so each
-    #    side gets its own copies. For context, one layer of the two-kernel
-    #    flash_quant_decode_step (kernels 2 and 3 plus the plain projections
-    #    and row write) over the same weights and cache.
-    layer_model = TokenConditionedTransformer(
-        (TokenSequenceSpec(1024, 1),), DIM, 1, generator=torch.Generator().manual_seed(5))
-    with torch.no_grad():
-        for t in (*layer_model.transformer.attns[0].parameters(), *layer_model.transformer.ffs[0].parameters()):
-            if t.dim() == 1:
-                t.normal_(1.0, 0.1, generator=g)
-    layer_model = layer_model.to(dev).eval()
-    lpacked = fused_layer.pack_layer_weights(layer_model.transformer.attns[0], layer_model.transformer.ffs[0])
+    #    fine stage's b 14 (batch 2 x 7 windows), at an odd b 3 and at pos 0;
+    #    then musiclm_large's layer width (16 heads of 64 at dim 1024) at b 8
+    #    and pos 1279. The kernel writes the fresh row and the conv state in
+    #    place, so each side gets its own copies. For context, one layer of
+    #    the two-kernel flash_quant_decode_step (kernels 2 and 3 plus the
+    #    plain projections and row write) over the same weights and cache.
     lfn = fused_layer.fused_layer_decode_step
-    two_model = copy.deepcopy(layer_model).to(torch.bfloat16)
-    two_qp = {"ff_0": {"packed": fused_ff.pack_ff_weights(layer_model.transformer.ffs[0])}}
-    for b, pos in ((8, 100), (8, N - 1), (14, N - 1), (3, 700), (8, 0)):
-        kq, ks = decode_attention.quantize_kv_row(attention.l2norm(rand(b, N, D)))
-        vq, vs = decode_attention.quantize_kv_row(rand(b, N, D))
-        kv, sc = torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous()
-        x32, st32, bias_row = rand(b, DIM), rand(b, 2, 2 * INNER), rand(N, H)
-        add_mask = torch.zeros(b, N, device=dev)
-        label = f"b{b} N{N} pos{pos}"
-        for dt in (torch.bfloat16, torch.float32):
-            x, st = x32.to(dt), st32.to(dt)
-            args = (pos, bias_row, add_mask)
-            want = fused_layer.fused_layer_decode_step_plain(
-                x.float(), lpacked, kv.clone(), sc.clone(), st.float().clone(), *args, heads=H)
-            got = lfn(x, lpacked, kv.clone(), sc.clone(), st.clone(), *args, heads=H)
-            torch.cuda.synchronize()
-            err, ref_max, tol = compare("fused_layer_decode_step", label, dt, got, want)
-            kv_t, sc_t, st_t = kv.clone(), sc.clone(), st.clone()
-            ms = both_ms(lambda: lfn(x, lpacked, kv_t, sc_t, st_t, *args, heads=H))
-            plain_ms = time_ms(lambda: fused_layer.fused_layer_decode_step_plain(
-                x, lpacked, kv_t, sc_t, st_t, *args, heads=H), reps=5)
-            summary = None
-            if (b, pos, dt) == (8, N - 1, torch.bfloat16):
-                # the cache rows j < pos and their scales, the bias rows and
-                # the mask the step reads; every weight once; x and the state
-                # in, y, krow, the state and the fresh row out
-                moved = (nbytes(x, st, *lpacked.values(), *got) + b * pos * (2 * D + 8)
-                         + (pos + 1) * H * 4 + b * pos * 4 + b * (2 * D + 8))
-                flops = (2 * b * DIM * (2 * H * D + 2 * D + 3 * INNER)
-                         + 4 * b * H * D * (pos + 1))
-                summary = (moved, flops, None)  # no one PyTorch call computes a decode layer
-                cache = {"kv": kv.clone()[None], "kvs": sc.clone()[None], "ff": st.clone()[None]}
-                two = time_ms(lambda: flash_quant_decode_step(
-                    two_model, two_qp, x, cache, pos, bias_row, add_mask, int8_kv=True))
-                print(f"    two-kernel flash_quant_decode_step, one layer, {label} {dt}: {two:.4f} ms on the stream "
-                      f"(kernels 2 + 3, plain projections, row write, final LayerNorm) [{card}]",
-                      flush=True)
-            report("fused_layer_decode_step", label, dt, err, ref_max, tol, ms, plain_ms, summary)
-            del want, got
+
+    def layer_model_of(heads):
+        model = TokenConditionedTransformer(
+            (TokenSequenceSpec(1024, 1),), DIM, 1, heads=heads, generator=torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            for t in (*model.transformer.attns[0].parameters(), *model.transformer.ffs[0].parameters()):
+                if t.dim() == 1:
+                    t.normal_(1.0, 0.1, generator=g)
+        return model.to(dev).eval()
+
+    def layer_plan_line(heads):
+        plan = fused_layer.layer_plan(heads, DIM, INNER, cuda_lib.sm_count(dev))
+        held = [sum(e[p][1] * plan.unit_bytes[p] for p in range(len(plan.units))) for e in plan.blocks]
+        print(f"    kernel 7 plan, {heads} heads: grid {plan.grid} x {fused_layer.LAYER_THREADS} threads, "
+              f"{plan.smem} B shared a block (weight share {min(held)}-{max(held)} B, gains to "
+              f"{plan.stage_off}, staging {4 * plan.stage_floats} B, partials {4 * plan.part_floats} B), "
+              f"weights {sum(held) / 1e6:.2f} MB", flush=True)
+
+    for heads, cases in ((H, ((8, 100), (8, N - 1), (14, N - 1), (3, 700), (8, 0))), (16, ((8, N - 1),))):
+        layer_model = layer_model_of(heads)
+        layer_plan_line(heads)
+        lpacked = fused_layer.pack_layer_weights(layer_model.transformer.attns[0], layer_model.transformer.ffs[0])
+        two_model = copy.deepcopy(layer_model).to(torch.bfloat16)
+        two_qp = {"ff_0": {"packed": fused_ff.pack_ff_weights(layer_model.transformer.ffs[0])}}
+        for b, pos in cases:
+            kq, ks = decode_attention.quantize_kv_row(attention.l2norm(rand(b, N, D)))
+            vq, vs = decode_attention.quantize_kv_row(rand(b, N, D))
+            kv, sc = torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous()
+            x32, st32, bias_row = rand(b, DIM), rand(b, 2, 2 * INNER), rand(N, heads)
+            add_mask = torch.zeros(b, N, device=dev)
+            label = f"b{b} N{N} pos{pos}" + ("" if heads == H else f" h{heads}")
+            for dt in (torch.bfloat16, torch.float32):
+                x, st = x32.to(dt), st32.to(dt)
+                args = (pos, bias_row, add_mask)
+                want = fused_layer.fused_layer_decode_step_plain(
+                    x.float(), lpacked, kv.clone(), sc.clone(), st.float().clone(), *args, heads=heads)
+                got = lfn(x, lpacked, kv.clone(), sc.clone(), st.clone(), *args, heads=heads)
+                torch.cuda.synchronize()
+                err, ref_max, tol = compare("fused_layer_decode_step", label, dt, got, want)
+                kv_t, sc_t, st_t = kv.clone(), sc.clone(), st.clone()
+                ms = both_ms(lambda: lfn(x, lpacked, kv_t, sc_t, st_t, *args, heads=heads))
+                plain_ms = time_ms(lambda: fused_layer.fused_layer_decode_step_plain(
+                    x, lpacked, kv_t, sc_t, st_t, *args, heads=heads), reps=5)
+                summary = None
+                if (b, pos, dt, heads) == (8, N - 1, torch.bfloat16, H):
+                    # the cache rows j < pos and their scales, the bias rows and
+                    # the mask the step reads; every weight once; x and the state
+                    # in, y, krow, the state and the fresh row out
+                    moved = (nbytes(x, st, *lpacked.values(), *got) + b * pos * (2 * D + 8)
+                             + (pos + 1) * heads * 4 + b * pos * 4 + b * (2 * D + 8))
+                    flops = (2 * b * DIM * (2 * heads * D + 2 * D + 3 * INNER)
+                             + 4 * b * heads * D * (pos + 1))
+                    summary = (moved, flops, None)  # no one PyTorch call computes a decode layer
+                    cache = {"kv": kv.clone()[None], "kvs": sc.clone()[None], "ff": st.clone()[None]}
+                    two = time_ms(lambda: flash_quant_decode_step(
+                        two_model, two_qp, x, cache, pos, bias_row, add_mask, int8_kv=True))
+                    print(f"    two-kernel flash_quant_decode_step, one layer, {label} {dt}: {two:.4f} ms on the "
+                          f"stream (kernels 2 + 3, plain projections, row write, final LayerNorm) [{card}]",
+                          flush=True)
+                report("fused_layer_decode_step", label, dt, err, ref_max, tol, ms, plain_ms, summary)
+                del want, got
     del layer_model, lpacked, two_model, two_qp
 
     # 1 (training forward), 5 and 6 (the attention backward) at the training

@@ -15,6 +15,7 @@ launches on that stream without synchronising, and returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -53,8 +54,9 @@ _SIGNATURES = {
     # per, dtype, stream
     "omt_fused_ff_out": (_P,) * 9 + (_I,) * 8 + (_P,),
     # x, the 19 weights of fused_layer._packed_specs in its order, kv, kv_scale, bias_row,
-    # add_mask, state, y, work, work_floats, b, heads, dim, inner, N, pos, scale, dtype, stream
-    "omt_fused_layer": (_P,) * 27 + (ctypes.c_longlong,) + (_I,) * 6 + (_F, _I, _P),
+    # add_mask, state, y, krow, work, work_floats, plan, tickets, grid, smem, b, heads, dim,
+    # inner, N, pos, chunk, n_chunks, scale, dtype, stream
+    "omt_fused_layer": (_P,) * 28 + (ctypes.c_longlong, _P, _P) + (_I,) * 10 + (_F, _I, _P),
 }
 
 _lib = None
@@ -145,7 +147,7 @@ def stream(t: torch.Tensor) -> int:
 
 
 # (kernel, device, stream) -> (int32 tickets, float32 partials) of the
-# kernels that fold across blocks in one launch (kernels 2, 3 and 5)
+# kernels that fold across blocks in one launch (kernels 2, 3, 5 and 7)
 _scratch: dict = {}
 
 
@@ -168,6 +170,12 @@ def scratch(kernel: str, device: torch.device, stream_id: int, n_tickets: int, n
 def stream_scratch(kernel: str, t: torch.Tensor, n_tickets: int, n_floats: int):
     """``scratch`` for launches on the current stream of ``t``'s device."""
     return scratch(kernel, t.device, stream(t), n_tickets, n_floats)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dtype_code(dtype: torch.dtype) -> int:

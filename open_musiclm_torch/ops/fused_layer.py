@@ -12,7 +12,10 @@ For one token x [b, dim] and one layer, all weights int8:
 (``csrc/fused_layer.cu``, replacing the Pallas kernel
 ``ops/fused_layer.py:fused_layer_decode_step``);
 ``fused_layer_decode_step_plain`` is the plain version (the JAX
-``fused_layer_decode_step_xla`` twin). Both return (y [b, dim] in x's
+``fused_layer_decode_step_xla`` twin). ``layer_plan`` is kernel 7's plan:
+which weight rows each block (one an SM) holds in shared memory for the
+whole launch, where, and how its warps cut them; ``attn_chunk`` cuts the
+live cache into the attention's work items. Both return (y [b, dim] in x's
 dtype, krow [b, 2d] float32: the fresh l2normed-and-scaled K row and V row,
 new conv state [b, 2, 2*inner]), and both also do what the JAX package
 leaves to its caller: they write the fresh row, quantized as
@@ -29,7 +32,7 @@ and scales are the JAX ones in another layout.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -155,13 +158,168 @@ def _packed_specs(dim, hd, d, inner, inner_p):
     }
 
 
-def workspace_floats(b: int, heads: int, d: int, dim: int, inner: int, pos: int) -> int:
+# Kernel 7's block, as csrc/fused_layer.cu takes it (constants of the same names there)
+LAYER_THREADS = 256  # NT: threads a block, one block an SM
+LAYER_WARPS = LAYER_THREADS // 32  # NW
+LAYER_ROWS = 8  # RT: activation rows a pass over the resident weights
+LAYER_COLS = 4  # NC: output columns of one warp item
+LAYER_STEP = 128  # bytes of a weight row a warp reads at a time (32 lanes x 4)
+DIM_HEAD = 64  # D
+MAX_HEADS = 16  # MAXH
+ATTN_MAX_CHUNK = 128  # CHMAX: cache rows of one attention item at most
+# shared floats of an attention item (ATTN_SMEM): K and V rows [CHMAX, D + 1],
+# their scales, q [MAXH, D], a row of p for each warp, the bias rows, the mask
+ATTN_SMEM_FLOATS = (2 * ATTN_MAX_CHUNK * (DIM_HEAD + 1) + 2 * ATTN_MAX_CHUNK + MAX_HEADS * DIM_HEAD
+                    + LAYER_WARPS * ATTN_MAX_CHUNK + ATTN_MAX_CHUNK * MAX_HEADS + ATTN_MAX_CHUNK)
+SMEM_LIMIT = 232448  # dynamic shared bytes a block may use on the H100 (227 KB)
+PHASES = ("B", "E", "G", "I")  # q|k|v, out-projection, FF in (v|g pairs), FF out
+PLAN_HEADER = 11  # ints before the blocks' entries in the plan table
+PLAN_PER_BLOCK = 3 * len(PHASES)  # (first unit, units, k slices) a phase
+
+
+class LayerPlan(NamedTuple):
+    """Kernel 7's launch for one layer shape: which weight rows each block
+    holds in shared memory, where, and how its warps cut them.
+
+    ``units[p]`` is phase p's count of output units, ``unit_bytes[p]`` the
+    int8 bytes of one and ``k[p]`` the length of one weight row: B takes the
+    rows of [wqT; wkvT] (one unit a row), E the rows of woT, G pairs (row j
+    of wvT with row j of wgT), I the rows of ff_woT. ``blocks[i][p]`` is
+    block i's (first unit, units, k slices) in phase p: a contiguous run of
+    units, its warps taking (column group of LAYER_COLS, k slice) items.
+    ``share_off[p]`` is the byte offset of phase p's share in every block's
+    shared memory and ``vec_off`` that of the LayerNorm gains gamma, gin and
+    gmid (prefetched with phases B, G and I). The activations stage at
+    ``stage_off`` (``stage_floats`` floats, also the attention items'
+    tiles), the warp items' partial sums at ``part_off``, and the staging
+    copies' mbarrier at ``bar_off`` (beside it the flag of the attention's
+    ticket fold). ``table`` is the int32 table the kernel reads: the header
+    (the four share offsets, the three gain offsets, stage_off, part_off,
+    bar_off, smem), then PLAN_PER_BLOCK ints a block."""
+
+    grid: int
+    smem: int
+    units: Tuple[int, ...]
+    unit_bytes: Tuple[int, ...]
+    k: Tuple[int, ...]
+    blocks: Tuple[Tuple[Tuple[int, int, int], ...], ...]
+    share_off: Tuple[int, ...]
+    vec_off: Tuple[int, ...]
+    stage_off: int
+    stage_floats: int
+    part_off: int
+    part_floats: int
+    bar_off: int
+    table: Tuple[int, ...]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def layer_groups(phase: int, first: int, n: int, hd: int) -> int:
+    """Column groups of LAYER_COLS output columns of a block's share: B keeps
+    its q columns (LN(x)) and its k|v columns (raw x) in separate groups, G
+    holds its n pairs as 2n columns (the v rows, then the g rows)."""
+    if PHASES[phase] == "B":
+        nq = max(0, min(n, hd - first))
+        return _cdiv(nq, LAYER_COLS) + _cdiv(n - nq, LAYER_COLS)
+    return _cdiv((2 if PHASES[phase] == "G" else 1) * n, LAYER_COLS)
+
+
+def layer_slices(groups: int, k: int) -> int:
+    """k slices of each column group, so that the block's warps share
+    ``groups`` x slices items evenly: every warp has an item where the work
+    allows, and the longest warp's steps (plus one step's worth for each of
+    its items' reductions) are the fewest; ties to fewer slices."""
+    steps = _cdiv(k, LAYER_STEP)
+    if groups == 0:
+        return 1
+    least = min(steps, _cdiv(LAYER_WARPS, groups))
+    cost = {s: _cdiv(groups * s, LAYER_WARPS) * (_cdiv(steps, s) + 1) for s in range(least, steps + 1)}
+    return min(cost, key=lambda s: (cost[s], s))
+
+
+@functools.lru_cache(maxsize=None)
+def layer_plan(heads: int, dim: int, inner: int, n_blocks: int) -> LayerPlan:
+    """Kernel 7's plan at ``n_blocks`` blocks (one an SM). Each phase's units
+    are shared out in contiguous runs whose lengths differ by at most one;
+    the extra units of each phase (the largest phase first) go to the blocks
+    holding the fewest bytes so far, so that the blocks' whole shares differ
+    little. Raises (``cuda_lib.require``) when a block's share and staging
+    do not fit in SMEM_LIMIT."""
+    d, hd = DIM_HEAD, heads * DIM_HEAD
+    inner_p = inner + (-inner % ALIGN)
+    units = (hd + 2 * d, dim, inner, dim)
+    unit_bytes = (dim, hd, 2 * dim, inner_p)
+    ks = (dim, hd, dim, inner_p)
+    counts = [[0] * len(PHASES) for _ in range(n_blocks)]
+    held = [0] * n_blocks
+    for p in sorted(range(len(PHASES)), key=lambda p: -units[p] * unit_bytes[p]):
+        base, extra = divmod(units[p], n_blocks)
+        lucky = set(sorted(range(n_blocks), key=lambda i: (held[i], i))[:extra])
+        for i in range(n_blocks):
+            counts[i][p] = base + (i in lucky)
+            held[i] += counts[i][p] * unit_bytes[p]
+    blocks, first = [], [0] * len(PHASES)
+    for i in range(n_blocks):
+        entry = []
+        for p in range(len(PHASES)):
+            n = counts[i][p]
+            entry.append((first[p], n, layer_slices(layer_groups(p, first[p], n, hd), ks[p])))
+            first[p] += n
+        blocks.append(tuple(entry))
+    share_off, off = [], 0
+    for p in range(len(PHASES)):
+        share_off.append(off)
+        off += _align16(max(c[p] for c in counts) * unit_bytes[p])
+    vec_off = (off, off + 4 * dim, off + 8 * dim)
+    stage_off = off + 8 * dim + _align16(4 * inner)
+    stage_floats = max(2 * LAYER_ROWS * dim, LAYER_ROWS * hd, LAYER_ROWS * inner_p, ATTN_SMEM_FLOATS)
+    items = max(layer_groups(p, e[p][0], e[p][1], hd) * e[p][2] for e in blocks for p in range(len(PHASES)))
+    part_floats = items * LAYER_COLS * LAYER_ROWS
+    part_off = stage_off + 4 * stage_floats
+    bar_off = part_off + 4 * part_floats
+    smem = bar_off + 16
+    cuda_lib.require(
+        smem <= SMEM_LIMIT,
+        f"fused_layer_decode_step: dim {dim}, {heads} heads, inner {inner} at {n_blocks} blocks needs "
+        f"{smem} bytes of shared memory a block (weights and gains {stage_off}, staging "
+        f"{4 * stage_floats}, partials {4 * part_floats}), over the {SMEM_LIMIT}-byte limit")
+    header = (*share_off, *vec_off, stage_off, part_off, bar_off, smem)
+    table = header + tuple(v for e in blocks for ph in e for v in ph)
+    return LayerPlan(n_blocks, smem, units, unit_bytes, ks, tuple(blocks), tuple(share_off), vec_off, stage_off,
+                     stage_floats, part_off, part_floats, bar_off, table)
+
+
+def attn_chunk(b: int, pos: int, n_blocks: int) -> Tuple[int, int]:
+    """(cache rows an attention item, items a batch row): the live rows j <
+    pos of each batch row cut so that the b x items fill the grid once
+    where ATTN_MAX_CHUNK allows."""
+    per_row = max(1, n_blocks // b)
+    chunk = min(ATTN_MAX_CHUNK, max(1, _cdiv(pos, per_row)))
+    return chunk, _cdiv(pos, chunk)
+
+
+def workspace_floats(b: int, heads: int, d: int, dim: int, inner: int, n_chunks: int) -> int:
     """Float32 scratch of one kernel 7 call, in the order the kernel carves
-    it: krow [b, 2d], raw q [b, h*d], raw k|v [b, 2d], attention partials
-    [b, chunks, h, d + 2] (max, denominator, d sums a 64-row chunk of the
-    rows < pos), the attention output [b, h*d], x2 [b, dim], g [b, inner]."""
-    chunks = -(-pos // 64)
-    return b * (2 * d + heads * d + 2 * d + chunks * heads * (d + 2) + heads * d + dim + inner)
+    it, each part a multiple of 16 floats: raw q [b, h*d], raw k|v [b, 2d],
+    the attention output [b, h*d], x2 [b, dim], g [b, inner rounded up to
+    16], then the attention partials [b, chunks, h, d + 2] (max,
+    denominator, d sums of one chunk of the rows < pos)."""
+    inner_p = inner + (-inner % ALIGN)
+    return b * (2 * heads * d + 2 * d + dim + inner_p + n_chunks * heads * (d + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(heads: int, dim: int, inner: int, device: torch.device):
+    """(``layer_plan`` at one block an SM of ``device``, its table there)."""
+    plan = layer_plan(heads, dim, inner, cuda_lib.sm_count(device))
+    return plan, torch.tensor(plan.table, dtype=torch.int32, device=device)
 
 
 def fused_layer_decode_step(
@@ -177,8 +335,8 @@ def fused_layer_decode_step(
     heads: int,
     scale: float = 8.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel 7, one cooperative launch. Same contract as
-    ``fused_layer_decode_step_plain``."""
+    """Kernel 7, one cooperative launch of ``layer_plan``'s grid. Same
+    contract as ``fused_layer_decode_step_plain``."""
     if not x.is_cuda:
         return fused_layer_decode_step_plain(
             x, packed, kv_cache, kv_scale, ff_state, pos, bias_row, add_mask,
@@ -189,8 +347,8 @@ def fused_layer_decode_step(
     d = two_d // 2
     inner = ff_state.shape[2] // 2
     inner_p = inner + (-inner % ALIGN)
-    cuda_lib.require(d == 64, f"{name}: kernel takes dim_head 64, got {d}")
-    cuda_lib.require(1 <= heads <= 16, f"{name}: kernel takes 1..16 heads, got {heads}")
+    cuda_lib.require(d == DIM_HEAD, f"{name}: kernel takes dim_head {DIM_HEAD}, got {d}")
+    cuda_lib.require(1 <= heads <= MAX_HEADS, f"{name}: kernel takes 1..{MAX_HEADS} heads, got {heads}")
     cuda_lib.require(dim % ALIGN == 0, f"{name}: dim must be a multiple of {ALIGN}, got {dim}")
     cuda_lib.require(0 <= pos < N, f"{name}: pos {pos} outside the {N}-row cache")
     cuda_lib.require(kv_cache.shape == (b, N, 2 * d) and kv_cache.dtype == torch.int8,
@@ -209,17 +367,23 @@ def fused_layer_decode_step(
                               f"for dim {dim}, {heads} heads, inner {inner}")
     weights = [packed[k] for k in specs]
     cuda_lib.require_cuda(name, x, kv_cache, kv_scale, ff_state, bias_row, add_mask, *weights)
+    ptrs = [t.data_ptr() for t in (x, kv_cache, *weights)]
+    cuda_lib.require(all(p % 16 == 0 for p in ptrs), f"{name}: x, the cache and the weights must "
+                                                     f"start on 16-byte boundaries")
+    plan, table = _device_plan(heads, dim, inner, x.device)
+    chunk, n_chunks = attn_chunk(b, pos, plan.grid)
     y = torch.empty_like(x)
-    work = torch.empty(workspace_floats(b, heads, d, dim, inner, pos), dtype=torch.float32, device=x.device)
+    krow = torch.empty(b, 2 * d, dtype=torch.float32, device=x.device)
+    tickets, work = cuda_lib.stream_scratch(name, x, b, workspace_floats(b, heads, d, dim, inner, n_chunks))
     rc = cuda_lib.lib().omt_fused_layer(
-        x.data_ptr(), *(t.data_ptr() for t in weights), kv_cache.data_ptr(), kv_scale.data_ptr(),
-        bias_row.data_ptr(), add_mask.data_ptr(), ff_state.data_ptr(), y.data_ptr(),
-        work.data_ptr(), work.numel(), b, heads, dim, inner, N, int(pos), float(scale),
-        cuda_lib.dtype_code(x.dtype), cuda_lib.stream(x),
+        ptrs[0], *ptrs[2:], ptrs[1], kv_scale.data_ptr(), bias_row.data_ptr(), add_mask.data_ptr(),
+        ff_state.data_ptr(), y.data_ptr(), krow.data_ptr(), work.data_ptr(), work.numel(),
+        table.data_ptr(), tickets.data_ptr(), plan.grid, plan.smem, b, heads, dim, inner, N,
+        int(pos), chunk, n_chunks, float(scale), cuda_lib.dtype_code(x.dtype), cuda_lib.stream(x),
     )
     cuda_lib.check(rc, name)
     fused_layer_decode_step.launches += 1
-    return y, work[: b * 2 * d].view(b, 2 * d), ff_state
+    return y, krow, ff_state
 
 
 fused_layer_decode_step.launches = 0

@@ -515,21 +515,21 @@ def _layer_case(g, dev, b, dim=256, heads=8, N=512):
         bias_row=_randn(g, N, heads).to(dev), add_mask=add_mask.to(dev))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b", [1, 3, 8])
-@pytest.mark.parametrize("pos", [0, 5, 256, 289])
-def test_fused_layer_kernel(dev, dtype, b, pos):
-    g = torch.Generator().manual_seed(10 * pos + b)
-    packed, ins = _layer_case(g, dev, b)
+def _check_layer(dev, dtype, b, pos, seed, **shape):
+    """Kernel 7 once against the plain version on the same inputs: y, krow
+    and the new state within LAYER_REL, the row written at pos, and every
+    other cache row untouched. Returns the kernel's outputs."""
+    heads = shape.get("heads", 8)
+    g = torch.Generator().manual_seed(seed)
+    packed, ins = _layer_case(g, dev, b, **shape)
     x, state = ins["x"].to(dtype), ins["ff_state"].to(dtype)
     cache = (ins["kv_cache"].clone(), ins["kv_scale"].clone())
     want = fused_layer.fused_layer_decode_step_plain(
-        x.float(), packed, *cache, state.float().clone(), pos, ins["bias_row"], ins["add_mask"], heads=8)
+        x.float(), packed, *cache, state.float().clone(), pos, ins["bias_row"], ins["add_mask"], heads=heads)
     kv, sc = ins["kv_cache"].clone(), ins["kv_scale"].clone()
     before = fused_layer.fused_layer_decode_step.launches
     got = fused_layer.fused_layer_decode_step(
-        x, packed, kv, sc, state, pos, ins["bias_row"], ins["add_mask"], heads=8)
+        x, packed, kv, sc, state, pos, ins["bias_row"], ins["add_mask"], heads=heads)
     torch.cuda.synchronize()
     assert fused_layer.fused_layer_decode_step.launches == before + 1
     assert got[0].dtype == dtype and got[1].dtype == torch.float32 and got[2] is state
@@ -546,6 +546,48 @@ def test_fused_layer_kernel(dev, dtype, b, pos):
     others = torch.arange(kv.shape[1], device=dev) != pos
     assert torch.equal(kv[:, others], ins["kv_cache"][:, others])
     assert torch.equal(sc[:, :, others], ins["kv_scale"][:, :, others])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("pos", [0, 5, 256, 289])
+def test_fused_layer_kernel(dev, dtype, b, pos):
+    _check_layer(dev, dtype, b, pos, 10 * pos + b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads,b", [(8, 8), (16, 8), (8, 14), (8, 17), (16, 17)])
+def test_fused_layer_kernel_full_width(dev, dtype, heads, b):
+    """musiclm_small's (8 heads) and musiclm_large's (16 heads) layer at full
+    width (dim 1024, inner 2730, each block holding its share of 9.6 / 10.6
+    MB of weights) over a 1280-row cache at its last row; b 14 and 17 take a
+    second and third pass over the resident weights, and their attention
+    items a second round of the grid."""
+    _check_layer(dev, dtype, b, 1279, heads + b, dim=1024, heads=heads, N=1280)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_layer_kernel_deterministic(dev, dtype):
+    """Kernel 7 again on the same inputs gives the same bits: every sum
+    (k slices, warp butterflies, LayerNorm statistics, chunk folds) is
+    taken in a fixed order."""
+    g = torch.Generator().manual_seed(23)
+    packed, ins = _layer_case(g, dev, 17, dim=1024, heads=16, N=1280)
+    x, state = ins["x"].to(dtype), ins["ff_state"].to(dtype)
+    outs = []
+    for _ in range(4):
+        kv, sc, st = ins["kv_cache"].clone(), ins["kv_scale"].clone(), state.clone()
+        y, krow, _ = fused_layer.fused_layer_decode_step(
+            x, packed, kv, sc, st, 1279, ins["bias_row"], ins["add_mask"], heads=16)
+        outs.append((y.clone(), krow.clone(), st, kv, sc))
+    torch.cuda.synchronize()
+    for again in outs[1:]:
+        for name, a, ref in zip(("y", "krow", "state", "kv", "kv_scale"), again, outs[0]):
+            assert torch.equal(a, ref), name
 
 
 @pytest.mark.cuda

@@ -1,11 +1,13 @@
-"""How the wrappers of kernels 3 and 5 cut their work over blocks, and
+"""How the wrappers of kernels 3, 5 and 7 cut their work over blocks, and
 their plain route on CPU tensors.
 
 The kernels run only on a card; the grid each launch takes is chosen in
 Python (``ops/attention.py:bwd_kv_splits``, ``ops/fused_ff.py:ff_in_grid``
-and ``ff_out_grid``), so it is checked here at the shapes the main paths
-use: every (key tile, head, query tile) pair, column and k row in exactly
-one block, and each cross-block fold summing its parts in one fixed order.
+and ``ff_out_grid``, ``ops/fused_layer.py:layer_plan`` and ``attn_chunk``),
+so it is checked here at the shapes the main paths use: every (key tile,
+head, query tile) pair, column and k row in exactly one block, each
+cross-block fold summing its parts in one fixed order, and kernel 7's
+resident weight shares within the card's shared memory.
 """
 
 import numpy as np
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 from open_musiclm_torch.models.transformer import ConvFeedForward
-from open_musiclm_torch.ops import attention, fused_ff
+from open_musiclm_torch.ops import attention, fused_ff, fused_layer
 
 # training shapes (b, n) of the three stages at musiclm_small's 8 heads
 TRAIN = {"semantic": (4, 514), "coarse": (2, 1116), "fine": (2, 1217)}
@@ -131,6 +133,134 @@ def test_fused_ff_grids(b, dim, inner):
     assert all(o + size <= nxt for o, size, nxt in zip(offs, sizes, offs[1:] + (n_floats,)))
     if (dim, inner) == (1024, 2730):  # musiclm_small: most of the card in both launches
         assert cb_in * s_in + 1 >= 0.85 * SMS and cb_out * s_out >= 0.95 * SMS
+
+
+# kernel 7's layer shapes (heads, dim, inner): musiclm_small and musiclm_large
+# (configs/model/*.json: dim 1024, 8 / 16 heads of 64, conv-FF inner 2730),
+# and the card tests' narrow layer
+LAYERS = {"small": (8, 1024, 2730), "large": (16, 1024, 2730), "narrow": (8, 256, 682)}
+
+
+@pytest.mark.parametrize("blocks", [SMS, 114])  # H100 SXM, H100 PCIe
+@pytest.mark.parametrize("layer", list(LAYERS))
+def test_layer_plan_cover(layer, blocks):
+    """Every output unit of every phase (B: the rows of [wqT; wkvT], E: woT,
+    G: (wvT, wgT) row pairs, I: ff_woT) in exactly one block's contiguous
+    run, runs in block order, and a phase's runs within one unit of each
+    other: the shares differ by at most one weight row's bytes."""
+    heads, dim, inner = LAYERS[layer]
+    plan = fused_layer.layer_plan(heads, dim, inner, blocks)
+    inner_p = -(-inner // 16) * 16
+    assert plan.units == (heads * 64 + 128, dim, inner, dim)
+    assert plan.unit_bytes == (dim, heads * 64, 2 * dim, inner_p)
+    assert len(plan.blocks) == plan.grid == blocks
+    for p in range(len(fused_layer.PHASES)):
+        cover = np.zeros(plan.units[p], dtype=int)
+        nxt = 0
+        for entry in plan.blocks:
+            first, n, _ = entry[p]
+            assert first == nxt
+            cover[first: first + n] += 1
+            nxt = first + n
+        assert (cover == 1).all()
+        counts = [e[p][1] for e in plan.blocks]
+        assert max(counts) - min(counts) <= 1
+        assert (max(counts) - min(counts)) * plan.unit_bytes[p] <= max(plan.unit_bytes)
+    held = [sum(e[p][1] * plan.unit_bytes[p] for p in range(4)) for e in plan.blocks]
+    assert max(held) - min(held) <= sum(plan.unit_bytes)
+
+
+@pytest.mark.parametrize("layer", list(LAYERS))
+def test_layer_plan_warps_and_slices(layer):
+    """A block's (column group, k slice) items: k slices within the row's
+    128-byte steps, every warp with an item wherever the share has as many
+    (group, step) pairs as the block has warps, and no warp with more than
+    one item above its fair share."""
+    heads, dim, inner = LAYERS[layer]
+    plan = fused_layer.layer_plan(heads, dim, inner, SMS)
+    warps = fused_layer.LAYER_WARPS
+    for entry in plan.blocks:
+        for p, (first, n, slices) in enumerate(entry):
+            groups = fused_layer.layer_groups(p, first, n, heads * 64)
+            steps = -(-plan.k[p] // fused_layer.LAYER_STEP)
+            assert 1 <= slices <= steps
+            cols = 2 * n if fused_layer.PHASES[p] == "G" else n
+            assert groups * fused_layer.LAYER_COLS >= cols > (groups - 2) * fused_layer.LAYER_COLS or n == 0
+            if groups * steps >= warps:
+                assert groups * slices >= warps
+            items = groups * slices
+            assert items * 32 <= plan.part_floats
+
+
+@pytest.mark.parametrize("layer", list(LAYERS))
+def test_layer_plan_shared_memory(layer):
+    """Shares, gains, staging, partials and the staging copies' mbarrier
+    in disjoint 16-byte aligned regions of one block's shared memory, each as large as the
+    largest block's need, all within the H100's 227 KB (both shipped
+    configurations fit at 132 blocks), and the table the kernel reads laid
+    out as its header then each block's entries."""
+    heads, dim, inner = LAYERS[layer]
+    plan = fused_layer.layer_plan(heads, dim, inner, SMS)
+    hd, inner_p = heads * 64, -(-inner // 16) * 16
+    ends = [off + max(e[p][1] for e in plan.blocks) * plan.unit_bytes[p]
+            for p, off in enumerate(plan.share_off)]
+    regions = ([(off, end) for off, end in zip(plan.share_off, ends)]
+               + [(plan.vec_off[0], plan.vec_off[0] + 4 * dim), (plan.vec_off[1], plan.vec_off[1] + 4 * dim),
+                  (plan.vec_off[2], plan.vec_off[2] + 4 * inner),
+                  (plan.stage_off, plan.stage_off + 4 * plan.stage_floats),
+                  (plan.part_off, plan.part_off + 4 * plan.part_floats),
+                  (plan.bar_off, plan.bar_off + 16)])
+    for (a0, a1), (b0, _) in zip(regions, regions[1:]):
+        assert a0 % 16 == 0 and a1 <= b0
+    assert regions[-1][1] == plan.smem <= fused_layer.SMEM_LIMIT
+    rows = fused_layer.LAYER_ROWS
+    # phase B holds x and LN(x) (x's bf16 rows land where LN(x) goes), the
+    # attention items their tiles
+    assert plan.stage_floats >= max(2 * rows * dim, rows * hd, rows * inner_p, fused_layer.ATTN_SMEM_FLOATS)
+    header = plan.table[:fused_layer.PLAN_HEADER]
+    assert header == (*plan.share_off, *plan.vec_off, plan.stage_off, plan.part_off, plan.bar_off,
+                      plan.smem)
+    assert len(plan.table) == fused_layer.PLAN_HEADER + SMS * fused_layer.PLAN_PER_BLOCK
+    assert plan.table[fused_layer.PLAN_HEADER:] == tuple(v for e in plan.blocks for ph in e for v in ph)
+    if layer != "narrow":  # the weights of one layer spread over the card: ~1/132 each
+        total = sum(u * ub for u, ub in zip(plan.units, plan.unit_bytes))
+        assert plan.vec_off[0] <= 1.1 * total / SMS
+
+
+@pytest.mark.parametrize("heads,dim,inner", [(8, 1024, 16384), (16, 4096, 2730), (8, 1024, 2730)])
+def test_layer_plan_over_budget_raises(heads, dim, inner):
+    """A layer whose share and staging do not fit a block raises with the
+    numbers (the wrapper calls layer_plan before it launches); at 8 blocks
+    even musiclm_small's layer is over the limit."""
+    blocks = 8 if inner == 2730 and dim == 1024 else SMS
+    with pytest.raises(ValueError, match=r"bytes of shared memory a block .* over the 232448-byte limit"):
+        fused_layer.layer_plan(heads, dim, inner, blocks)
+
+
+@pytest.mark.parametrize("b,pos", [(8, 1279), (1, 1279), (14, 1279), (17, 700), (3, 5), (8, 1), (8, 0), (200, 1279)])
+def test_attn_chunk_fills_grid(b, pos):
+    """Each batch row's live rows j < pos in chunks of at most ATTN_MAX_CHUNK
+    rows: the chunks cover [0, pos) exactly, and b x chunks fill the grid
+    once where the largest chunk allows (b8 pos 1279: one round on 132 SMs)."""
+    chunk, n_chunks = fused_layer.attn_chunk(b, pos, SMS)
+    assert 1 <= chunk <= fused_layer.ATTN_MAX_CHUNK
+    assert (n_chunks - 1) * chunk < pos <= n_chunks * chunk or pos == n_chunks == 0
+    if -(-pos // max(1, SMS // b)) <= fused_layer.ATTN_MAX_CHUNK:
+        assert b * n_chunks <= max(SMS, b)
+    if (b, pos) == (8, 1279):
+        assert b * n_chunks <= SMS and n_chunks == SMS // b
+
+
+def test_layer_workspace_layout():
+    """Kernel 7's scratch: the parts it reads in 16-byte runs (attention
+    output, x2, g with rows padded to 16) start on 16-byte boundaries."""
+    b, heads, dim, inner = 3, 16, 1024, 2730
+    chunk, n_chunks = fused_layer.attn_chunk(b, 1279, SMS)
+    inner_p = -(-inner // 16) * 16
+    sizes = [b * heads * 64, b * 128, b * heads * 64, b * dim, b * inner_p, b * n_chunks * heads * 66]
+    offs = np.cumsum([0] + sizes[:-1])
+    assert all(o % 4 == 0 for o in offs[:5])
+    assert fused_layer.workspace_floats(b, heads, 64, dim, inner, n_chunks) == sum(sizes)
 
 
 def _ff(dim, seed):
