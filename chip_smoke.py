@@ -19,12 +19,17 @@ Phases, each of which fails the run:
      torch._weight_int8pack_mm where it runs on the card), and compute each
      kernel's bound (the least time the card could take: bytes over the
      memory rate or FLOPs over the peak rate, whichever is larger); kernel 3
-     at b 8 and 16 also as GB/s and a share of 3.35 TB/s, kernel 5 (bf16) at
-     each training shape as TFLOP/s beside SDPA's backward;
+     at b 8 and 16 also as GB/s and a share of 3.35 TB/s, kernel 4 at the
+     logit head's b 8, 14, 16, 64 and 256 (both routes from b 14) and the
+     five projections of the fused_ff=False step, kernel 5 (bf16) at each
+     training shape as TFLOP/s beside SDPA's backward, kernel 6 (bf16, the
+     bias in bf16 and in float32) there beside its bound, and kernels 5 + 6
+     beside SDPA's backward with the mask's gradient;
   3. hold every decode mode with kernels (CUDA) against the same decode on
      the CPU through the plain versions: per-step teacher-forced logits of
      the full-width semantic stage in float32, flash_kv "bf16", "int8",
-     "f32", "fused" and None, and the fp decode;
+     "f32", "fused" and None (with fused_ff True and False), and the fp
+     decode;
   4. the serving path: MusicLM.generate on musiclm_small at full width
      (random weights from a seed, bf16): quantized=True, flash_kv="int8" at
      batch 8 x 4 s and batch 2 x 12 s (kernels 1-4), flash_kv="fused" at
@@ -58,6 +63,12 @@ Times a call, two readings of each kernel and library call:
 
 Prints the card, the kernels' JSON summary, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
+
+    python3 chip_smoke.py --kernel4 ROOT
+
+times kernel 4 alone at its phase-2 shapes from the port in the checkout
+ROOT (another commit's, for a comparison within one call) and prints a JSON
+line of its device ms.
 """
 
 from __future__ import annotations
@@ -88,6 +99,16 @@ TOL_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # cores). A kernel's bound is the larger of bytes / rate and FLOPs / peak.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+# kernel 4's cases (name, rows, K, N): the logit head at the decode batch
+# (b 8), the fine stage's rows (b 14: batch 2 x 7 windows; b 16), b 64 and
+# the fine stage's cap of 256 rows (MAX_FINE_ROWS); the five int8
+# projections of the fused_ff=False decode step at b 8
+INT8_CASES = ([("head", b, 1024, 1025) for b in (8, 14, 16, 64, 256)]
+              + [(name, 8, k, n) for name, k, n in (
+                  ("to_q", 1024, 512), ("to_kv", 1024, 128), ("to_out", 512, 1024),
+                  ("proj_in", 1024, 5460), ("proj_out", 2730, 1024))])
 
 
 def fail(msg: str) -> None:
@@ -133,6 +154,86 @@ def allowed_pairs(b: int, n: int, m: int, key_mask) -> int:
     if key_mask is None:
         return b * int(allowed.sum())
     return int((allowed[None] & key_mask.cpu()[:, None, :]).sum())
+
+
+class Timer:
+    """Stream and device ms a call on the card (the two readings of the
+    module docstring)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.spin = {}  # torch.cuda._sleep cycles a millisecond on this card, the L2 flush buffer
+
+    def stream_ms(self, fn, reps=20):
+        """Stream ms a call: CUDA events around ``reps`` calls after a
+        warm-up. For a kernel of a few microseconds this is the host's time
+        to launch it (Python wrapper included), not the card's."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def device_ms(self, fn, reps=20):
+        """Device ms a call: ``reps`` calls, each between its own pair of
+        CUDA events and after a write of a 128 MiB buffer (outside the events),
+        all enqueued while a spin kernel (torch.cuda._sleep) holds the
+        stream, so that the card runs them back to back and each finds L2
+        cold. The spin lasts 1.5x the host's time to enqueue them, doubled
+        until an event recorded just after it is still pending once the
+        host has enqueued the last call."""
+        torch, spin = self.torch, self.spin
+        if not spin:
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            torch.cuda._sleep(10_000_000)
+            b.record()
+            b.synchronize()
+            spin["per_ms"] = 10_000_000 / a.elapsed_time(b)
+            spin["flush"] = torch.empty(128 * 2**20, dtype=torch.uint8, device=self.dev)  # 2.5x the 50 MB L2
+
+        def enqueue():
+            events = []
+            for _ in range(reps):
+                spin["flush"].zero_()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                events.append((start, end))
+            return events
+
+        enqueue()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enqueue()
+        spin_ms = 1.5 * (time.perf_counter() - t0) * 1e3 + 1.0
+        torch.cuda.synchronize()
+        for _ in range(6):
+            held = torch.cuda.Event()
+            torch.cuda._sleep(int(spin["per_ms"] * spin_ms))
+            held.record()
+            events = enqueue()
+            held_through = not held.query()
+            torch.cuda.synchronize()
+            if held_through:
+                return sum(a.elapsed_time(b) for a, b in events) / reps
+            spin_ms *= 2
+        fail(f"the spin kernel ran out before the host enqueued {reps} calls, {spin_ms / 2:.1f} ms at last")
+
+    def both_ms(self, fn, reps=20):
+        """(stream ms, device ms) a call of ``fn``."""
+        return self.stream_ms(fn, reps), self.device_ms(fn, reps)
+
+    def release(self):
+        """Frees the L2 flush buffer."""
+        self.spin.clear()
 
 
 def main() -> int:
@@ -181,68 +282,8 @@ def main() -> int:
     def rand(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    def time_ms(fn, reps=20):
-        """Stream ms a call: CUDA events around ``reps`` calls after a
-        warm-up. For a kernel of a few microseconds this is the host's time
-        to launch it (Python wrapper included), not the card's."""
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    spin = {}  # torch.cuda._sleep cycles a millisecond on this card, the L2 flush buffer
-
-    def device_ms(fn, reps=20):
-        """Device ms a call: ``reps`` calls, each between its own pair of
-        CUDA events and after a write of a 128 MiB buffer (outside the events),
-        all enqueued while a spin kernel (torch.cuda._sleep) holds the
-        stream, so that the card runs them back to back and each finds L2
-        cold. The spin lasts 1.5x the host's time to enqueue them, doubled
-        until an event recorded just after it is still pending once the
-        host has enqueued the last call."""
-        if not spin:
-            torch.cuda.synchronize()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            torch.cuda._sleep(10_000_000)
-            b.record()
-            b.synchronize()
-            spin["per_ms"] = 10_000_000 / a.elapsed_time(b)
-            spin["flush"] = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)  # 2.5x the 50 MB L2
-
-        def enqueue():
-            events = []
-            for _ in range(reps):
-                spin["flush"].zero_()
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                events.append((start, end))
-            return events
-
-        enqueue()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        enqueue()
-        spin_ms = 1.5 * (time.perf_counter() - t0) * 1e3 + 1.0
-        torch.cuda.synchronize()
-        for _ in range(6):
-            held = torch.cuda.Event()
-            torch.cuda._sleep(int(spin["per_ms"] * spin_ms))
-            held.record()
-            events = enqueue()
-            held_through = not held.query()
-            torch.cuda.synchronize()
-            if held_through:
-                return sum(a.elapsed_time(b) for a, b in events) / reps
-            spin_ms *= 2
-        fail(f"the spin kernel ran out before the host enqueued {reps} calls, {spin_ms / 2:.1f} ms at last")
+    timer = Timer(torch, dev)
+    time_ms, device_ms, both_ms = timer.stream_ms, timer.device_ms, timer.both_ms
 
     results = {}
 
@@ -258,10 +299,6 @@ def main() -> int:
             ref_max = max(ref_max, b.abs().max().item())
         tol = TOL_REL[str(dtype).removeprefix("torch.")] * max(1.0, ref_max)
         return err, ref_max, tol
-
-    def both_ms(fn, reps=20):
-        """(stream ms, device ms) a call of ``fn``."""
-        return time_ms(fn, reps), device_ms(fn, reps)
 
     def ratio(kernel, library):
         """kernel/library on both readings: (stream, device) pairs."""
@@ -452,11 +489,11 @@ def main() -> int:
                 print(f"    -> kernel 3 b{b} bf16: device {ms[1]:.4f} ms, {moved / 1e6:.2f} MB moved, "
                       f"{rate / 1e9:.1f} GB/s = {100 * rate / HBM_BYTES_PER_S:.1f} % of "
                       f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s [{card}]", flush=True)
-    # 4. int8 matmul: the 1025-way logit head at b 8 and the fine rows b 16
-    wq, s = quant.quantize_weight(torch.randn(DIM, C, generator=g))
-    wq, s = wq.to(dev), s.to(dev)
-
-    def int8pack_library(x, out):
+    # 4. int8 matmul at INT8_CASES, each beside its bound and
+    #    torch._weight_int8pack_mm; the logit head from b 14 on also through
+    #    the route ops/quant.py:int8_route does not choose, to show which of
+    #    the two is faster there
+    def int8pack_library(x, wq, s, out):
         """(stream, device) ms of torch._weight_int8pack_mm (x @ int8
         W[out, in]^T * scales in x's dtype), the one PyTorch call computing
         kernel 4's function, where the installed PyTorch has it for CUDA;
@@ -472,17 +509,38 @@ def main() -> int:
         print(f"    library: torch._weight_int8pack_mm b{x.shape[0]}: {ms[0]:.4f} ms (device {ms[1]:.4f}; max abs diff from "
               f"the kernel {(y.float() - out.float()).abs().max().item():.3e}, scales in {x.dtype})")
         return ms
-    for b in (8, 16):
-        ins = dict(x=rand(b, DIM))
 
-        def summary(low, out, b=b):
-            return nbytes(low["x"], wq, s, out), 2 * b * DIM * C, int8pack_library(low["x"], out)
+    for name, b, K, N in INT8_CASES:
+        wq, s = quant.quantize_weight(torch.randn(K, N, generator=g))
+        wq, s = wq.to(dev), s.to(dev)
+        ins = dict(x=rand(b, K))
+        route = quant.int8_route(b)
+
+        def summary(low, out, b=b, K=K, N=N, wq=wq, s=s):
+            return nbytes(low["x"], wq, s, out), 2 * b * K * N, int8pack_library(low["x"], wq, s, out)
 
         for dt in (torch.bfloat16, torch.float32):
-            check("int8_matmul", f"b{b} {DIM}x{C}", dt,
-                  lambda x: quant.int8_matmul(x, wq, s),
-                  lambda x: quant.int8_matmul_plain(x, wq, s), ins,
-                  summary=summary if (b, dt) == (8, torch.bfloat16) else None)
+            main_case = (name, b, dt) == ("head", 8, torch.bfloat16)
+            ms = check("int8_matmul", f"{name} b{b} {K}x{N} ({route})", dt,
+                       lambda x, wq=wq, s=s: quant.int8_matmul(x, wq, s),
+                       lambda x, wq=wq, s=s: quant.int8_matmul_plain(x, wq, s), ins,
+                       summary=summary if main_case else None)
+            if dt != torch.bfloat16 or main_case:
+                continue
+            x = ins["x"].to(dt)
+            out = quant.int8_matmul(x, wq, s)
+            n_bytes, flops, lib = summary(dict(x=x), out)
+            b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+            lib_txt = f"{lib[1]:.4f} ms, kernel/library {ms[1] / lib[1]:.2f}x device" if lib else "none"
+            print(f"    -> kernel 4 {name} b{b} {K}x{N} bf16 ({route}): device {ms[1]:.4f} ms, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}), {ms[1] / b_ms:.1f}x bound; library device {lib_txt} [{card}]",
+                  flush=True)
+            if name == "head" and b >= 14:
+                other = "tiled" if route == "stream" else "stream"
+                ms_other = both_ms(lambda: quant.int8_matmul(x, wq, s, route=other))
+                print(f"    -> kernel 4 head b{b} bf16 routes: {route} (chosen) device {ms[1]:.4f} ms, "
+                      f"{other} device {ms_other[1]:.4f} ms [{card}]", flush=True)
+        del wq, s
     # 7. one whole decode layer: a full-width layer (seeded weights, LayerNorm
     #    gains and q/k scales drawn around 1) over the coarse / fine cache
     #    (N 1280) at b 8 with pos in the first and the last chunk, at the
@@ -620,24 +678,43 @@ def main() -> int:
                   f"{ms5[0]:.4f} ms (device {ms5[1]:.4f})", flush=True)
             sums = (None, None)
             if dt == torch.bfloat16:
-                coarse = stage_name == "coarse"
                 sum5, sum6 = backward_summaries(torch, F, dev, args, key_mask, library_time,
-                                                causal_float_mask, with_dbias=coarse)
-                if coarse:
+                                                causal_float_mask)
+                if stage_name == "coarse":
                     sums = (sum5, sum6)
-                lib5 = sum5[2]
+                lib5, lib6 = sum5[2], sum6[2]
                 print(f"    -> kernel 5 {label} bf16: device {ms5[1]:.4f} ms, {sum5[1] / 1e9:.2f} GFLOP, "
                       f"{sum5[1] / (ms5[1] * 1e-3) / 1e12:.1f} TFLOP/s, SDPA backward (dq, dk, dv) "
                       f"device {lib5[1]:.4f} ms: kernel/SDPA {ms5[1] / lib5[1]:.2f}x device, "
                       f"{ms5[0] / lib5[0]:.2f}x stream [{card}]", flush=True)
+                b6_ms, b6_by = bound_ms(sum6[0], sum6[1], "bfloat16")
+                print(f"    -> kernel 6 {label} bf16: device {ms56[1] - ms5[1]:.4f} ms, bound {b6_ms * 1e3:.2f} us "
+                      f"({b6_by}); kernels 5 + 6 device {ms56[1]:.4f} ms, SDPA backward with the mask's "
+                      f"gradient device {lib6[1]:.4f} ms: kernels/SDPA {ms56[1] / lib6[1]:.2f}x device, "
+                      f"{ms56[0] / lib6[0]:.2f}x stream [{card}]", flush=True)
             report("attention_bwd", label, dt, *compare("attention_bwd", label, dt, got[:3], want[:3]),
                    ms5, plain_ms, sums[0])
             report("attention_dbias", label, dt, *compare("attention_dbias", label, dt, got[3], want[3]),
                    (ms56[0] - ms5[0], ms56[1] - ms5[1]), plain_ms, sums[1])
+            if dt == torch.bfloat16:
+                # kernel 6 with the bias held in float32 beside bf16 inputs
+                # (dbias comes back in float32)
+                out_f, stats_f = attention.shared_kv_attention_fused(q, k, v, bias32, key_mask, return_stats=True)
+                args_f = (q, k, v, bias32, key_mask, out_f, stats_f, dout)
+                got_f = bwd(*args_f)[3]
+                want_f = attention.shared_kv_attention_bwd_plain(
+                    q.float(), k.float(), v.float(), dout.float(), attn_bias=bias32, key_mask=key_mask)[3]
+                torch.cuda.synchronize()
+                ms5f = both_ms(lambda: bwd(*args_f, dbias=False))
+                ms56f = both_ms(lambda: bwd(*args_f))
+                report("attention_dbias", label + " bias f32", dt,
+                       *compare("attention_dbias", label + " bias f32", dt, got_f, want_f),
+                       (ms56f[0] - ms5f[0], ms56f[1] - ms5f[1]), plain_ms)
+                del out_f, stats_f, args_f, got_f, want_f
             del out, stats, want_out, want_stats, args, want, got
     print("  (plain ms of attention_bwd / attention_dbias: one plain backward computing "
           "dq, dk, dv and dbias together)")
-    spin.clear()  # frees the L2 flush buffer before the phases that read peak memory
+    timer.release()  # frees the L2 flush buffer before the phases that read peak memory
 
     # ---- 3. every decode mode with kernels vs the plain path on the CPU ----
     # float32, 24 teacher-forced steps of the full-width semantic stage. With
@@ -653,19 +730,24 @@ def main() -> int:
     qp_cpu = quantize_stage_params(stage.model, fused=True)
     model_gpu = copy.deepcopy(stage.model).to(dev)
     qp_gpu = to_device(qp_cpu, dev)
-    for mode, rel in (("bf16", 1e-4), ("int8", 1e-2), ("f32", 1e-4), ("fused", 1e-2),
-                      (None, 1e-4), ("fp", 1e-4)):
+    # flash_kv=None also with fused_ff=False: kernel 4 for every projection
+    # of the step (1024 -> 512, 128, 5460; 512, 2730 -> 1024) at full width
+    for mode, fused_ff_on, rel in (("bf16", True, 1e-4), ("int8", True, 1e-2), ("f32", True, 1e-4),
+                                   ("fused", True, 1e-2), (None, True, 1e-4), (None, False, 1e-4),
+                                   ("fp", True, 1e-4)):
         kw = dict(max_time_steps=24, temperature=0.0, teacher_ids=teacher, return_logits=True)
         if mode == "fp":
             _, want = token_cond.generate(stage.model, [cond], **kw)
             _, got = token_cond.generate(model_gpu, [cond.to(dev)], **kw)
         else:
-            _, want = generate_quantized(stage.model, qp_cpu, [cond], flash_kv=mode, **kw)
-            _, got = generate_quantized(model_gpu, qp_gpu, [cond.to(dev)], flash_kv=mode, **kw)
+            kw.update(flash_kv=mode, fused_ff=fused_ff_on)
+            _, want = generate_quantized(stage.model, qp_cpu, [cond], **kw)
+            _, got = generate_quantized(model_gpu, qp_gpu, [cond.to(dev)], **kw)
         got, want = got.cpu()[..., :-1], want[..., :-1]  # the EOS column is -1e9 on both
         err = (got - want).abs().max().item()
         tol = rel * max(1.0, want.abs().max().item())
-        name = "fp decode (quantized=False)" if mode == "fp" else f"int8 decode, flash_kv={mode}"
+        name = ("fp decode (quantized=False)" if mode == "fp" else
+                f"int8 decode, flash_kv={mode}" + ("" if fused_ff_on else ", fused_ff=False"))
         print(f"{name}, semantic stage f32, 24 teacher-forced steps: CUDA vs CPU plain logits "
               f"max_abs_err {err:.3e} tol {tol:.3e} (max |logit| {want.abs().max().item():.2f})",
               flush=True)
@@ -898,7 +980,8 @@ def profile_step(torch, trainer, state, batch, gen, card):
     groups = {
         "kernel 1 (prefill_attention)": ("prefill_attention",),
         "kernels 5, 6 (attention bwd)": ("bwd_bf16_kernel", "dq_kernel", "dkdv_kernel",
-                                          "dbias_kernel", "delta_kernel", "sum_heads_kernel"),
+                                          "dbias_kernel", "dbias_bf16_kernel", "delta_kernel",
+                                          "sum_heads_kernel"),
         "matmuls (cuBLAS)": ("gemm", "Kernel2", "nvjet", "cutlass", "xmma"),
     }
     by_group, n_kernels, rows = {}, 0, []
@@ -1118,5 +1201,38 @@ def training_phase(torch, omt_config, mc, dev, card, attention, kernels):
     return launches
 
 
+def kernel4_times(root: Path) -> int:
+    """Kernel 4 alone at INT8_CASES in bf16 (device and stream ms, error
+    against its plain version), from the port in ``root``: another checkout,
+    such as a parent commit's, timed beside this one in one call."""
+    sys.path.insert(0, str(root.resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on a card", file=sys.stderr)
+        return 2
+    from open_musiclm_torch.ops import quant
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}\nkernel 4 from {quant.__file__}", flush=True)
+    timer = Timer(torch, dev)
+    g = torch.Generator().manual_seed(0)
+    times = {}
+    for name, b, K, N in INT8_CASES:
+        wq, s = quant.quantize_weight(torch.randn(K, N, generator=g))
+        wq, s = wq.to(dev), s.to(dev)
+        x = torch.randn(b, K, generator=g).to(dev, torch.bfloat16)
+        err = (quant.int8_matmul(x, wq, s).float() - quant.int8_matmul_plain(x.float(), wq, s)).abs().max().item()
+        ms = timer.both_ms(lambda: quant.int8_matmul(x, wq, s))
+        times[f"{name} b{b} {K}x{N}"] = ms[1]
+        print(f"  kernel 4 {name} b{b} {K}x{N} bf16: device {ms[1]:.4f} ms, stream {ms[0]:.4f} ms, "
+              f"max abs err {err:.3e} [{card}]", flush=True)
+    print(json.dumps({"kernel4_device_ms": times, "root": str(root)}))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernel4":
+        sys.exit(kernel4_times(Path(sys.argv[2])))
     sys.exit(main())

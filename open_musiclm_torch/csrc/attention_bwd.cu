@@ -63,15 +63,17 @@
 //    row is fully masked): S = Q K^T and dP = dO V^T, then dq += dS K; dq is
 //    written once, no atomics. The key mask is held as bits in shared memory.
 //
-// Kernel 5, float32, and kernel 6 (both types) stay on the CUDA cores in
-// float32 (the training gradient gate holds float32 gradients to float64,
-// which bf16 or TF32 products would fail): 32-query x 32-key tile pairs in
-// shared memory, 128 threads; thread (warp w, lane l) scores key l against
-// queries 8w..8w+7, and in the products owns dims l and l + 32 of 8 rows.
-// float32 dk/dv are summed per head by one block per (batch, head, key tile)
-// into float32 partials [h, b, m, 64], then a small pass sums the h
-// partials; dbias is one block per (head, query tile, key tile) looping
-// over b.
+// Kernel 6, bf16 (the training path): the tensor cores, one block per
+// (head, 64-query tile, 64-key tile) looping over the batch; see its section.
+//
+// Kernels 5 and 6, float32, stay on the CUDA cores in float32 (the training
+// gradient gate holds float32 gradients to float64, which bf16 or TF32
+// products would fail): 32-query x 32-key tile pairs in shared memory, 128
+// threads; thread (warp w, lane l) scores key l against queries 8w..8w+7, and
+// in the products owns dims l and l + 32 of 8 rows. float32 dk/dv are summed
+// per head by one block per (batch, head, key tile) into float32 partials
+// [h, b, m, 64], then a small pass sums the h partials; dbias is one block
+// per (head, query tile, key tile) looping over b.
 #include <algorithm>
 #include <type_traits>
 
@@ -397,8 +399,8 @@ __global__ void sum_heads_kernel(const float* __restrict__ dk_part,
   dv[t] = omt::from_f32<T>(b);
 }
 
-// Kernel 6: dbias [h, n, m] = sum over the batch of ds, in the bias's type. One block per
-// (key tile, query tile, head), looping over b; every element is written.
+// Kernel 6, float32: dbias [h, n, m] = sum over the batch of ds, in the bias's type. One
+// block per (key tile, query tile, head), looping over b; every element is written.
 template <typename T, typename B>
 __global__ void __launch_bounds__(THREADS) dbias_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -873,6 +875,243 @@ __global__ void __launch_bounds__(NT, 3) bwd_bf16_kernel(Bf16Args a, Geometry g)
   dkdv_block<B>(a, g, jt, blk / a.batch, splits, part0, blk % a.batch, smem);
 }
 
+// ---- kernel 6, bf16: tensor cores ----
+//
+// Replaces _fused_bwd -> _dbias_kernel (open_musiclm_tpu/ops/
+// pallas_attention.py:258-312, pallas_call :475), whose grid walks the
+// batch innermost and carries dbias in VMEM from step to step. What bounds
+// it on the H100: bytes in principle (coarse b 2 n 1116: the bias read and
+// dbias written once, ~40 MB in bf16, against ~2 GFLOP of score products on
+// the tensor cores), in practice each block's chain of staging rounds. A
+// block owns one (key tile, query tile, head) of 64 x 64 and loops over the
+// batch inside, the TPU grid's b turned into a loop: the bias tile is read
+// once, into registers in the score fragment's layout (rows off a pair
+// boundary load element by element), and dbias is summed over b in float32
+// registers and written once, with no atomics, so the result is the same
+// bits every run. The next batch row's Q, dO, K and V tiles arrive by
+// cp.async (XOR-swizzled, as kernel 5's) while the current row computes, and
+// its row statistics and key mask bits by plain loads. S = Q K^T and
+// dP = dO V^T are mma.sync m16n8k16 (16 queries x 64 keys a warp); P and dS
+// stay in the C fragments. A tile that the causal mask hides from every
+// query of every batch row (and that holds no fully masked row) writes its
+// zeros with 16-byte stores and exits without reading Q, K or V; a batch row
+// whose query tile holds a fully masked row (the delta pass's tile_dead) is
+// visited wherever its tile lies, since such a row spreads its weight over
+// all m keys.
+struct DbiasArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const void* bias;
+  const uint8_t* key_mask;
+  const bf16* dout;
+  const float* stats;
+  const float* delta;
+  const float* inv_l;
+  const uint8_t* tile_dead;  // [b, h, query tiles]
+  void* dbias;
+  int batch, bias_paired, dbias_paired;  // bias / dbias rows load / store pairs as one
+};
+
+// dbias elements j, j + 1 of a row (j + 1 only when second), as one store when paired
+__device__ __forceinline__ void store_pair(float* p, float a, float b, bool paired, bool second) {
+  if (paired) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+    return;
+  }
+  p[0] = a;
+  if (second) p[1] = b;
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b, bool paired, bool second) {
+  if (paired) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+    return;
+  }
+  p[0] = __float2bfloat16(a);
+  if (second) p[1] = __float2bfloat16(b);
+}
+
+// zeros over rows [i0, i0 + rows) x keys [j0, j0 + kn) of dbias [h]: a warp a
+// row, 16-byte stores between the row's unaligned ends
+template <typename B>
+__device__ __forceinline__ void zero_tile(B* db, const Geometry& g, int h, int i0, int j0) {
+  constexpr int PER = 16 / sizeof(B);
+  const int kn = min(BT, g.m - j0), rows = min(BT, g.n - i0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const B zero = omt::from_f32<B>(0.f);
+  for (int r = warp; r < rows; r += NT / 32) {
+    B* row = db + ((size_t)h * g.n + i0 + r) * g.m + j0;
+    const int head = min(kn, (int)(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / sizeof(B)));
+    const int body = (kn - head) / PER;
+    for (int e = lane; e < head; e += 32) row[e] = zero;
+    for (int u = lane; u < body; u += 32) reinterpret_cast<uint4*>(row + head)[u] = make_uint4(0, 0, 0, 0);
+    for (int e = head + body * PER + lane; e < kn; e += 32) row[e] = zero;
+  }
+}
+
+// Kernel 6, bf16: block (key tile x, query tile y, head z), 4 warps of 16
+// queries each; dynamic shared memory: two stages of the Q, dO, K and V tiles.
+// Two blocks an SM: the registers hold S, dP, dbias and the bias fragments
+// without spilling (with three blocks and 168 registers it spilled and ran
+// slower on the H100).
+template <typename B>
+__global__ void __launch_bounds__(NT, 2) dbias_bf16_kernel(DbiasArgs a, Geometry g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ unsigned kbits[2][BT / 32];  // a stage's key mask over the tile's keys, a bit a key
+  using BP = omt::BiasPair<B>;
+  const int j0 = blockIdx.x * BT, it = blockIdx.y, i0 = it * BT, h = blockIdx.z;
+  const int n_qt = gridDim.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
+  const int off = g.m - g.n;
+  B* db = static_cast<B*>(a.dbias);
+
+  // batch row bi sees a score of the tile when the causal mask leaves one to
+  // the tile's queries, or when its query tile holds a fully masked row
+  const int i_last = min(i0 + BT, g.n) - 1;
+  const bool seen = !g.causal || j0 <= i_last + off || (g.ncp > 0 && i0 < g.ncp && j0 < g.ncp + off);
+  auto dead = [&](int bi) { return a.tile_dead[((size_t)bi * g.heads + h) * n_qt + it] != 0; };
+  auto next = [&](int bi) {
+    for (; bi < a.batch; ++bi)
+      if (seen || dead(bi)) return bi;
+    return a.batch;
+  };
+  if (!seen) {  // every batch row's flag at once; zeros unless one holds a dead row
+    bool any = false;
+    for (int b0 = 0; b0 < a.batch; b0 += NT) any |= b0 + tid < a.batch && dead(b0 + tid);
+    if (!__syncthreads_or(any)) {
+      zero_tile<B>(db, g, h, i0, j0);
+      return;
+    }
+  }
+  int bi = next(0);
+
+  auto stage = [&](int b, int st) {
+    unsigned char* base = smem + st * 4 * TILE_BYTES;
+    const bf16* qh = a.q + ((size_t)b * g.heads + h) * g.n * D;
+    const bf16* kb = a.k + (size_t)b * g.m * D;
+    const bf16* vb = a.v + (size_t)b * g.m * D;
+    stage_rows(base, [&](int r) { return i0 + r < g.n ? qh + (size_t)(i0 + r) * D : nullptr; });
+    stage_rows(base + TILE_BYTES, [&](int r) {
+      return i0 + r < g.n ? a.dout + (((size_t)b * g.n + i0 + r) * g.heads + h) * D : nullptr;
+    });
+    stage_rows(base + 2 * TILE_BYTES,
+               [&](int r) { return j0 + r < g.m ? kb + (size_t)(j0 + r) * D : nullptr; });
+    stage_rows(base + 3 * TILE_BYTES,
+               [&](int r) { return j0 + r < g.m ? vb + (size_t)(j0 + r) * D : nullptr; });
+    omt::cp_async_commit();
+  };
+  stage(bi, 0);
+
+  // this thread's two queries (fragment rows gq, gq + 8 of the warp's 16)
+  int ri[2];
+  bool rv[2];
+  const B* bias = static_cast<const B*>(a.bias);
+  const B* brow[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    ri[x] = i0 + warp * 16 + gq + 8 * x;
+    rv[x] = ri[x] < g.n;
+    brow[x] = rv[x] ? bias + ((size_t)h * g.n + ri[x]) * g.m : nullptr;
+  }
+  // row statistics, the dead flag and (threads < 64) the key mask byte of batch row b
+  float mx[2], inv[2], dl[2];
+  bool dead_b = false;
+  uint8_t key = 1;
+  auto fetch = [&](int b) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const size_t row = ((size_t)b * g.heads + h) * g.n + (rv[x] ? ri[x] : 0);
+      mx[x] = a.stats[2 * row];
+      inv[x] = a.inv_l[row];
+      dl[x] = a.delta[row];
+    }
+    dead_b = dead(b);
+    if (a.key_mask != nullptr && tid < BT)
+      key = j0 + tid < g.m ? a.key_mask[(size_t)b * g.m + j0 + tid] : 0;
+  };
+  auto mask_bits = [&](int st) {  // warps 0 and 1: the fetched key mask bytes as bits
+    if (a.key_mask != nullptr && tid < BT) {
+      const unsigned word = __ballot_sync(0xffffffffu, key != 0);
+      if (lane == 0) kbits[st][warp] = word;
+    }
+  };
+  fetch(bi);
+  mask_bits(0);
+  typename BP::T bfr[8][2];
+  omt::load_bias_frag<B>(bfr, brow, j0, g.m, a.bias_paired);
+  // a tile inside the tensors that the causal mask leaves whole: only the
+  // key mask and the bias remain, unless the batch row's tile holds a dead row
+  const bool whole_tile = i0 + BT <= g.n && j0 + BT <= g.m && (!g.causal || j0 + BT - 1 <= i0 + off);
+
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+
+  for (int st = 0; bi < a.batch; st ^= 1) {
+    const int bn = next(bi + 1);
+    omt::cp_async_wait<0>();
+    __syncthreads();  // row bi staged, its key bits written; the other stage is free
+    if (bn < a.batch) stage(bn, st ^ 1);
+    const float cmx[2] = {mx[0], mx[1]}, cinv[2] = {inv[0], inv[1]}, cdl[2] = {dl[0], dl[1]};
+    const bool whole = whole_tile && !dead_b;
+    if (bn < a.batch) fetch(bn);  // in flight while row bi computes
+    unsigned char* base = smem + st * 4 * TILE_BYTES;
+
+    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
+    {
+      unsigned fa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) omt::load_a(omt::smem_addr(base), warp, kk, fa[kk]);
+      omt::mma_a_bt(s, fa, omt::smem_addr(base + 2 * TILE_BYTES));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) omt::load_a(omt::smem_addr(base + TILE_BYTES), warp, kk, fa[kk]);
+      omt::mma_a_bt(dp, fa, omt::smem_addr(base + 3 * TILE_BYTES));
+    }
+
+    // dS = P (dP - delta), summed over the batch rows in acc
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const unsigned kw = a.key_mask != nullptr ? kbits[st][nt >> 2] : ~0u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int x = c >> 1, jl = nt * 8 + 2 * tq + (c & 1), j = j0 + jl;
+        const float2 bv = BP::f32(bfr[nt][x]);
+        const float sb = s[nt][c] * g.scale + ((c & 1) ? bv.y : bv.x);
+        const bool kok = (kw >> (jl & 31)) & 1u;
+        float pv = 0.f;
+        if (whole) {
+          pv = kok ? __expf(sb - cmx[x]) * cinv[x] : 0.f;
+        } else if (rv[x] && j < g.m) {
+          const bool allowed = kok && omt::causal_ok(ri[x], j, off, g.causal, g.ncp);
+          pv = __expf((allowed ? sb : omt::kNegInf) - cmx[x]) * cinv[x];
+        }
+        acc[nt][c] += pv * (dp[nt][c] - cdl[x]);
+      }
+    }
+    if (bn < a.batch) mask_bits(st ^ 1);  // read after the next barrier
+    bi = bn;
+  }
+
+  // dbias rows ri, keys j0 + 8 nt + 2 tq, + 1, written once
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    if (!rv[x]) continue;
+    B* row = db + ((size_t)h * g.n + ri[x]) * g.m;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int j = j0 + nt * 8 + 2 * tq;
+      if (j < g.m) store_pair(row + j, acc[nt][2 * x], acc[nt][2 * x + 1], a.dbias_paired != 0, j + 1 < g.m);
+    }
+  }
+}
+
 struct Ptrs {
   const void *q, *k, *v, *bias;
   const uint8_t* key_mask;
@@ -888,6 +1127,31 @@ struct Ptrs {
   void *dq, *dk, *dv, *dbias;
 };
 
+// whether pairs of elements j, j + 1 (j even) of every [.., m] row of B at ptr load as one
+template <typename B>
+int pairs_aligned(const void* ptr, int m) {
+  return m % 2 == 0 && reinterpret_cast<uintptr_t>(ptr) % (2 * sizeof(B)) == 0;
+}
+
+template <typename B>
+cudaError_t launch_dbias_bf16(const Ptrs& p, int b, const Geometry& g, cudaStream_t st) {
+  const DbiasArgs a{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
+                    static_cast<const bf16*>(p.v), p.bias, p.key_mask,
+                    static_cast<const bf16*>(p.dout), p.stats, p.delta, p.inv_l, p.tile_dead,
+                    p.dbias, b, pairs_aligned<B>(p.bias, g.m), pairs_aligned<B>(p.dbias, g.m)};
+  const int smem = 8 * TILE_BYTES;
+  auto kernel = dbias_bf16_kernel<B>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid((g.m + BT - 1) / BT, (g.n + BT - 1) / BT, g.heads);
+  kernel<<<grid, NT, smem, st>>>(a, g);
+  return cudaGetLastError();
+}
+
 template <typename B>
 cudaError_t launch_bf16(const Ptrs& p, int b, const Geometry& g, cudaStream_t st) {
   Bf16Args a{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
@@ -899,7 +1163,7 @@ cudaError_t launch_bf16(const Ptrs& p, int b, const Geometry& g, cudaStream_t st
   a.batch = b;
   a.dq_blocks = (g.n + qb - 1) / qb * b;
   // pairs of bias elements load as one when every row starts aligned for it
-  a.bias_paired = g.m % 2 == 0 && reinterpret_cast<uintptr_t>(p.bias) % (2 * sizeof(B)) == 0;
+  a.bias_paired = pairs_aligned<B>(p.bias, g.m);
   const int kv_blocks = p.kv_splits * b;
   const int smem_kv = 6 * TILE_BYTES + 2 * 3 * BT * 4 + 2 * BT * BiasRow<B>::kWords * 4 +
                       (g.heads * n_qt + 15) / 16 * 16;
@@ -943,9 +1207,13 @@ cudaError_t launch_bwd(const Ptrs& p, int b, const Geometry& g, cudaStream_t st)
     if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
   }
   if (p.dbias == nullptr) return cudaSuccess;
-  dbias_kernel<T, B><<<dim3((g.m + TK - 1) / TK, (g.n + TQ - 1) / TQ, g.heads), THREADS, 0, st>>>(
-      qt, kt, vt, bt, p.key_mask, dot, p.stats, p.delta, static_cast<B*>(p.dbias), b, g);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_dbias_bf16<B>(p, b, g, st);
+  } else {
+    dbias_kernel<T, B><<<dim3((g.m + TK - 1) / TK, (g.n + TQ - 1) / TQ, g.heads), THREADS, 0, st>>>(
+        qt, kt, vt, bt, p.key_mask, dot, p.stats, p.delta, static_cast<B*>(p.dbias), b, g);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace

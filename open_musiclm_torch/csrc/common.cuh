@@ -67,44 +67,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One BM x BN output tile of  A[rows, K] @ W[K, N]  with W int8 row-major
-// ([in, out], the JAX package's layout), 256 threads, float32 accumulation.
-// ``a(r, k)`` returns the float A element for global row r < rows and
-// k < K (the caller's loader fuses any normalisation into the load).
-// Thread t owns row (t / (BN / TN)) of the tile and TN adjacent columns.
-// Rows >= rows and columns >= N load zeros; the caller masks the store.
-template <int BM, int BN, int BK, typename ALoad>
-__device__ __forceinline__ void int8_tile_gemm(
-    const ALoad& a, const int8_t* __restrict__ w, int rows, int K, int N,
-    int row0, int col0, float (&acc)[BM * BN / 256],
-    float (*xs)[BK + 1], float (*ws)[BN + 1]) {
-  constexpr int TN = BM * BN / 256;
-  static_assert(BM * BN % 256 == 0 && BN % TN == 0, "tile must cover 256 threads");
-  const int tid = threadIdx.x;
-  const int tr = tid / (BN / TN);
-  const int tc = (tid % (BN / TN)) * TN;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += 256) {
-      const int r = i / BK, k = i % BK;
-      const int gr = row0 + r, gk = k0 + k;
-      xs[r][k] = (gr < rows && gk < K) ? a(gr, gk) : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += 256) {
-      const int k = i / BN, c = i % BN;
-      const int gk = k0 + k, gc = col0 + c;
-      ws[k][c] = (gk < K && gc < N) ? static_cast<float>(w[(size_t)gk * N + gc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      const float av = xs[tr][k];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[j] = fmaf(av, ws[k][tc + j], acc[j]);
-    }
-    __syncthreads();
-  }
-}
-
 }  // namespace omt
 
 extern "C" const char* omt_error_string(int code);

@@ -35,8 +35,9 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes; every entry point returns the cudaError_t as int
 _SIGNATURES = {
-    # x, w, scale, out, B, K, N, dtype, stream
-    "omt_int8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w (aligned base), w_off, scale, out, part, tickets, B, K, N, cols, col_blocks, splits,
+    # per, route, x_vec, dtype, stream
+    "omt_int8_matmul": (_P, _P, _I, _P, _P, _P, _P) + (_I,) * 10 + (_P,),
     # q, kv, scales, bias_row, add_mask, out, part, ticket, b, heads, N, pos, splits, per,
     # scale, dtype, kv_dtype, stream
     "omt_flash_decode": (_P,) * 8 + (_I,) * 6 + (_F, _I, _I, _P),
@@ -147,7 +148,7 @@ def stream(t: torch.Tensor) -> int:
 
 
 # (kernel, device, stream) -> (int32 tickets, float32 partials) of the
-# kernels that fold across blocks in one launch (kernels 2, 3, 5 and 7)
+# kernels that fold across blocks in one launch (kernels 2, 3, 4, 5 and 7)
 _scratch: dict = {}
 
 

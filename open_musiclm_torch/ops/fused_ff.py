@@ -25,52 +25,24 @@ import torch.nn.functional as F
 
 from . import cuda_lib
 from .quant import quantize_weight
+from .weight_stream import (
+    STREAM_RECORD, STREAM_ROWS, STREAM_SEG, TARGET_BLOCKS, cdiv, stream_grid)
 
-FF_ROWS = 8  # activation rows a pass of kernel 3 (csrc/fused_ff.cu: RB)
-FF_SEG = 128  # columns a block at most: a row's 128 bytes over 8 lanes (csrc/fused_ff.cu: SEG)
-FF_STEP = 16  # k rows a warp takes at a time (csrc/fused_ff.cu: KS)
-FF_IN_RECORD = 2 * (FF_ROWS + 1) * FF_SEG  # floats of an ff_in block's partial (REC_IN)
-FF_OUT_RECORD = FF_ROWS * FF_SEG  # floats of an ff_out block's partial (REC_OUT)
-FF_TARGET_BLOCKS = 132  # one block for each of the H100's SMs
-FF_MIN_ROWS = 64  # k rows a split at the least, so that a partial is small beside its weights
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def ff_grid(k_rows: int, n_cols: int, target: int) -> Tuple[int, int, int, int]:
-    """(column blocks, columns a block, splits, k rows a split) of one of
-    kernel 3's weight streams over int8 [k_rows, n_cols] matrices.
-
-    A warp reads ``cols`` consecutive columns of 16 rows at a time as
-    aligned 4-byte words: up to 128 columns when rows start 4-byte aligned,
-    124 when not (the words start up to 3 bytes before the columns). Column
-    blocks are as few as that allows, with the columns spread evenly over
-    them; k is split so that the blocks reach ``target`` where k allows,
-    ``FF_MIN_ROWS`` rows a split at the least, in whole 16-row steps. Block
-    (c, s) takes columns [c * cols, (c + 1) * cols) and k rows [s * per,
-    min((s + 1) * per, k_rows)); a column block's splits are summed in split
-    order."""
-    max_cols = FF_SEG if n_cols % 4 == 0 else FF_SEG - 4
-    cols = _cdiv(_cdiv(n_cols, _cdiv(n_cols, max_cols)), 4) * 4
-    blocks = _cdiv(n_cols, cols)
-    want = max(1, min(_cdiv(k_rows, FF_MIN_ROWS), target // blocks))
-    per = _cdiv(_cdiv(k_rows, want), FF_STEP) * FF_STEP
-    return blocks, cols, _cdiv(k_rows, per), per
+FF_IN_RECORD = 2 * (STREAM_ROWS + 1) * STREAM_SEG  # floats of an ff_in block's partial (REC_IN)
+FF_OUT_RECORD = STREAM_RECORD  # floats of an ff_out block's partial (REC_OUT)
 
 
 @functools.lru_cache(maxsize=None)
 def ff_in_grid(dim: int, inner: int) -> Tuple[int, int, int, int]:
-    """``ff_grid`` of kernel 3's first launch (Wv and Wg side by side); one
-    SM is left to the block that computes LN(x)'s statistics."""
-    return ff_grid(dim, inner, FF_TARGET_BLOCKS - 1)
+    """``stream_grid`` of kernel 3's first launch (Wv and Wg side by side);
+    one SM is left to the block that computes LN(x)'s statistics."""
+    return stream_grid(dim, inner, TARGET_BLOCKS - 1)
 
 
 @functools.lru_cache(maxsize=None)
 def ff_out_grid(dim: int, inner: int) -> Tuple[int, int, int, int]:
-    """``ff_grid`` of kernel 3's second launch (Wout)."""
-    return ff_grid(inner, dim, FF_TARGET_BLOCKS)
+    """``stream_grid`` of kernel 3's second launch (Wout)."""
+    return stream_grid(inner, dim, TARGET_BLOCKS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,12 +56,12 @@ def ff_scratch_layout(b: int, dim: int, inner: int) -> Tuple[Tuple[int, ...], in
     kept for each shape, so a decode step does not work them out again."""
     cb_in, _, s_in, _ = ff_in_grid(dim, inner)
     cb_out, _, s_out, _ = ff_out_grid(dim, inner)
-    passes = _cdiv(b, FF_ROWS)
+    passes = cdiv(b, STREAM_ROWS)
     sizes = [b * inner, b * 2, b * 2, cb_in * b * 2, passes * cb_in * s_in * FF_IN_RECORD,
              passes * cb_out * s_out * FF_OUT_RECORD]
     offs = [0]
     for n in sizes[:-1]:
-        offs.append(offs[-1] + _cdiv(n, 4) * 4)
+        offs.append(offs[-1] + cdiv(n, 4) * 4)
     return tuple(offs), offs[-1] + sizes[-1], cb_in + 1 + cb_out
 
 

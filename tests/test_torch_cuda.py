@@ -335,6 +335,101 @@ def test_int8_matmul_kernel(dev, B, K, N):
     torch.testing.assert_close(quant.int8_matmul(x, wq, s), quant.int8_matmul_plain(x, wq, s), **TOL)
 
 
+# Kernel 4's two routes (ops/quant.py:int8_route): the weight stream (column
+# blocks x k splits, 8 rows a pass, folded by ticket in split order) up to
+# INT8_STREAM_MAX_ROWS rows, 64 x 64 tensor-core tiles above. float32 within
+# TOL of the plain version; bf16 against the plain version on the same bf16
+# values within 2**-7 of the largest output (both round their float32 result
+# once to bf16).
+# the int8 projections of the fused_ff=False decode step (musiclm_small):
+# to_q, to_kv, to_out, proj_in, proj_out
+PROJECTIONS = [(1024, 512), (1024, 128), (512, 1024), (1024, 5460), (2730, 1024)]
+
+
+def _int8_case(seed, B, K, N, dev, dtype):
+    g = torch.Generator().manual_seed(seed)
+    x = _randn(g, B, K).to(dev, dtype)
+    wq, s = quant.quantize_weight(_randn(g, K, N))
+    return x, wq.to(dev), s.to(dev)
+
+
+def _check_int8(x, wq, s, route=None):
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, wq, s, route=route)
+    assert quant.int8_matmul.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == (x.shape[0], wq.shape[1])
+    want = quant.int8_matmul_plain(x.float(), wq, s)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        _assert_within("out", got, want, 2.0 ** -7)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,N", PROJECTIONS)
+def test_int8_matmul_kernel_projections(dev, dtype, K, N):
+    _check_int8(*_int8_case(K + N, 8, K, N, dev, dtype))
+
+
+# the logit head (1024 x 1025) at the decode batch, the fine stage's rows
+# (b 2 x 7 windows), one and two passes, the tiled route and the fine cap
+# (256 rows), and beyond it
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 14, 16, 64, 256, 300])
+def test_int8_matmul_kernel_head(dev, dtype, B):
+    _check_int8(*_int8_case(B, B, 1024, 1025, dev, dtype))
+
+
+# each route forced at row counts on both sides of the default cut, with K
+# off the 16-row step (100, 1000) and N off 4 (33, 1027): stream rows off
+# 4-byte alignment, tiles ragged in every direction
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stream", "tiled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,K,N", [(8, 100, 33), (17, 1000, 1027), (64, 1024, 1025), (3, 72, 4096)])
+def test_int8_matmul_kernel_routes(dev, route, dtype, B, K, N):
+    _check_int8(*_int8_case(B + K + N, B, K, N, dev, dtype), route=route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stream", "tiled"])
+@pytest.mark.parametrize("w_off", [1, 2, 3])
+def test_int8_matmul_kernel_unaligned_weights(dev, route, w_off):
+    """W as a view that starts 1-3 bytes past a 4-byte boundary (as a head
+    of a stacked [Q, K, N] tensor can)."""
+    x, wq, s = _int8_case(w_off, 12, 96, 130, dev, torch.float32)
+    flat = torch.zeros(w_off + wq.numel(), dtype=torch.int8, device=dev)
+    flat[w_off:] = wq.flatten()
+    view = flat[w_off:].view(96, 130)
+    assert view.data_ptr() % 4 == w_off
+    _check_int8(x, view, s, route=route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 14, 64])
+def test_int8_matmul_kernel_two_streams(dev, B):
+    """Kernel 4 on two streams at once, each folding with its own tickets
+    and partials: both results whole, and the same bits call to call."""
+    x, wq, s = _int8_case(B, B, 1024, 1025, dev, torch.bfloat16)
+    xs = [x, torch.randn(B, 1024, generator=torch.Generator().manual_seed(1)).to(dev, torch.bfloat16)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        with torch.cuda.stream(side):
+            outs[0].append(quant.int8_matmul(xs[0], wq, s))
+        outs[1].append(quant.int8_matmul(xs[1], wq, s))
+    torch.cuda.synchronize()
+    for xi, got in zip(xs, outs):
+        want = quant.int8_matmul_plain(xi.float(), wq, s)
+        for i, out in enumerate(got):
+            _assert_within(f"out (call {i + 1})", out, want, 2.0 ** -7)
+            assert torch.equal(out, got[0])
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_bad_input(dev):
     x = torch.randn(4, 32, device=dev)
@@ -470,6 +565,104 @@ def test_attention_bwd_kernel_deterministic(dev, dtype):
         again = attention.shared_kv_attention_bwd(q, k, v, bias, key_mask, out, stats, dout)
         for name, a, ref in zip(("dq", "dk", "dv", "dbias"), again, first):
             assert torch.equal(a, ref), name
+
+
+# Kernel 6's bf16 route (tensor cores, one block per (head, query tile, key
+# tile) looping over the batch): with the bias in float32 or bf16, at the
+# three training shapes with a key mask and at ragged ones, against the
+# plain backward in float32 on the same bf16 values within 2**-7 of the
+# largest gradient.
+def _bwd_bf16(g, b, h, n, m, mask, dev, bias_dtype, ncp=0, key_mask=None):
+    q, k, v, bias, dout, km = _bwd_case(g, b, h, n, m, mask, dev)
+    key_mask = key_mask if key_mask is not None else km
+    q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
+    bias = bias.to(bias_dtype)
+    opts = dict(causal=True, non_causal_prefix=ncp)
+    out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True, **opts)
+    want = attention.shared_kv_attention_bwd_plain(
+        q.float(), k.float(), v.float(), dout.float(), attn_bias=bias.float(), key_mask=key_mask,
+        **opts)
+    return (q, k, v, bias, key_mask, out, stats, dout), opts, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16], ids=["bias_f32", "bias_bf16"])
+@pytest.mark.parametrize("b,n,m,mask,ncp", [
+    (4, 514, 514, True, 0), (2, 1116, 1116, True, 0), (2, 1217, 1217, True, 0),
+    (3, 130, 201, True, 70), (2, 99, 99, False, 5),
+])
+def test_dbias_kernel_bf16(dev, bias_dtype, b, n, m, mask, ncp):
+    g = torch.Generator().manual_seed(n + m + b)
+    args, opts, want = _bwd_bf16(g, b, 8, n, m, mask, dev, bias_dtype, ncp)
+    fn = attention.shared_kv_attention_bwd
+    before = fn.dbias_launches
+    got = fn(*args, **opts)
+    assert fn.dbias_launches == before + 1
+    assert got[3].dtype == bias_dtype
+    for name, a, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _assert_within(name, a, ref, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16], ids=["bias_f32", "bias_bf16"])
+def test_dbias_kernel_batch_loop(dev, b, bias_dtype):
+    """One batch row, and five (more rows than the two staging buffers)."""
+    g = torch.Generator().manual_seed(b)
+    args, opts, want = _bwd_bf16(g, b, 4, 150, 150, True, dev, bias_dtype)
+    got = attention.shared_kv_attention_bwd(*args, **opts)
+    _assert_within("dbias", got[3], want[3], 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16], ids=["bias_f32", "bias_bf16"])
+def test_dbias_kernel_hidden_tiles_zero(dev, bias_dtype):
+    """Tiles the causal mask hides from every batch row are written as
+    zeros: dbias's memory is filled with NaN beforehand (the caching
+    allocator hands the same block back), and every hidden element must come
+    out exactly 0. m > n and an odd m put rows off 16-byte alignment."""
+    g = torch.Generator().manual_seed(23)
+    b, h, n, m = 2, 8, 260, 333
+    args, opts, want = _bwd_bf16(g, b, h, n, m, True, dev, bias_dtype)
+    for _ in range(2):
+        poison = torch.full((h, n, m), float("nan"), dtype=bias_dtype, device=dev)
+        del poison
+        got = attention.shared_kv_attention_bwd(*args, **opts)[3]
+        i = torch.arange(n, device=dev)[:, None]
+        j = torch.arange(m, device=dev)[None, :]
+        hidden = (j // 64 * 64 > (i // 64 * 64 + 63).clamp(max=n - 1) + (m - n)).expand(h, n, m)
+        assert hidden.any()
+        assert (got[hidden] == 0).all()
+        _assert_within("dbias", got, want[3], 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16], ids=["bias_f32", "bias_bf16"])
+def test_dbias_kernel_fully_masked_row(dev, bias_dtype):
+    """A batch row whose first 70 queries see no key: their weight spreads
+    over all m keys, so key tiles the causal mask hides from query tiles 0
+    and 1 are visited for that row (and only that row)."""
+    g = torch.Generator().manual_seed(29)
+    b, h, n = 3, 8, 200
+    key_mask = torch.ones(b, n, dtype=torch.bool, device=dev)
+    key_mask[1, :70] = False
+    args, opts, want = _bwd_bf16(g, b, h, n, n, False, dev, bias_dtype, key_mask=key_mask)
+    got = attention.shared_kv_attention_bwd(*args, **opts)
+    assert got[3][:, :64, 128:].abs().max() > 0  # a causally hidden tile with dead rows
+    for name, a, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _assert_within(name, a, ref, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16], ids=["bias_f32", "bias_bf16"])
+def test_dbias_kernel_deterministic(dev, bias_dtype):
+    """Kernel 6's bf16 dbias is the same bits call to call: each element is
+    summed over the batch in one block, in batch order, without atomics."""
+    g = torch.Generator().manual_seed(31)
+    args, opts, _ = _bwd_bf16(g, 4, 8, 514, 514, True, dev, bias_dtype)
+    first = attention.shared_kv_attention_bwd(*args, **opts)[3]
+    for _ in range(3):
+        assert torch.equal(attention.shared_kv_attention_bwd(*args, **opts)[3], first)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
-"""How the wrappers of kernels 3, 5 and 7 cut their work over blocks, and
+"""How the wrappers of kernels 3, 4, 5 and 7 cut their work over blocks, and
 their plain route on CPU tensors.
 
 The kernels run only on a card; the grid each launch takes is chosen in
 Python (``ops/attention.py:bwd_kv_splits``, ``ops/fused_ff.py:ff_in_grid``
-and ``ff_out_grid``, ``ops/fused_layer.py:layer_plan`` and ``attn_chunk``),
+and ``ff_out_grid``, ``ops/quant.py:int8_route`` and ``int8_stream_grid``,
+``ops/fused_layer.py:layer_plan`` and ``attn_chunk``),
 so it is checked here at the shapes the main paths use: every (key tile,
 head, query tile) pair, column and k row in exactly one block, each
 cross-block fold summing its parts in one fixed order, and kernel 7's
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from open_musiclm_torch.models.transformer import ConvFeedForward
-from open_musiclm_torch.ops import attention, fused_ff, fused_layer
+from open_musiclm_torch.ops import attention, fused_ff, fused_layer, quant
 
 # training shapes (b, n) of the three stages at musiclm_small's 8 heads
 TRAIN = {"semantic": (4, 514), "coarse": (2, 1116), "fine": (2, 1217)}
@@ -133,6 +134,104 @@ def test_fused_ff_grids(b, dim, inner):
     assert all(o + size <= nxt for o, size, nxt in zip(offs, sizes, offs[1:] + (n_floats,)))
     if (dim, inner) == (1024, 2730):  # musiclm_small: most of the card in both launches
         assert cb_in * s_in + 1 >= 0.85 * SMS and cb_out * s_out >= 0.95 * SMS
+
+
+# kernel 4's weights (K, N): the logit head, the int8 projections of the
+# fused_ff=False decode step, and ragged ones (K off the 16-row step, N off 4)
+INT8_SHAPES = [(1024, 1025), (1024, 512), (1024, 128), (512, 1024), (1024, 5460), (2730, 1024),
+               (100, 33), (1000, 1027), (72, 4096)]
+
+
+@pytest.mark.parametrize("K,N,aligned", [(k, n, a) for k, n in INT8_SHAPES
+                                         for a in ((True, False) if n % 4 == 0 else (False,))])
+def test_int8_stream_grid(K, N, aligned):
+    """Kernel 4's stream route: column blocks of ``cols`` columns (a multiple
+    of 4; 124 at most when W's rows start off 4-byte alignment) x splits of
+    ``per`` k rows in whole 16-row steps, every output column and k row in
+    exactly one block, no more blocks than SMs (unless one column block a
+    split is already more), the splits of a column block folded in order."""
+    blocks, cols, splits, per = quant.int8_stream_grid(K, N, aligned)
+    assert cols % 4 == 0 and cols <= (128 if aligned else 124) and per % 16 == 0
+    assert (blocks - 1) * cols < N <= blocks * cols
+    assert (splits - 1) * per < K <= splits * per
+    assert blocks * splits <= max(SMS, blocks)
+    cover = np.zeros((K, N), dtype=int)
+    for c in range(blocks):
+        for s in range(splits):
+            cover[s * per: (s + 1) * per, c * cols: (c + 1) * cols] += 1
+    assert (cover == 1).all()
+    if (K, N) == (1024, 1025):  # the head: 9 column blocks x 13 splits
+        assert (blocks, splits) == (9, 13)
+
+
+@pytest.mark.parametrize("B", [1, 8, 14, 16, 32, 33, 64, 256, 300])
+def test_int8_route(B):
+    """The stream takes up to INT8_STREAM_MAX_ROWS rows in passes of 8 (the
+    scratch holds a record for each pass, column block and split); above
+    that the tiled route's 64 x 64 tiles cover every output once."""
+    route = quant.int8_route(B)
+    assert route == ("stream" if B <= quant.INT8_STREAM_MAX_ROWS else "tiled")
+    N = 1025
+    out = np.zeros((B, N), dtype=int)
+    if route == "stream":
+        blocks, cols, splits, per = quant.int8_stream_grid(1024, N, False)
+        passes = -(-B // 8)
+        for p in range(passes):
+            for c in range(blocks):
+                out[p * 8:(p + 1) * 8, c * cols:(c + 1) * cols] += 1
+        assert passes * 8 >= B > (passes - 1) * 8
+    else:
+        t = quant.INT8_TILE
+        row_tiles, col_tiles, _, _ = quant.int8_tiled_grid(B, 1024, N)
+        for y in range(row_tiles):
+            for x in range(col_tiles):
+                out[y * t:(y + 1) * t, x * t:(x + 1) * t] += 1
+    assert (out == 1).all()
+
+
+@pytest.mark.parametrize("K,N", INT8_SHAPES)
+@pytest.mark.parametrize("B", [33, 64, 256, 300])
+def test_int8_tiled_grid(B, K, N):
+    """Kernel 4's tiled route: 64 x 64 output tiles covering every output
+    once, k split into ranges of whole 64-row steps (two at the least where
+    k has them) covering every k row once, and no more blocks than two an
+    SM unless the tiles alone are more."""
+    row_tiles, col_tiles, splits, per = quant.int8_tiled_grid(B, K, N)
+    t = quant.INT8_TILE
+    assert (row_tiles - 1) * t < B <= row_tiles * t and (col_tiles - 1) * t < N <= col_tiles * t
+    assert per % t == 0 and (splits - 1) * per < K <= splits * per
+    assert per >= min(2 * t, -(-K // t) * t)
+    blocks = row_tiles * col_tiles * splits
+    assert blocks <= max(quant.INT8_TILED_BLOCKS, row_tiles * col_tiles)
+    if (B, K, N) == (64, 1024, 1025):  # 17 tiles: 8 splits of two steps
+        assert (splits, per) == (8, 2 * t)
+    cover = np.zeros(K, dtype=int)
+    for z in range(splits):
+        cover[z * per:(z + 1) * per] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("route", [None, "stream", "tiled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 40])
+def test_int8_matmul_cpu_is_plain(route, dtype, B):
+    rng = np.random.default_rng(B)
+    x = torch.from_numpy(rng.standard_normal((B, 96), dtype=np.float32)).to(dtype)
+    wq, s = quant.quantize_weight(torch.from_numpy(rng.standard_normal((96, 130), dtype=np.float32)))
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, wq, s, route=route)
+    assert quant.int8_matmul.launches == before  # no kernel off the card
+    assert torch.equal(got, quant.int8_matmul_plain(x, wq, s))
+
+
+def test_quantize_weight_contiguous():
+    """Projections quantized from a transposed [out, in] weight come out
+    contiguous, as kernel 4 reads them (the fused_ff=False decode step)."""
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.standard_normal((130, 96), dtype=np.float32))
+    wq, s = quant.quantize_weight(w.t())
+    assert wq.is_contiguous() and s.is_contiguous() and wq.shape == (96, 130)
+    assert torch.equal(wq, quant.quantize_weight(w.t().contiguous())[0])
 
 
 # kernel 7's layer shapes (heads, dim, inner): musiclm_small and musiclm_large
@@ -286,17 +385,19 @@ def test_fused_ff_apply_cpu_is_plain(dtype, b):
     assert all(torch.equal(a, r) for a, r in zip(got, want))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype,bias_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)],
+    ids=["f32", "bf16", "bf16-bias_f32"])
 @pytest.mark.parametrize("mask,ncp", [(False, 0), (True, 9)])
-def test_attention_bwd_cpu_is_plain(dtype, mask, ncp):
+def test_attention_bwd_cpu_is_plain(dtype, bias_dtype, mask, ncp):
     rng = np.random.default_rng(ncp)
     b, h, n = 2, 8, 70
 
-    def t(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dtype)
+    def t(*shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dt)
 
     q, k = attention.l2norm(t(b, h, n, 64)), attention.l2norm(t(b, n, 64))
-    v, bias, dout = t(b, n, 64), t(h, n, n), t(b, n, h * 64)
+    v, bias, dout = t(b, n, 64), t(h, n, n, dt=bias_dtype), t(b, n, h * 64)
     key_mask = torch.from_numpy(rng.random((b, n)) > 0.2) if mask else None
     opts = dict(causal=True, non_causal_prefix=ncp)
     fn = attention.shared_kv_attention_bwd
