@@ -39,7 +39,21 @@ Phases, each of which fails the run:
      exactly its kernels launched; then each mode's decode step on the
      semantic stage at batch 8: ms a step, CUDA launches a step and device
      busy time (torch.profiler);
-  5. the training path: the full-width coarse stage's loss and every
+  5. text to waveforms: the tokenizer on a byte-level demo vocabulary (8
+     prompts, one truncated at 77 tokens); the full-width text tower
+     (RoBERTa-base, the CLAP projection, a 12 x 1024 x 512 RVQ, seeded) on
+     the card against the CPU in float32 (embeddings within TEXT_EMB_TOL,
+     CLAP tokens equal wherever the CPU's nearest-code margin is not a near
+     tie, the near ties counted), its ms at b8 in float32 and bf16 beside its
+     bound; the per-row keys' splits, folds and uniforms bit-equal on the
+     card and the CPU, and a decode step's CUDA launches with per-row keys
+     equal at b1 and b8 ("int8" and "fused"); MusicLM.generate(text=8
+     prompts, per_row_keys) in "int8" at batch 8 x 4 s (exactly kernels 1-4);
+     the GenerationServer in "fused" mode (batch 8, buckets [1, 8], 2
+     workers): 8 concurrent text requests, then a lone one at bucket 1, and
+     one (text, seed) request bit-equal in two batch-8 batches with other
+     companions and slots, each request's latency printed;
+  6. the training path: the full-width coarse stage's loss and every
      parameter gradient on the card (kernels 1, 5, 6) against the plain path
      on the CPU in float64, within 3x the CPU float32 path's own distance
      from float64 (a control with bf16 attention must fail that limit);
@@ -874,10 +888,13 @@ def main() -> int:
               f"{step_launches:.1f} CUDA kernel launches a step, device busy {busy_ms:.3f} ms a step "
               f"(idle share {100 * (1 - busy_ms / step_ms):.1f} % of the unprofiled step) [{card}]",
               flush=True)
+
+    # ---- 5. text to waveforms: the text tower, per-row keys, the server ----
+    conditioning_phase(torch, omt_config, mc, dev, card, stages, codec, counters, expect, windows, time_ms)
     del musiclm, stages, codec
     torch.cuda.empty_cache()
 
-    # ---- 5. the training path ----
+    # ---- 6. the training path ----
     train_launches = training_phase(torch, omt_config, mc, dev, card, attention, kernels)
     path_launches.update(attention_bwd=train_launches["attention_bwd"],
                          attention_dbias=train_launches["attention_dbias"])
@@ -967,6 +984,289 @@ def profile_generate(torch, stage, clap, gen, steps):
     return sum(e.count for e in events), sum(e.self_device_time_total for e in events) / 1e3
 
 
+# the demo vocabulary's merges over bytes_to_unicode's symbols ("Ġ" is the
+# space byte): the real roberta-base vocab.json and merges.txt are not in the
+# repository
+DEMO_MERGES = (("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("i", "n"), ("Ġ", "a"), ("e", "r"), ("o", "n"),
+               ("Ġ", "s"), ("a", "n"), ("Ġ", "w"), ("r", "o"), ("Ġ", "b"))
+PROMPTS = (
+    "a calm piano melody with soft strings",
+    "upbeat electronic dance track, 128 bpm, heavy bass",
+    "lo-fi hip hop beat for studying",
+    "an orchestral film score building to a climax",
+    "acoustic guitar and whistling on a sunny afternoon",
+    "café jazz trio — brushed drums, upright bass ♪",
+    "distorted rock riff with pounding drums!!!",
+    " ".join(["a long rambling prompt about ambient drones and field recordings"] * 6),  # > 77 tokens
+)
+# card vs CPU float32 text embeddings (unit norm, components ~0.04; TF32 off)
+TEXT_EMB_TOL = 1e-4
+# nearest-code margins: moving x by d moves score_k - score_j (2 x.c - |c|^2)
+# by at most 2 |d|_2 |c_k - c_j| <= 2 sqrt(512) max|d| * ~32 for N(0, 1) codes
+# in 512 dims, ~1450 max|d|; a position whose CPU margin exceeds TIE_MULT x
+# its row's max|d|, plus TIE_ROUNDING for the scores' own float32 rounding
+# (scores ~|c|^2 ~ 512), must get the same token on the card
+TIE_MULT, TIE_ROUNDING = 4096, 1e-2
+
+
+def write_demo_vocab(folder: Path) -> None:
+    """A byte-level vocabulary: the special ids, the 256 byte symbols and
+    DEMO_MERGES' results, every id below roberta-base's 50265."""
+    from open_musiclm_torch.models.clap.tokenizer import bytes_to_unicode
+
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for c in sorted(set(bytes_to_unicode().values())):
+        vocab[c] = len(vocab)
+    for a, b in DEMO_MERGES:
+        vocab[a + b] = len(vocab)
+    (folder / "vocab.json").write_text(json.dumps(vocab))
+    (folder / "merges.txt").write_text("#version: demo\n" + "".join(f"{a} {b}\n" for a, b in DEMO_MERGES))
+
+
+def text_tower_bound(model, b: int, t: int, dtype: str):
+    """(bound ms, what bounds it, GFLOP) of one get_text_embedding call at
+    b x t: every weight read once (the embedding tables' looked-up rows
+    only), the ids and the output moved once; the FLOPs of every position."""
+    branch, cfg = model.text_branch, model.text_branch.cfg
+    H, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    joint = model.text_projection[2].out_features
+    flops = (2 * b * t * L * (4 * H * H + 2 * H * F) + 4 * b * t * t * H * L
+             + 2 * b * (H * H + H * joint + joint * joint))
+    tables = sum(m.weight.numel() for m in (branch.embeddings.word_embeddings,
+                                           branch.embeddings.position_embeddings))
+    elem = 2 if dtype == "bfloat16" else 4
+    n_params = sum(p.numel() for p in model.text_branch.parameters()) - tables
+    n_params += sum(p.numel() for p in model.text_projection.parameters())
+    n_bytes = (n_params + 2 * b * t * H) * elem + 2 * b * t * 8 + b * joint * 4
+    ms, by = bound_ms(n_bytes, flops, dtype)
+    return ms, by, flops / 1e9
+
+
+def conditioning_phase(torch, omt_config, mc, dev, card, stages, codec, counters, expect, windows,
+                       stream_ms):
+    """Phase 5: text to waveforms. The tokenizer on a demo vocabulary, the
+    full-width text tower (RoBERTa-base, the projection, a 12 x 1024 x 512
+    RVQ) on the card against the CPU, the per-row keys' bits on both,
+    decode-step launches with per-row keys at b1 and b8, MusicLM.generate
+    from 8 text prompts in "int8" (kernels 1-4, counted), and the
+    GenerationServer in "fused" mode."""
+    import numpy as np
+
+    from open_musiclm_torch.core.sampling import fold_in_rows, row_uniforms, seed_keys, split_row_keys
+    from open_musiclm_torch.models.clap.tokenizer import load_tokenizer
+    from open_musiclm_torch.models.musiclm import MusicLM
+    from open_musiclm_torch.models.stages import Stage
+    from open_musiclm_torch.serve import GenerationServer
+
+    # a. tokenizer
+    with tempfile.TemporaryDirectory() as tmp:
+        write_demo_vocab(Path(tmp))
+        tok = load_tokenizer(tmp)
+    enc = tok(list(PROMPTS))
+    lengths = enc["attention_mask"].sum(1).tolist()
+    print(f"tokenizer (demo vocabulary, {len(DEMO_MERGES)} merges): {len(PROMPTS)} prompts, "
+          f"lengths {lengths} of 77", flush=True)
+    if max(lengths) != 77 or enc["input_ids"].max() >= 50265:
+        fail(f"tokenizer: lengths {lengths} (one prompt must be truncated to 77), ids < 50265")
+
+    # b. the text tower on the card against the CPU, float32, same seed
+    t0 = time.perf_counter()
+    clap_gpu = omt_config.build_clap(mc, torch.Generator().manual_seed(31))
+    clap_cpu = omt_config.build_clap(mc, torch.Generator().manual_seed(31), device="cpu")
+    print(f"build_clap (RoBERTa-base + projection, RVQ {tuple(clap_gpu.rvq.codebooks.shape)}) x2: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    emb_gpu = clap_gpu.text_embedding(enc["input_ids"], enc["attention_mask"])
+    emb_cpu = clap_cpu.text_embedding(enc["input_ids"], enc["attention_mask"])
+    if emb_gpu.device.type != "cuda" or emb_gpu.shape != (8, 512) or not torch.isfinite(emb_gpu).all():
+        fail(f"text embedding: {emb_gpu.device} {tuple(emb_gpu.shape)}, want cuda (8, 512), finite")
+    diff = (emb_gpu.cpu() - emb_cpu).abs()
+    err = diff.max().item()
+    norm_err = (torch.linalg.vector_norm(emb_gpu, dim=-1) - 1).abs().max().item()
+    print(f"text embedding b8 float32, card vs CPU: max_abs_err {err:.3e} tol {TEXT_EMB_TOL:.0e}, "
+          f"| |e| - 1 | {norm_err:.1e}", flush=True)
+    if not err <= TEXT_EMB_TOL:
+        fail(f"text embeddings differ: {err} > {TEXT_EMB_TOL}")
+    tok_gpu = clap_gpu.quantize(emb_gpu).cpu()
+    tok_cpu = clap_cpu.quantize(emb_cpu)
+    cbs = clap_cpu.rvq.codebooks.double()
+    resid, row_err = emb_cpu.double(), diff.amax(dim=1).double()
+    live = torch.ones(8, dtype=torch.bool)  # rows whose earlier quantizers were all decided
+    near, checked = 0, 0
+    for q in range(cbs.shape[0]):
+        score = 2.0 * resid @ cbs[q].t() - (cbs[q] * cbs[q]).sum(-1)[None]
+        top = score.topk(2, dim=-1).values
+        decided = live & (top[:, 0] - top[:, 1] > TIE_MULT * row_err + TIE_ROUNDING)
+        near += int((live & ~decided).sum()) + int((~live).sum())
+        checked += int(decided.sum())
+        if not torch.equal(tok_gpu[decided, q], tok_cpu[decided, q]):
+            fail(f"CLAP tokens differ at quantizer {q} on rows whose margin is not a near tie")
+        live = decided
+        resid = resid - cbs[q][tok_cpu[:, q, 0]]
+    print(f"CLAP tokens [8, 12, 1] card vs CPU: {checked} positions decided and equal, {near} near-tie "
+          f"positions (margin <= {TIE_MULT} x the row's embedding error + {TIE_ROUNDING}, or after one); "
+          f"tokens equal at {int((tok_gpu == tok_cpu).sum())} of 96", flush=True)
+
+    ids_d = torch.from_numpy(enc["input_ids"]).to(dev, torch.long)
+    mask_d = torch.from_numpy(enc["attention_mask"]).to(dev, torch.long)
+    bf16_model = copy.deepcopy(clap_gpu.model).to(torch.bfloat16)
+    bf16_model.text_branch.compute_dtype = torch.bfloat16
+    for name, model in (("float32", clap_gpu.model), ("bfloat16", bf16_model)):
+        with torch.no_grad():
+            ms = stream_ms(lambda: model.get_text_embedding(ids_d, mask_d))
+        b_ms, b_by, gflop = text_tower_bound(model, 8, 77, name)
+        print(f"text tower b8 x 77 (RoBERTa-base + projection, get_text_embedding) {name}: {ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}; {gflop:.1f} GFLOP, {gflop / ms:.1f} TFLOP/s) [{card}]",
+              flush=True)
+    del bf16_model, clap_cpu
+
+    # c. per-row keys: the same bits on the card and the CPU; decode-step
+    # launches with per-row keys the same at b1 and b8
+    keys = fold_in_rows(seed_keys([0, 1, 7, 2 ** 40, -1, 12345, 99, 3]), 1, 4)
+    sub, carry = split_row_keys(keys)
+    sub_d, carry_d = split_row_keys(keys.to(dev))
+    u_cpu, u_gpu = row_uniforms(sub, 1025), row_uniforms(sub_d, 1025).cpu()
+    same = (torch.equal(sub_d.cpu(), sub) and torch.equal(carry_d.cpu(), carry)
+            and torch.equal(fold_in_rows(keys.to(dev), 2, 3).cpu(), fold_in_rows(keys, 2, 3))
+            and torch.equal(u_gpu, u_cpu))
+    print(f"per-row keys: splits, folds and [8, 1025] uniforms card vs CPU bit-equal: {same}", flush=True)
+    if not same:
+        fail("per-row keys or uniforms differ between the card and the CPU")
+    sem = stages["semantic_stage"].model
+    clap8 = tok_gpu.reshape(8, -1).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    row_keys = seed_keys(range(8), device=dev)
+    for mode in ("int8", "fused"):
+        st = Stage(sem, name="semantic", quantized=True, flash_kv=mode)
+        st.generate([clap8], gen, max_time_steps=4)  # warm-up, qparams
+
+        n_gen = step_launches(torch, st, clap8, gen)
+        n1 = step_launches(torch, st, clap8[:1], gen, per_row_keys=row_keys[:1])
+        n8 = step_launches(torch, st, clap8, gen, per_row_keys=row_keys)
+        print(f"decode step, semantic, flash_kv={mode}: CUDA launches a step (raw), per-row keys b1 "
+              f"{n1[0]} ({n1[1]:.3f}), b8 {n8[0]} ({n8[1]:.3f}); generator b8 {n_gen[0]} ({n_gen[1]:.3f})",
+              flush=True)
+        if n1[0] != n8[0]:
+            fail(f"flash_kv={mode}: per-row-key decode step launches {n1} at b1, {n8} at b8")
+
+    # d. text to waveforms, "int8", b8 x 4 s, per-row keys: kernels 1-4
+    musiclm = MusicLM(codec=codec, clap=clap_gpu, tokenizer=tok, **stages)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wave = musiclm.generate(text=list(PROMPTS), per_row_keys=seed_keys(range(8)), output_seconds=4.0, **windows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    print(f"MusicLM.generate(text=8 prompts, per_row_keys) flash_kv=int8, batch 8 x 4.0 s: wave "
+          f"{tuple(wave.shape)} {wall:.2f} s wall (text tower included), "
+          f"{8 * 4.0 / wall:.3f} audio-s/wall-s [{card}]", flush=True)
+    if tuple(wave.shape) != (8, 96000) or not torch.isfinite(wave.float()).all():
+        fail(f"text to wave: waveform {tuple(wave.shape)} (want (8, 96000)) or non-finite samples")
+    expect("text, flash_kv=int8", launches,
+           {"prefill_attention", "flash_decode_step", "fused_ff_apply", "int8_matmul"})
+
+    # e. the server, "fused", batch_size 8, buckets [1, 8], 2 workers
+    fused = {key: Stage(st.model, name=st.name, quantized=True, flash_kv="fused") for key, st in stages.items()}
+    for st in fused.values():
+        st.qparams()
+    server_lm = MusicLM(codec=codec, clap=clap_gpu, tokenizer=tok, **fused)
+    calls = []  # (rows, row keys) of each generate call
+    generate = server_lm.generate
+
+    def spy(**kw):
+        calls.append((int(kw["clap_token_ids"].shape[0]), kw["per_row_keys"].tolist()))
+        return generate(**kw)
+
+    server_lm.generate = spy
+    gen_kw = dict(output_seconds=4.0, **windows)
+
+    def serve(requests, started):
+        """Waves and latencies (s) of ``requests`` [(text, seed)] on a new
+        server, submitted all at once after (started) or before its start."""
+        server = GenerationServer(server_lm, batch_size=8, batch_buckets=[1, 8], num_workers=2, **gen_kw)
+        if started:
+            server.start()
+        done, t_submit = {}, time.perf_counter()
+        futs = [server.submit(text, seed=seed) for text, seed in requests]
+        for i, f in enumerate(futs):
+            f.add_done_callback(lambda _, i=i: done.setdefault(i, time.perf_counter()))
+        if not started:
+            server.start()
+        try:
+            waves = [f.result(timeout=600) for f in futs]
+        finally:
+            server.stop()
+        for w in waves:
+            if w.shape != (96000,) or not np.isfinite(w).all():
+                fail(f"server: waveform {w.shape} (want (96000,)) or non-finite samples")
+        return waves, [done[i] - t_submit for i in range(len(futs))]
+
+    server = GenerationServer(server_lm, batch_size=8, batch_buckets=[1, 8], num_workers=2, **gen_kw).start()
+    try:
+        t_submit = time.perf_counter()
+        futs = [server.submit(p, seed=100 + i) for i, p in enumerate(PROMPTS)]
+        waves = [f.result(timeout=600) for f in futs]
+        lat8 = time.perf_counter() - t_submit
+        n_calls = len(calls)
+        t_submit = time.perf_counter()
+        lone = server.submit("a lone request for a slow waltz", seed=200).result(timeout=600)
+        lat1 = time.perf_counter() - t_submit
+    finally:
+        server.stop()
+    print(f"server (flash_kv=fused, buckets [1, 8], 2 workers): 8 concurrent text requests in "
+          f"{n_calls} batch(es) of rows {[r for r, _ in calls[:n_calls]]}, all resolved {lat8:.2f} s "
+          f"after submission; then a lone request in rows {calls[-1][0]}: {lat1:.2f} s [{card}]", flush=True)
+    if calls[-1][0] != 1 or len(calls) != n_calls + 1 or lone.shape != (96000,) or len(waves) != 8:
+        fail(f"server: the lone request ran at rows {calls[-1][0]} (want bucket 1), calls {len(calls)}")
+
+    target = ("a (text, seed) request held across batches: warm synth pads", 4242)
+    first = [target] + [(p, 300 + i) for i, p in enumerate(PROMPTS[:7])]
+    second = [(p, 400 + i) for i, p in enumerate(PROMPTS[1:6])] + [target] + [(p, 500 + i) for i, p in enumerate(PROMPTS[6:8])]
+    target_key = seed_keys([target[1]]).item()
+    slots = []
+    for requests in (first, second):
+        n0 = len(calls)
+        waves, lat = serve(requests, started=False)
+        rows, keys_ = next((r, k) for r, k in calls[n0:] if target_key in k)
+        slots.append((rows, keys_.index(target_key), waves[requests.index(target)]))
+        print(f"  server round of 8: batches of rows {[r for r, _ in calls[n0:]]}, latency per request "
+              f"{', '.join(f'{x:.2f}' for x in lat)} s; the target at slot {slots[-1][1]} of {rows} [{card}]",
+              flush=True)
+    (rows_a, slot_a, wave_a), (rows_b, slot_b, wave_b) = slots
+    equal = bool(np.array_equal(wave_a, wave_b))
+    print(f"server: the same (text, seed) at slot {slot_a} and slot {slot_b} of two batch-8 batches with "
+          f"other companions: waves bit-equal {equal}", flush=True)
+    if rows_a != 8 or rows_b != 8 or slot_a == slot_b:
+        fail(f"server rounds: the target ran at rows {rows_a}/{rows_b}, slots {slot_a}/{slot_b}")
+    if not equal:
+        fail(f"server: the same request's waves differ across batches "
+             f"(max abs diff {np.abs(wave_a - wave_b).max()})")
+    del server_lm.generate  # the spy refers to server_lm: a cycle would keep its CLAP on the card
+
+
+def step_launches(torch, stage, clap, gen, **kw):
+    """CUDA launches (kernels and copies) a decode step of Stage.generate,
+    as (whole, raw): per kernel name, a 48-step call's count less a 16-step
+    call's, over 32, each call in its own torch.profiler session; ``raw``
+    sums these, ``whole`` sums them rounded to whole launches. A session
+    late in a long run now and then reports a few events too many or too
+    few (seen as a total that moved by a fraction of a launch from reading
+    to reading), which the rounding takes out; a loop over rows would add
+    whole launches a step for every row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    counts = []
+    for steps in (16, 48):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stage.generate([clap], gen, max_time_steps=steps, **kw)
+            torch.cuda.synchronize()
+        counts.append({e.key: e.count for e in prof.key_averages() if e.device_type == cuda})
+    per = [(counts[1].get(k, 0) - counts[0].get(k, 0)) / 32 for k in set(counts[0]) | set(counts[1])]
+    return sum(round(v) for v in per), sum(per)
+
+
 def profile_step(torch, trainer, state, batch, gen, card):
     """One more train step under torch.profiler: device busy time by kernel
     group and the device's idle share of the (profiled) step."""
@@ -1004,7 +1304,7 @@ def profile_step(torch, trainer, state, batch, gen, card):
 
 
 def training_phase(torch, omt_config, mc, dev, card, attention, kernels):
-    """Phase 5. Returns the launches of kernels 1, 5 and 6 during the
+    """Phase 6. Returns the launches of kernels 1, 5 and 6 during the
     StageTrainer.train run."""
     from open_musiclm_torch.models import transformer
     from open_musiclm_torch.checkpoint import find_latest_checkpoint
@@ -1016,7 +1316,7 @@ def training_phase(torch, omt_config, mc, dev, card, attention, kernels):
 
     lens = omt_config.stage_example_lengths(mc, "coarse")
 
-    # 5a. full-width coarse gradients on the card (float32, batch 2, no
+    # 6a. full-width coarse gradients on the card (float32, batch 2, no
     # dropout or forgetful mask; pad and EOS in the conditioning) against the
     # plain path on the CPU in float64, with the same plain path in float32
     # beside them. Errors are max abs err / max|grad| per tensor. At full
@@ -1102,7 +1402,7 @@ def training_phase(torch, omt_config, mc, dev, card, attention, kernels):
     del cpu_model, gpu_model, f64_model, cpu_grads, gpu_grads, f64_grads, ctl_grads
     torch.cuda.empty_cache()
 
-    # 5b. StageTrainer.train on a token store, the coarse trainer config
+    # 6b. StageTrainer.train on a token store, the coarse trainer config
     tcfg = omt_config.load_training_config(
         str(ROOT / "configs" / "training" / "train_musiclm_fma.json")).coarse_trainer_cfg
     gcfg = mc.global_cfg

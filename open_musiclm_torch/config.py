@@ -3,7 +3,8 @@
 The same dataclasses over the unchanged ``configs/model/*.json`` and
 ``configs/training/*.json``; the factories build the port's modules with a
 seeded random init from a ``torch.Generator``, on the card unless the caller
-asks for the CPU (``device="cpu"``). CLAP and HuBERT are not ported yet.
+asks for the CPU (``device="cpu"``). The CLAP's audio tower and HuBERT are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from typing import List, Optional
 
 import torch
 
+from .models.clap.clap import CLAP, JOINT_EMBED, ClapQuantized
+from .models.clap.roberta import RobertaConfig
 from .models.encodec import EncodecModel, create_encodec_24khz
+from .models.rvq import RVQState, rvq_init
 from .models.stages import (
     Stage,
     create_coarse_transformer,
@@ -264,6 +268,19 @@ def build_encodec(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> E
         codebook_size=mc.encodec_cfg.codebook_size,
         generator=generator,
     ).to(device)
+
+
+def build_clap(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> ClapQuantized:
+    """The CLAP text branch (RoBERTa-base, the text projection) and a
+    ``clap_rvq_cfg.rq_num_quantizers`` x ``codebook_size`` x 512 RVQ, with a
+    seeded random init drawn in float32 on the CPU (the CLAP, then the
+    codebooks), then moved to ``device``, in eval() mode."""
+    device = _target_device(device, "build_clap")
+    cfg = mc.clap_rvq_cfg
+    model = CLAP(RobertaConfig(), generator=generator)
+    rvq = rvq_init(cfg.rq_num_quantizers, cfg.codebook_size, JOINT_EMBED, generator)
+    return ClapQuantized(model=model.to(device).eval(), rvq=RVQState(rvq.codebooks.to(device)),
+                         num_quantizers=cfg.rq_num_quantizers, codebook_size=cfg.codebook_size)
 
 
 def init_stage(

@@ -1,21 +1,24 @@
-"""MusicLM hierarchy from CLAP tokens to waveform
+"""MusicLM hierarchy from text to waveform
 (port of open_musiclm_tpu/models/musiclm.py).
 
-semantic stage (sliding windows with 50 % overlap) -> coarse stage over 4 s
-semantic windows (continuing from the previous window's last coarse tokens)
--> fine stage over 2 s coarse windows (non-overlapping windows decode as one
-batched call) -> Encodec decode. The port conditions on precomputed CLAP
-tokens; text conditioning, audio-prompt continuation, reranking and
-multi-device pipelining are not ported yet.
+text -> BPE tokenizer -> CLAP text tower -> RVQ -> 12 conditioning tokens
+(or precomputed tokens) -> semantic stage (sliding windows with 50 %
+overlap) -> coarse stage over 4 s semantic windows (continuing from the
+previous window's last coarse tokens) -> fine stage over 2 s coarse windows
+(non-overlapping windows decode as one batched call) -> Encodec decode.
+Sampling draws come from a generator or from per-row keys. Audio-prompt
+continuation, reranking and multi-device pipelining are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
+from ..core.sampling import fold_in_rows
+from .clap.clap import ClapQuantized
 from .encodec import EncodecModel
 from .stages import Stage
 
@@ -43,10 +46,24 @@ def _gather_span(segments: Sequence[torch.Tensor], start: int, length: int) -> t
 
 @dataclasses.dataclass
 class MusicLM:
+    """``clap`` and ``tokenizer`` (any callable giving numpy ``input_ids``
+    and ``attention_mask`` for a list of texts) serve text prompts; without
+    them ``generate`` takes precomputed CLAP tokens only."""
+
     codec: EncodecModel
     semantic_stage: Stage
     coarse_stage: Stage
     fine_stage: Stage
+    clap: Optional[ClapQuantized] = None
+    tokenizer: Any = None
+
+    def clap_tokens_from_text(self, text: List[str]) -> torch.Tensor:
+        """Texts -> [b, Q, 1] CLAP tokens on the CLAP's device."""
+        if self.tokenizer is None or self.clap is None:
+            raise ValueError("text prompts need a tokenizer and a CLAP: pass both, or "
+                             "precomputed clap_token_ids")
+        enc = self.tokenizer(text)
+        return self.clap.tokenize_text(enc["input_ids"], enc["attention_mask"])
 
     @torch.no_grad()
     def _decode(self, codes: torch.Tensor) -> torch.Tensor:
@@ -66,8 +83,10 @@ class MusicLM:
     def generate(
         self,
         *,
-        clap_token_ids: torch.Tensor,
+        text: Optional[List[str]] = None,
+        clap_token_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        per_row_keys: Optional[torch.Tensor] = None,
         output_seconds: float = 8,
         semantic_window_seconds: int = 10,
         coarse_window_seconds: int = 4,
@@ -84,21 +103,33 @@ class MusicLM:
         coarse_filter_thres: float = 0.9,
         fine_filter_thres: float = 0.9,
     ) -> torch.Tensor:
-        """``clap_token_ids`` [b, n_clap(, 1)] -> waveform [b, samples]. All
-        sampling draws come from ``generator`` (the stages' device)."""
+        """``text`` (b prompts) or ``clap_token_ids`` [b, n_clap(, 1)] ->
+        waveform [b, samples]. The sampling draws come from ``generator``
+        (the stages' device) or, given ``per_row_keys`` ([b] keys of
+        ``core.sampling``), row i's from its own key only, whatever the batch
+        around it; ``generator`` is then ignored. Each window folds (stage,
+        window) into the keys."""
         if output_seconds < coarse_window_seconds:
             raise ValueError(
                 f"output_seconds={output_seconds} is shorter than the coarse "
                 f"window ({coarse_window_seconds} s): generate at least one coarse window."
             )
+        if clap_token_ids is None:
+            if text is None:
+                raise ValueError("generate needs text or clap_token_ids")
+            clap_token_ids = self.clap_tokens_from_text(text)
         b = clap_token_ids.shape[0]
         clap = clap_token_ids.reshape(b, -1)
+
+        def row_keys(stage: int, window: int) -> Optional[torch.Tensor]:
+            return None if per_row_keys is None else fold_in_rows(per_row_keys, stage, window)
 
         # ---- semantic stage: sliding-window AR ----
         first_T = int(min(output_seconds, semantic_window_seconds) * semantic_steps_per_second)
         sem_kw = dict(temperature=semantic_temperature, filter_thres=semantic_filter_thres)
         sem_segments = [
-            self.semantic_stage.generate([clap], generator, max_time_steps=first_T, **sem_kw)
+            self.semantic_stage.generate([clap], generator, max_time_steps=first_T,
+                                         per_row_keys=row_keys(0, 0), **sem_kw)
         ]
         sem_total = first_T
         target_sem = int(output_seconds * semantic_steps_per_second)
@@ -109,7 +140,7 @@ class MusicLM:
                 [clap], generator,
                 max_time_steps=int(semantic_window_seconds * semantic_steps_per_second),
                 init_pred_ids=_gather_span(sem_segments, sem_total - cond_len, cond_len),
-                **sem_kw,
+                per_row_keys=row_keys(0, len(sem_segments)), **sem_kw,
             )
             sem_segments.append(cont[:, cond_len:])
             sem_total += cont.shape[1] - cond_len
@@ -129,7 +160,7 @@ class MusicLM:
                 init = prev_pred[:, -coarse_cond_len:]
             prev_pred = self.coarse_stage.generate(
                 [clap, _gather_span(sem_segments, wi * step, window)], generator,
-                max_time_steps=coarse_T, init_pred_ids=init,
+                max_time_steps=coarse_T, init_pred_ids=init, per_row_keys=row_keys(1, wi),
                 temperature=coarse_temperature, filter_thres=coarse_filter_thres,
             )  # [b, coarse_T, n_coarse]
             coarse_segments.append(prev_pred if wi == 0 else prev_pred[:, coarse_cond_len:])
@@ -154,9 +185,11 @@ class MusicLM:
             for g0 in range(0, n_windows, win_per_call):
                 g1 = min(g0 + win_per_call, n_windows)
                 nw = g1 - g0
+                keys = None if per_row_keys is None else torch.cat(
+                    [row_keys(2, w) for w in range(g0, g1)])
                 pred = self.fine_stage.generate(
                     [clap.repeat(nw, 1), torch.cat([coarse_win(w) for w in range(g0, g1)], dim=0)],
-                    generator, **fine_kw,
+                    generator, per_row_keys=keys, **fine_kw,
                 )  # [nw * b, T, q]
                 chunks.append(pred.reshape(nw, b, fine_window, pred.shape[-1]))
             pred = torch.cat(chunks, dim=0)
@@ -169,7 +202,8 @@ class MusicLM:
                 if prev_fine is not None and fine_cond_len > 0:
                     init = prev_fine[:, -fine_cond_len:]
                 prev_fine = self.fine_stage.generate(
-                    [clap, coarse_win(wi)], generator, init_pred_ids=init, **fine_kw
+                    [clap, coarse_win(wi)], generator, init_pred_ids=init,
+                    per_row_keys=row_keys(2, wi), **fine_kw
                 )
                 fine = prev_fine if fine is None else torch.cat(
                     [fine, prev_fine[:, fine_cond_len:]], dim=1)

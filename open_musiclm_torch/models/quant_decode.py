@@ -209,6 +209,7 @@ def generate_quantized(
     flash_kv: Optional[str] = "int8",
     teacher_ids: Optional[torch.Tensor] = None,
     return_logits: bool = False,
+    per_row_keys: Optional[torch.Tensor] = None,
 ):
     """The int8 twin of ``token_cond.generate``: fp prefill, int8 decode
     steps of the ``flash_kv`` mode (see the module docstring; ``fused_ff``
@@ -254,5 +255,5 @@ def generate_quantized(
         lambda h, q_idx: int8_matmul(h, heads_q[q_idx], heads_s[q_idx]), step, generator,
         filter_thres=filter_thres, temperature=temperature,
         allow_eos_in_output=allow_eos_in_output, include_eos_in_output=include_eos_in_output,
-        teacher_ids=teacher_ids, return_logits=return_logits,
+        teacher_ids=teacher_ids, return_logits=return_logits, per_row_keys=per_row_keys,
     )

@@ -3,8 +3,8 @@
 The three stage factories, and ``Stage``: a TokenConditionedTransformer
 with its decode mode, the JAX package's full mode matrix: the fp decode
 (``quantized=False``) or the int8 serving decode (``quantized=True``) with
-``flash_kv`` None, "bf16", "f32", "int8" or "fused". Per-row sampling keys
-and the mesh-sharded decode are not ported yet.
+``flash_kv`` None, "bf16", "f32", "int8" or "fused", with a generator or
+per-row sampling keys. The mesh-sharded decode is not ported yet.
 """
 
 from __future__ import annotations
@@ -91,7 +91,11 @@ class Stage:
         include_eos_in_output: bool = False,
         teacher_forced_ids: Optional[torch.Tensor] = None,
         return_logits: bool = False,
+        per_row_keys: Optional[torch.Tensor] = None,
     ):
+        """``per_row_keys``: optional [b] keys (``core.sampling``) making row
+        i's sampling a function of its own key only; ``generator`` is then
+        ignored."""
         if self.flash_kv and not self.quantized:
             # the flash-KV cache lives in the quantized decode; ignoring it
             # would silently run another path than the one asked for
@@ -104,6 +108,7 @@ class Stage:
             filter_thres=filter_thres, temperature=temperature,
             allow_eos_in_output=allow_eos_in_output, include_eos_in_output=include_eos_in_output,
             teacher_ids=teacher_forced_ids, return_logits=return_logits,
+            per_row_keys=per_row_keys,
         )
         if not self.quantized:
             return generate(self.model, list(conditioning_token_ids), generator, **kw)

@@ -23,7 +23,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.masks import conditioning_attn_mask, forgetful_causal_mask
-from ..core.sampling import NEG_INF, append_eos_id, mask_out_after_eos_id, sample_top_k_gumbel
+from ..core.sampling import (
+    NEG_INF,
+    append_eos_id,
+    mask_out_after_eos_id,
+    sample_top_k_gumbel,
+    sample_top_k_gumbel_per_row,
+    split_row_keys,
+)
 from ..core.sequence import SequenceLayout, TokenSequenceSpec, quantizer_offsets
 from .transformer import Transformer
 
@@ -174,11 +181,16 @@ def decode_loop(
     include_eos_in_output: bool,
     teacher_ids: Optional[torch.Tensor],
     return_logits: bool,
+    per_row_keys: Optional[torch.Tensor] = None,
 ):
     """The sampling loop every decode mode shares: per step the head's
     logits (EOS masked unless allowed at the last quantizer), a top-k gumbel
     sample, and the fed token's embedding through ``step_fn``. Returns
-    [b, T, Q] ids (and the per-step float32 logits [b, n_new, C])."""
+    [b, T, Q] ids (and the per-step float32 logits [b, n_new, C]).
+
+    With ``per_row_keys`` ([b] keys, ``core.sampling``) row i's draws come
+    from its own key, split once a step for all rows, and ``generator`` is
+    ignored."""
     spec = model.specs[-1]
     q_num, eos_id = spec.num_quantizers, spec.eos_id
     batch, n_init = h_last.shape[0], prompt.n_init
@@ -187,6 +199,10 @@ def decode_loop(
     emb_table = model.embeds[-1].weight
     emb_dtype = model.compute_dtype or emb_table.dtype
     teacher_flat = teacher_ids.reshape(batch, -1).to(h_last.device, torch.long) if teacher_ids is not None else None
+    if per_row_keys is not None:
+        if per_row_keys.shape != (batch,):
+            raise ValueError(f"per_row_keys {tuple(per_row_keys.shape)}: want one key per row ({batch},)")
+        per_row_keys = per_row_keys.to(h_last.device)
     step_logits = []
     for s in range(prompt.n_new):
         flat_idx = n_init + s
@@ -194,7 +210,11 @@ def decode_loop(
         logits = logits_fn(h_last, q_idx)
         if not (allow_eos_in_output and q_idx == q_num - 1):
             logits[:, -1] = NEG_INF
-        tok = sample_top_k_gumbel(logits, temperature, filter_thres, generator=generator)
+        if per_row_keys is None:
+            tok = sample_top_k_gumbel(logits, temperature, filter_thres, generator=generator)
+        else:
+            sub, per_row_keys = split_row_keys(per_row_keys)
+            tok = sample_top_k_gumbel_per_row(sub, logits, temperature, filter_thres)
         sampled[:, flat_idx] = tok
         fed = teacher_flat[:, flat_idx] if teacher_flat is not None else tok
         offset = q_idx * spec.codebook_size if q_num > 1 else 0
@@ -223,13 +243,15 @@ def generate(
     append_eos_to_conditioning_tokens: bool = True,
     teacher_ids: Optional[torch.Tensor] = None,
     return_logits: bool = False,
+    per_row_keys: Optional[torch.Tensor] = None,
 ):
     """The fp decode: sample the final sequence given the conditioning
     sequences. Returns [b, max_time_steps, Q] ids (and, with
     ``return_logits``, the per-step float32 logits [b, n_new, C]).
     ``init_pred_ids`` is an already generated prefix ([b, t0, Q] or
     flattened); ``teacher_ids`` feeds the teacher's token forward instead of
-    the sample, so every step is scored under the teacher's prefix."""
+    the sample, so every step is scored under the teacher's prefix.
+    ``per_row_keys`` [b] draws each row from its own key (``decode_loop``)."""
     prompt = make_prompt(model, conditioning_token_ids, max_time_steps=max_time_steps,
                          init_pred_ids=init_pred_ids, append_eos=append_eos_to_conditioning_tokens)
     tfm = model.transformer
@@ -243,7 +265,7 @@ def generate(
         lambda emb, pos: tfm.decode_step(emb, cache, pos, table), generator,
         filter_thres=filter_thres, temperature=temperature,
         allow_eos_in_output=allow_eos_in_output, include_eos_in_output=include_eos_in_output,
-        teacher_ids=teacher_ids, return_logits=return_logits,
+        teacher_ids=teacher_ids, return_logits=return_logits, per_row_keys=per_row_keys,
     )
 
 

@@ -32,8 +32,19 @@ from ..ops.relpos import init_linear_, lecun_normal_, linear, make_bias
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Bias-free LayerNorm in float32, returned in x's dtype."""
-    xf = x.float()
+    """Bias-free LayerNorm in float32, returned in x's dtype.
+
+    The float32 rows are laid out 16-byte aligned (copied into a buffer
+    whose rows are padded to a multiple of 4). A CUDA reduction sums a row
+    that starts off a 16-byte boundary in another order, so the conv-FF's
+    2730-wide rows, which alternate, would round a row's statistics by its
+    index, b * n + t, and with an odd n by the batch slot the row lies in."""
+    d = x.shape[-1]
+    if d % 4 == 0:
+        xf = x.float()
+    else:
+        xf = x.new_empty(x.shape[:-1] + (d - d % 4 + 4,), dtype=torch.float32)[..., :d]
+        xf.copy_(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)

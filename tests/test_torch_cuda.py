@@ -795,3 +795,19 @@ def test_fused_layer_wrapper_raises_on_bad_input(dev):
         fused_layer.fused_layer_decode_step(args[0], packed, args[1].float(), *args[2:], *tail, heads=8)
     with pytest.raises(ValueError):  # pos outside the cache
         fused_layer.fused_layer_decode_step(*args[:1], packed, *args[1:], 512, *tail[1:], heads=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2730, 1024, 1023])
+def test_layer_norm_rows_independent_of_slot(dev, width):
+    """The conv-FF's mid LayerNorm on the card: a row's bits do not depend
+    on its batch slot, also with an odd sequence length, where rows of an odd
+    width alternate between 16-byte-aligned and unaligned starts."""
+    from open_musiclm_torch.models.transformer import layer_norm
+
+    g = torch.Generator().manual_seed(width)
+    x = (torch.randn(8, 465, width, generator=g) * 3).to(dev, torch.bfloat16)
+    gamma = torch.randn(width, generator=g).to(dev)
+    perm = torch.randperm(8, generator=g)
+    got = layer_norm(x[perm], gamma)
+    torch.testing.assert_close(got, layer_norm(x, gamma)[perm.to(dev)], atol=0, rtol=0)
