@@ -62,7 +62,19 @@ Phases, each of which fails the run:
      StageTrainer.train with the coarse trainer config of
      configs/training/train_musiclm_fma.json (batch 2 x accum 8, bf16 compute
      on float32 master weights, dropout 0.1, forgetful mask 0.15): 3 steps,
-     one eval step, a checkpoint round trip, and kernels 1, 5, 6 launched.
+     one eval step, a checkpoint round trip, and kernels 1, 5, 6 launched;
+  7. audio prompts and reranking, float32 towers with seeded weights at full
+     width: HuBERT (MERT-v0 geometry, a 1024 x 768 k-means codebook) on a b1
+     x 10 s prime (sines plus noise, 48 kHz resampled to 16 kHz), the Encodec
+     encoder at 6 kbps on the same prime at 24 kHz, HTSAT-tiny with the audio
+     projection at b8 x 10 s 48 kHz, each on the card against the CPU
+     (features, latent and embeddings within TOWER_REL / TOWER_ABS; semantic
+     ids and Encodec codes equal off near ties, the near ties counted) and
+     timed beside its bound; MusicLM.generate(prime_wave=the 10 s prime at
+     48 kHz, output_seconds=12) in "int8" at b1 (the wave's length, exactly
+     kernels 1-4), once more with return_coarse_generated_wave; and
+     generate_top_match(2 prompts x 4 samples, 4 s) in "fused" (sims in
+     [-1, 1], exactly kernels 7, 1 and 4; its wall and HTSAT's share).
 
 Times a call, two readings of each kernel and library call:
   ms         stream time: CUDA events around 20 calls as the host launches
@@ -117,9 +129,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # kernel 4's cases (name, rows, K, N): the logit head at the decode batch
 # (b 8), the fine stage's rows (b 14: batch 2 x 7 windows; b 16), b 64 and
-# the fine stage's cap of 256 rows (MAX_FINE_ROWS); the five int8
-# projections of the fused_ff=False decode step at b 8
-INT8_CASES = ([("head", b, 1024, 1025) for b in (8, 14, 16, 64, 256)]
+# the fine stage's cap of 256 rows (MAX_FINE_ROWS), phase 7's rows (b 1 and 5:
+# the continuation's semantic / coarse and fine steps; b 4: the reranking's
+# samples); the five int8 projections of the fused_ff=False decode step at b 8
+INT8_CASES = ([("head", b, 1024, 1025) for b in (8, 14, 16, 64, 256, 1, 4, 5)]
               + [(name, 8, k, n) for name, k, n in (
                   ("to_q", 1024, 512), ("to_kv", 1024, 128), ("to_out", 512, 1024),
                   ("proj_in", 1024, 5460), ("proj_out", 2730, 1024))])
@@ -411,8 +424,11 @@ def main() -> int:
     print("kernels vs plain versions:", flush=True)
     H, D, DIM, INNER, C = 8, 64, 1024, 2730, 1025
     # 1. prefill attention: coarse first window (b 8, n 216), coarse continuation
-    #    (b 2, n 666), fine batched windows (b 16, n 467)
-    for b, n in ((8, 216), (2, 666), (16, 467)):
+    #    (b 2, n 666), fine batched windows (b 16, n 467); phase 7's batches:
+    #    the continuation's semantic first window with the prime's 250 tokens
+    #    (b 1, n 265), its first coarse window (b 1, n 666) and its 5 fine
+    #    windows (b 5, n 467), the reranking's coarse windows (b 4, n 216)
+    for b, n in ((8, 216), (2, 666), (16, 467), (1, 265), (1, 666), (5, 467), (4, 216)):
         ins = dict(q=attention.l2norm(rand(b, H, n, D)), k=attention.l2norm(rand(b, n, D)),
                    v=rand(b, n, D), attn_bias=rand(H, n, n))
         for dt in (torch.bfloat16, torch.float32):
@@ -433,11 +449,13 @@ def main() -> int:
     # 2. flash decode: the coarse / fine cache (N 1280) at b 8, 2 and 16 (the
     #    bench's batch, one long request, the fine stage's windows) and pos 0,
     #    100, 700 and 1279 (one split to 20), with int8, activation-dtype and
-    #    float32 rows (the "f32" cache mode). Beside every bf16 case, SDPA's
-    #    one-query call over the same live rows (bf16 K/V expanded to 8 heads,
-    #    bias row + mask as a float attn_mask) as kernel/library.
+    #    float32 rows (the "f32" cache mode); also b 1 and 5, the "int8"
+    #    continuation's semantic / coarse and fine rows in phase 7. Beside
+    #    every bf16 case, SDPA's one-query call over the same live rows (bf16
+    #    K/V expanded to 8 heads, bias row + mask as a float attn_mask) as
+    #    kernel/library.
     N = 1280
-    for b in (8, 2, 16):
+    for b in (8, 2, 16, 1, 5):
         k, v = attention.l2norm(rand(b, N, D)), rand(b, N, D)
         kq, ks = decode_attention.quantize_kv_row(k)
         vq, vs = decode_attention.quantize_kv_row(v)
@@ -475,7 +493,8 @@ def main() -> int:
                           keep_f32=("bias_row", "add_mask") + (("kv_cache",) if mode == "f32" else ()),
                           summary=summary if (b, mode, pos, dt) == (8, "bf16", N - 1, torch.bfloat16) else None,
                           library=(lambda low, lib_ms=lib_ms: lib_ms) if dt == torch.bfloat16 else None)
-    # 3. fused FF: the fine stage's rows at batch 8 (2 windows x 8), and batch 8
+    # 3. fused FF: the fine stage's rows at batch 8 (2 windows x 8), batch 8,
+    #    and phase 7's continuation rows (b 5 fine windows, b 1)
     from open_musiclm_torch.models.transformer import ConvFeedForward
 
     ff = ConvFeedForward(DIM, generator=torch.Generator().manual_seed(1))
@@ -483,7 +502,7 @@ def main() -> int:
         ff.norm_in.gamma.normal_(1.0, 0.1, generator=g)
         ff.norm_mid.gamma.normal_(1.0, 0.1, generator=g)
     packed = {k: v.to(dev) for k, v in fused_ff.pack_ff_weights(ff).items()}
-    for b in (16, 8):
+    for b in (16, 8, 5, 1):
         ins = dict(x=rand(b, DIM), state=rand(b, 2, 2 * INNER))
 
         def summary(low, out, b=b):
@@ -524,18 +543,18 @@ def main() -> int:
               f"the kernel {(y.float() - out.float()).abs().max().item():.3e}, scales in {x.dtype})")
         return ms
 
-    for name, b, K, N in INT8_CASES:
-        wq, s = quant.quantize_weight(torch.randn(K, N, generator=g))
+    for name, b, K, M in INT8_CASES:
+        wq, s = quant.quantize_weight(torch.randn(K, M, generator=g))
         wq, s = wq.to(dev), s.to(dev)
         ins = dict(x=rand(b, K))
         route = quant.int8_route(b)
 
-        def summary(low, out, b=b, K=K, N=N, wq=wq, s=s):
-            return nbytes(low["x"], wq, s, out), 2 * b * K * N, int8pack_library(low["x"], wq, s, out)
+        def summary(low, out, b=b, K=K, M=M, wq=wq, s=s):
+            return nbytes(low["x"], wq, s, out), 2 * b * K * M, int8pack_library(low["x"], wq, s, out)
 
         for dt in (torch.bfloat16, torch.float32):
             main_case = (name, b, dt) == ("head", 8, torch.bfloat16)
-            ms = check("int8_matmul", f"{name} b{b} {K}x{N} ({route})", dt,
+            ms = check("int8_matmul", f"{name} b{b} {K}x{M} ({route})", dt,
                        lambda x, wq=wq, s=s: quant.int8_matmul(x, wq, s),
                        lambda x, wq=wq, s=s: quant.int8_matmul_plain(x, wq, s), ins,
                        summary=summary if main_case else None)
@@ -546,7 +565,7 @@ def main() -> int:
             n_bytes, flops, lib = summary(dict(x=x), out)
             b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
             lib_txt = f"{lib[1]:.4f} ms, kernel/library {ms[1] / lib[1]:.2f}x device" if lib else "none"
-            print(f"    -> kernel 4 {name} b{b} {K}x{N} bf16 ({route}): device {ms[1]:.4f} ms, bound "
+            print(f"    -> kernel 4 {name} b{b} {K}x{M} bf16 ({route}): device {ms[1]:.4f} ms, bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}), {ms[1] / b_ms:.1f}x bound; library device {lib_txt} [{card}]",
                   flush=True)
             if name == "head" and b >= 14:
@@ -558,8 +577,8 @@ def main() -> int:
     # 7. one whole decode layer: a full-width layer (seeded weights, LayerNorm
     #    gains and q/k scales drawn around 1) over the coarse / fine cache
     #    (N 1280) at b 8 with pos in the first and the last chunk, at the
-    #    fine stage's b 14 (batch 2 x 7 windows), at an odd b 3 and at pos 0;
-    #    then musiclm_large's layer width (16 heads of 64 at dim 1024) at b 8
+    #    fine stage's b 14 (batch 2 x 7 windows), at an odd b 3, at pos 0 and
+    #    at phase 7's reranking batch (b 4, 4 samples); then musiclm_large's layer width (16 heads of 64 at dim 1024) at b 8
     #    and pos 1279. The kernel writes the fresh row and the conv state in
     #    place, so each side gets its own copies. For context, one layer of
     #    the two-kernel flash_quant_decode_step (kernels 2 and 3 plus the
@@ -583,7 +602,8 @@ def main() -> int:
               f"{plan.stage_off}, staging {4 * plan.stage_floats} B, partials {4 * plan.part_floats} B), "
               f"weights {sum(held) / 1e6:.2f} MB", flush=True)
 
-    for heads, cases in ((H, ((8, 100), (8, N - 1), (14, N - 1), (3, 700), (8, 0))), (16, ((8, N - 1),))):
+    for heads, cases in ((H, ((8, 100), (8, N - 1), (14, N - 1), (3, 700), (8, 0), (4, 100), (4, N - 1))),
+                         (16, ((8, N - 1),))):
         layer_model = layer_model_of(heads)
         layer_plan_line(heads)
         lpacked = fused_layer.pack_layer_weights(layer_model.transformer.attns[0], layer_model.transformer.ffs[0])
@@ -741,14 +761,21 @@ def main() -> int:
     stage = omt_config.init_stage(mc, "semantic", 11, device="cpu", quantized=True)
     cond = torch.randint(0, 1024, (2, 12), generator=g)
     teacher = torch.randint(0, 1024, (2, 24, 1), generator=g)
+    # phase 7's batches: "int8" at b1 (the continuation) and "fused" at b4
+    # (the reranking's samples), drawn from their own seed
+    g7 = torch.Generator().manual_seed(12)
+    inputs = {b: (torch.randint(0, 1024, (b, 12), generator=g7), torch.randint(0, 1024, (b, 24, 1), generator=g7))
+              for b in (1, 4)}
+    inputs[2] = (cond, teacher)
     qp_cpu = quantize_stage_params(stage.model, fused=True)
     model_gpu = copy.deepcopy(stage.model).to(dev)
     qp_gpu = to_device(qp_cpu, dev)
     # flash_kv=None also with fused_ff=False: kernel 4 for every projection
     # of the step (1024 -> 512, 128, 5460; 512, 2730 -> 1024) at full width
-    for mode, fused_ff_on, rel in (("bf16", True, 1e-4), ("int8", True, 1e-2), ("f32", True, 1e-4),
-                                   ("fused", True, 1e-2), (None, True, 1e-4), (None, False, 1e-4),
-                                   ("fp", True, 1e-4)):
+    for mode, fused_ff_on, rel, b in (("bf16", True, 1e-4, 2), ("int8", True, 1e-2, 2), ("f32", True, 1e-4, 2),
+                                      ("fused", True, 1e-2, 2), (None, True, 1e-4, 2), (None, False, 1e-4, 2),
+                                      ("fp", True, 1e-4, 2), ("int8", True, 1e-2, 1), ("fused", True, 1e-2, 4)):
+        cond, teacher = inputs[b]
         kw = dict(max_time_steps=24, temperature=0.0, teacher_ids=teacher, return_logits=True)
         if mode == "fp":
             _, want = token_cond.generate(stage.model, [cond], **kw)
@@ -762,12 +789,12 @@ def main() -> int:
         tol = rel * max(1.0, want.abs().max().item())
         name = ("fp decode (quantized=False)" if mode == "fp" else
                 f"int8 decode, flash_kv={mode}" + ("" if fused_ff_on else ", fused_ff=False"))
-        print(f"{name}, semantic stage f32, 24 teacher-forced steps: CUDA vs CPU plain logits "
+        print(f"{name}, semantic stage f32 b{b}, 24 teacher-forced steps: CUDA vs CPU plain logits "
               f"max_abs_err {err:.3e} tol {tol:.3e} (max |logit| {want.abs().max().item():.2f})",
               flush=True)
         if not err <= tol:
-            fail(f"{name} logits differ: {err} > {tol}")
-    del model_gpu, qp_gpu, stage
+            fail(f"{name} b{b} logits differ: {err} > {tol}")
+    del model_gpu, qp_gpu, stage, inputs
 
     # ---- 4. the serving path in every decode mode: MusicLM.generate at full width ----
     bf16 = torch.bfloat16
@@ -898,6 +925,11 @@ def main() -> int:
     train_launches = training_phase(torch, omt_config, mc, dev, card, attention, kernels)
     path_launches.update(attention_bwd=train_launches["attention_bwd"],
                          attention_dbias=train_launches["attention_dbias"])
+    torch.cuda.empty_cache()
+
+    # ---- 7. audio prompts and reranking ----
+    audio_launches = audio_prompt_phase(torch, omt_config, mc, dev, card, counters, expect, windows, time_ms)
+    print(json.dumps({"phase7_launches": audio_launches}))
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
@@ -1009,6 +1041,29 @@ TEXT_EMB_TOL = 1e-4
 TIE_MULT, TIE_ROUNDING = 4096, 1e-2
 
 
+def check_off_near_ties(torch, x_cpu, row_err, books, got, want, what: str):
+    """Codes [n, Q] on the card against the CPU's off near ties: at quantizer
+    q the CPU's code maximizes 2 r.c - |c|^2 over ``books[q]`` ([K, D]; the
+    residual r is x less the codes before q). A position whose CPU margin
+    exceeds TIE_MULT x its row's max error + TIE_ROUNDING must get the same
+    code; a row's quantizers after a near tie are not checked (a tie
+    changes every later residual). Returns (checked, near-tie positions)."""
+    resid, row_err = x_cpu.double(), row_err.double()
+    live = torch.ones(len(resid), dtype=torch.bool)  # rows whose earlier quantizers were all decided
+    checked = near = 0
+    for q, cb in enumerate(books.double()):
+        score = 2.0 * resid @ cb.t() - (cb * cb).sum(-1)[None]
+        top = score.topk(2, dim=-1).values
+        decided = live & (top[:, 0] - top[:, 1] > TIE_MULT * row_err + TIE_ROUNDING)
+        near += int((~decided).sum())
+        checked += int(decided.sum())
+        if not torch.equal(got[decided, q], want[decided, q]):
+            fail(f"{what} differ at quantizer {q} on rows whose margin is not a near tie")
+        live = decided
+        resid = resid - cb[want[:, q]]
+    return checked, near
+
+
 def write_demo_vocab(folder: Path) -> None:
     """A byte-level vocabulary: the special ids, the 256 byte symbols and
     DEMO_MERGES' results, every id below roberta-base's 50265."""
@@ -1088,20 +1143,8 @@ def conditioning_phase(torch, omt_config, mc, dev, card, stages, codec, counters
         fail(f"text embeddings differ: {err} > {TEXT_EMB_TOL}")
     tok_gpu = clap_gpu.quantize(emb_gpu).cpu()
     tok_cpu = clap_cpu.quantize(emb_cpu)
-    cbs = clap_cpu.rvq.codebooks.double()
-    resid, row_err = emb_cpu.double(), diff.amax(dim=1).double()
-    live = torch.ones(8, dtype=torch.bool)  # rows whose earlier quantizers were all decided
-    near, checked = 0, 0
-    for q in range(cbs.shape[0]):
-        score = 2.0 * resid @ cbs[q].t() - (cbs[q] * cbs[q]).sum(-1)[None]
-        top = score.topk(2, dim=-1).values
-        decided = live & (top[:, 0] - top[:, 1] > TIE_MULT * row_err + TIE_ROUNDING)
-        near += int((live & ~decided).sum()) + int((~live).sum())
-        checked += int(decided.sum())
-        if not torch.equal(tok_gpu[decided, q], tok_cpu[decided, q]):
-            fail(f"CLAP tokens differ at quantizer {q} on rows whose margin is not a near tie")
-        live = decided
-        resid = resid - cbs[q][tok_cpu[:, q, 0]]
+    checked, near = check_off_near_ties(torch, emb_cpu, diff.amax(dim=1), clap_cpu.rvq.codebooks,
+                                        tok_gpu[..., 0], tok_cpu[..., 0], "CLAP tokens")
     print(f"CLAP tokens [8, 12, 1] card vs CPU: {checked} positions decided and equal, {near} near-tie "
           f"positions (margin <= {TIE_MULT} x the row's embedding error + {TIE_ROUNDING}, or after one); "
           f"tokens equal at {int((tok_gpu == tok_cpu).sum())} of 96", flush=True)
@@ -1499,6 +1542,277 @@ def training_phase(torch, omt_config, mc, dev, card, attention, kernels):
           f"({100 * rate / peak:.2f} % of the {peak / 1e12:.0f} TFLOP/s data-sheet bf16 peak), "
           f"peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
     return launches
+
+
+# phase 7: card vs CPU float32 towers (TF32 off): HuBERT's layer-7 features
+# and the Encodec latent within TOWER_REL x their largest element (float32
+# sums in another order over up to 512 x 3 conv taps and 3072 FF terms),
+# HTSAT's unit-norm embeddings within TOWER_ABS
+TOWER_REL, TOWER_ABS = 1e-4, 1e-4
+PRIME_SECONDS, PRIME_HZ = 10, 48000
+
+
+def seeded_prime(seed: int, seconds: float, hz: int):
+    """[1, seconds * hz] float32: a few sines plus noise from ``seed``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * hz)) / hz
+    wave = sum(a * np.sin(2 * np.pi * f * t + ph) for a, f, ph in
+               zip(rng.uniform(0.05, 0.2, 4), rng.uniform(80, 2000, 4), rng.uniform(0, 6.28, 4)))
+    wave = wave + 0.02 * rng.randn(len(t))
+    return torch.from_numpy(wave.astype(np.float32))[None]
+
+
+def check_prepared(torch, prime, hz: int, target_hz: int, normalize: bool, dev, what: str):
+    """prepare_audio of the seeded prime on the card against the CPU. The
+    float32 wave before the int16 truncation must lie within 3x the CPU
+    float32 wave's own worst distance from float64 (the reductions of the
+    normalization and the resampler's taps run in another order), and the
+    card's int16 samples must be its own wave truncated, so that a sample
+    differs from the CPU's only by one step, where the two waves straddle
+    one. Returns the CPU's prepared wave."""
+    from open_musiclm_torch.ops.audio import int16_round_trip, prepare_audio, resample, zero_mean_unit_var_norm
+
+    def before_truncation(x):
+        x = zero_mean_unit_var_norm(x) if normalize else x
+        return resample(x[..., : PRIME_SECONDS * hz], hz, target_hz)
+
+    kw = dict(normalize=normalize, target_length_seconds=PRIME_SECONDS)
+    want, got = prepare_audio(prime, hz, target_hz, **kw), prepare_audio(prime.to(dev), hz, target_hz, **kw).cpu()
+    y64 = before_truncation(prime.double())
+    y_cpu, y_card = before_truncation(prime), before_truncation(prime.to(dev)).cpu()
+    cpu_err = (y_cpu.double() - y64).abs().max().item()
+    card_err = (y_card.double() - y64).abs().max().item()
+    steps = ((got - want).abs() * 32767).round()
+    print(f"prepared {what} prime ({target_hz} Hz), card vs CPU: before the int16 truncation "
+          f"{(y_card - y_cpu).abs().max().item():.3e} apart; from float64 card {card_err:.3e}, CPU {cpu_err:.3e} "
+          f"(limit {3 * cpu_err:.3e}); {int((steps > 0).sum())} of {want.numel()} int16 samples a step apart",
+          flush=True)
+    if not card_err <= 3 * cpu_err:
+        fail(f"prepared {what} prime: card {card_err} from float64, over 3x the CPU's {cpu_err}")
+    if not torch.equal(got, int16_round_trip(y_card)) or steps.max().item() > 1:
+        fail(f"prepared {what} prime: int16 samples other than the card's own wave truncated, "
+             f"or more than one step from the CPU's ({steps.max().item():.0f} steps)")
+    return want
+
+
+def tower_cost(torch, model, run):
+    """(FLOPs, parameter bytes) of one ``run()`` of ``model``'s modules: the
+    linear, conv and LSTM products and the attention matmuls (HuBERT's
+    Attention, HTSAT's WindowAttention) each forward took, and the
+    parameters of every module that ran, each read once."""
+    from torch import nn
+
+    flops, ran = [0], set()
+
+    def hook(module, inputs, out):
+        ran.add(module)
+        name = type(module).__name__
+        if isinstance(module, nn.Linear):
+            flops[0] += 2 * out.numel() * module.in_features
+        elif isinstance(module, (nn.Conv1d, nn.Conv2d)):
+            flops[0] += 2 * out.numel() * module.weight[0].numel()
+        elif isinstance(module, nn.LSTM):
+            rows = out[0].shape[0] * out[0].shape[1]
+            flops[0] += sum(2 * 4 * module.hidden_size * (w.shape[1] + module.hidden_size) * rows
+                            for w in (getattr(module, f"weight_ih_l{l}") for l in range(module.num_layers)))
+        elif name in ("Attention", "WindowAttention"):  # q k^T and p v
+            b, n, c = inputs[0].shape
+            flops[0] += 4 * b * n * n * c
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in handles:
+            h.remove()
+    params = sum(p.numel() * p.element_size() for m in ran for p in m.parameters(recurse=False))
+    return flops[0], params
+
+
+def audio_prompt_phase(torch, omt_config, mc, dev, card, counters, expect, windows, stream_ms):
+    """Phase 7: audio prompts and reranking. HuBERT (MERT-v0 geometry, a
+    1024 x 768 codebook), the Encodec encoder and HTSAT-tiny (with the audio
+    projection) at full width in float32 on the card against the CPU, each
+    timed beside its bound; MusicLM.generate(prime_wave=10 s at 48 kHz,
+    output_seconds=12) in "int8" at b1 (exactly kernels 1-4), once more with
+    return_coarse_generated_wave; generate_top_match(2 prompts x 4 samples,
+    4 s) in "fused" (exactly kernels 7, 1, 4). Returns the two runs' launches."""
+    from open_musiclm_torch.models.clap.tokenizer import load_tokenizer
+    from open_musiclm_torch.models.hubert import zero_mean_unit_var
+    from open_musiclm_torch.models.musiclm import MusicLM
+    from open_musiclm_torch.models.stages import Stage
+
+    t_phase = time.perf_counter()
+    prime = seeded_prime(7, PRIME_SECONDS, PRIME_HZ)
+    prime_gpu = prime.to(dev)
+
+    # a. HuBERT + k-means, b1 x 10 s at 16 kHz
+    w2v_gpu = omt_config.build_hubert(mc, torch.Generator().manual_seed(41))
+    w2v_cpu = omt_config.build_hubert(mc, torch.Generator().manual_seed(41), device="cpu")
+    # the continuation feeds HuBERT and the encoder the card's own prepared
+    # prime; the towers are compared here on the CPU's
+    wav16 = check_prepared(torch, prime, PRIME_HZ, w2v_cpu.target_sample_hz, True, dev, "HuBERT")
+    with torch.no_grad():
+        raw_cpu = w2v_cpu.model.extract_features(wav16, w2v_cpu.embed_layer)[0]
+        raw_gpu = w2v_gpu.model.extract_features(wav16.to(dev), w2v_gpu.embed_layer)[0].cpu()
+    err = (raw_gpu - raw_cpu).abs().max().item()
+    tol = TOWER_REL * raw_cpu.abs().max().item()
+    print(f"HuBERT (MERT-v0 geometry) layer-{w2v_cpu.embed_layer} features {tuple(raw_cpu.shape)} float32, card vs "
+          f"CPU: max_abs_err {err:.3e} tol {tol:.3e} (max |x| {raw_cpu.abs().max().item():.2f})", flush=True)
+    if not err <= tol:
+        fail(f"HuBERT features differ: {err} > {tol}")
+    x_cpu, x_gpu = zero_mean_unit_var(raw_cpu), zero_mean_unit_var(raw_gpu)
+    ids_cpu, ids_gpu = w2v_cpu(wav16)[0], w2v_gpu(wav16.to(dev))[0].cpu()
+    checked, near = check_off_near_ties(torch, x_cpu, (x_gpu - x_cpu).abs().amax(dim=1), w2v_cpu.centroids[None],
+                                        ids_gpu[:, None], ids_cpu[:, None], "semantic ids")
+    print(f"semantic ids [{len(ids_cpu)}] card vs CPU: {checked} decided and equal, {near} near ties; "
+          f"equal at {int((ids_gpu == ids_cpu).sum())} of {len(ids_cpu)}", flush=True)
+    wav16_d = wav16.to(dev)
+    ms = stream_ms(lambda: w2v_gpu(wav16_d), reps=10)
+    flops, params = tower_cost(torch, w2v_gpu, lambda: w2v_gpu(wav16_d))
+    flops += 2 * len(ids_cpu) * w2v_gpu.centroids.numel()  # the k-means product
+    b_ms, b_by = bound_ms(params + w2v_gpu.centroids.numel() * 4 + wav16.numel() * 4, flops, "float32")
+    print(f"HuBERT + k-means b1 x {PRIME_SECONDS} s (layers 0-{w2v_cpu.embed_layer - 1} run): {ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, {flops / 1e9 / ms:.2f} TFLOP/s) [{card}]", flush=True)
+    del w2v_cpu, raw_cpu, raw_gpu
+
+    # b. the Encodec encoder at 6 kbps, b1 x 10 s at 24 kHz
+    codec = omt_config.build_encodec(mc, torch.Generator().manual_seed(4))
+    codec_cpu = omt_config.build_encodec(mc, torch.Generator().manual_seed(4), device="cpu")
+    wav24 = check_prepared(torch, prime, PRIME_HZ, codec.sample_rate, False, dev, "Encodec")
+    with torch.no_grad():
+        z_cpu = codec_cpu.embed(wav24)
+        z_gpu = codec.embed(wav24.to(dev))
+        codes_cpu = codec_cpu.quantize_embedding(z_cpu)[0]
+        codes_gpu = codec.quantize_embedding(z_gpu)[0].cpu()
+        z_cpu, z_gpu = z_cpu[0], z_gpu[0].cpu()
+    err = (z_gpu - z_cpu).abs().max().item()
+    tol = TOWER_REL * z_cpu.abs().max().item()
+    print(f"Encodec encoder latent {tuple(z_cpu.shape)} float32, card vs CPU: max_abs_err {err:.3e} tol {tol:.3e} "
+          f"(max |z| {z_cpu.abs().max().item():.3f})", flush=True)
+    if not err <= tol:
+        fail(f"Encodec latents differ: {err} > {tol}")
+    checked, near = check_off_near_ties(torch, z_cpu, (z_gpu - z_cpu).abs().amax(dim=1), codec_cpu.codebooks,
+                                        codes_gpu, codes_cpu, "Encodec codes")
+    print(f"Encodec codes {tuple(codes_cpu.shape)} card vs CPU: {checked} positions decided and equal, {near} "
+          f"near-tie positions (or after one); equal at {int((codes_gpu == codes_cpu).sum())} of "
+          f"{codes_cpu.numel()}", flush=True)
+    wav24_d = wav24.to(dev)
+    ms = stream_ms(lambda: codec.encode(wav24_d), reps=5)
+    enc_flops, params = tower_cost(torch, codec.encoder, lambda: codec.embed(wav24_d))
+    enc_flops += 2 * codes_cpu.numel() * codec.codebooks.shape[1] * codec.codebooks.shape[2]
+    b_ms, b_by = bound_ms(params + codec.codebooks.numel() * 4 + wav24.numel() * 4, enc_flops, "float32")
+    print(f"Encodec encode b1 x {PRIME_SECONDS} s ({len(codes_cpu)} LSTM steps a layer, in sequence): {ms:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}; {enc_flops / 1e9:.1f} GFLOP) [{card}]", flush=True)
+    del codec_cpu
+
+    # c. HTSAT-tiny + the audio projection, b8 x 10 s at 48 kHz
+    clap_gpu = omt_config.build_clap(mc, torch.Generator().manual_seed(31))
+    clap_cpu = omt_config.build_clap(mc, torch.Generator().manual_seed(31), device="cpu")
+    clips = torch.cat([seeded_prime(100 + i, 10, clap_cpu.sample_rate) for i in range(8)])
+    emb_cpu = clap_cpu.audio_embedding(clips)
+    emb_gpu = clap_gpu.audio_embedding(clips.to(dev))
+    if emb_gpu.device.type != "cuda" or emb_gpu.shape != (8, 512) or not torch.isfinite(emb_gpu).all():
+        fail(f"audio embedding: {emb_gpu.device} {tuple(emb_gpu.shape)}, want cuda (8, 512), finite")
+    err = (emb_gpu.cpu() - emb_cpu).abs().max().item()
+    print(f"HTSAT-tiny audio embedding b8 x 10 s float32, card vs CPU: max_abs_err {err:.3e} tol {TOWER_ABS:.0e}",
+          flush=True)
+    if not err <= TOWER_ABS:
+        fail(f"audio embeddings differ: {err} > {TOWER_ABS}")
+    del clap_cpu
+    clips_d = clips.to(dev)
+    ms = stream_ms(lambda: clap_gpu.audio_embedding(clips_d), reps=5)
+    model = clap_gpu.model
+    flops, params = tower_cost(torch, model, lambda: model.get_audio_embedding(clips_d))
+    cfg = model.audio_branch.cfg
+    frames = 1 + clips.shape[1] // cfg.hop_size
+    flops += 8 * frames * (2.5 * cfg.window_size_fft * math.log2(cfg.window_size_fft)  # rfft
+                           + 2 * (cfg.window_size_fft // 2 + 1) * cfg.mel_bins)  # mel filterbank
+    b_ms, b_by = bound_ms(params + clips.numel() * 4, flops, "float32")
+    print(f"HTSAT-tiny + projection b8 x 10 s (audio_embedding): {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+          f"{flops / 8e9:.1f} GFLOP a clip, {flops / 1e9 / ms:.2f} TFLOP/s) [{card}]", flush=True)
+
+    # d. continuation, "int8" b1: a 10 s prime at 48 kHz, 12 s out
+    stages = {
+        f"{name}_stage": omt_config.init_stage(
+            mc, name, seed, device=dev, dtype=torch.bfloat16, quantized=True, flash_kv="int8")
+        for name, seed in (("semantic", 1), ("coarse", 2), ("fine", 3))
+    }
+    musiclm = MusicLM(codec=codec, wav2vec=w2v_gpu, **stages)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    clap1 = torch.randint(0, mc.clap_rvq_cfg.codebook_size, (1, mc.clap_rvq_cfg.rq_num_quantizers, 1),
+                          generator=gen, device=dev)
+    hop, ac_hz = codec.hop_length, mc.encodec_cfg.output_hz
+    prime_frames = PRIME_SECONDS * ac_hz
+    # 12 s: semantic 750 tokens, 150 trimmed; 5 coarse windows, 900 frames,
+    # 150 trimmed; 5 batched fine windows of 150; the prime's 750 frames first
+    runs = ((False, (1, (prime_frames + 750) * hop)), (True, (1, 900 * hop)))
+    phase_launches = {}
+    for coarse_only, want_shape in runs:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave = musiclm.generate(clap_token_ids=clap1, generator=gen, prime_wave=prime_gpu,
+                                prime_wave_sample_hz=PRIME_HZ, output_seconds=12.0,
+                                return_coarse_generated_wave=coarse_only, **windows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        tag = "return_coarse_generated_wave" if coarse_only else "the wave"
+        print(f"MusicLM.generate(prime_wave=10 s at 48 kHz, output_seconds=12) flash_kv=int8 b1, {tag}: "
+              f"wave {tuple(wave.shape)} {wall:.2f} s wall (HuBERT and the encoder included) [{card}]", flush=True)
+        if tuple(wave.shape) != want_shape or not torch.isfinite(wave.float()).all():
+            fail(f"continuation ({tag}): waveform {tuple(wave.shape)} (want {want_shape}) or non-finite samples")
+        expect(f"continuation ({tag}), flash_kv=int8", launches,
+               {"prefill_attention", "flash_decode_step", "fused_ff_apply", "int8_matmul"})
+        phase_launches["continuation" + (" (coarse only)" if coarse_only else "")] = launches
+    del musiclm, w2v_gpu
+
+    # e. reranking, "fused": 2 demo-vocabulary prompts x 4 samples, 4 s
+    with tempfile.TemporaryDirectory() as tmp:
+        write_demo_vocab(Path(tmp))
+        tok = load_tokenizer(tmp)
+    fused = {key: Stage(st.model, name=st.name, quantized=True, flash_kv="fused") for key, st in stages.items()}
+    ranker = MusicLM(codec=codec, clap=clap_gpu, tokenizer=tok, **fused)
+    tower_s = [0.0]
+    audio_embedding = clap_gpu.audio_embedding
+
+    def timed_embedding(wav):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = audio_embedding(wav)
+        torch.cuda.synchronize()
+        tower_s[0] += time.perf_counter() - t0
+        return out
+
+    clap_gpu.audio_embedding = timed_embedding
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, sims = ranker.generate_top_match(text=list(PROMPTS[:2]), num_samples=4, generator=gen,
+                                              output_seconds=4.0, **windows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del clap_gpu.audio_embedding
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    print(f"generate_top_match(2 prompts x 4 samples, 4 s) flash_kv=fused: sims "
+          f"{[round(float(x), 5) for sim in sims for x in sim]}, {wall:.2f} s wall, HTSAT (2 calls at b4) "
+          f"{tower_s[0]:.3f} s = {100 * tower_s[0] / wall:.1f} % of it [{card}]", flush=True)
+    for sample, sim in zip(samples, sims):
+        if tuple(sample.shape) != (1, 96000) or tuple(sim.shape) != (1,) or not torch.isfinite(sample.float()).all():
+            fail(f"reranking: sample {tuple(sample.shape)} (want (1, 96000)), sims {tuple(sim.shape)}")
+        if not (sim.abs() <= 1.0 + 1e-6).all():
+            fail(f"reranking: similarity {sim.tolist()} outside [-1, 1]")
+    expect("reranking, flash_kv=fused", launches, {"prefill_attention", "int8_matmul", "fused_layer_decode_step"})
+    phase_launches["reranking"] = launches
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return phase_launches
 
 
 def kernel4_times(root: Path) -> int:

@@ -3,8 +3,9 @@
 The same dataclasses over the unchanged ``configs/model/*.json`` and
 ``configs/training/*.json``; the factories build the port's modules with a
 seeded random init from a ``torch.Generator``, on the card unless the caller
-asks for the CPU (``device="cpu"``). The CLAP's audio tower and HuBERT are
-not ported yet.
+asks for the CPU (``device="cpu"``): the stages, the Encodec codec (encoder
+and decoder), the CLAP (RoBERTa-base and HTSAT) with its RVQ, and HuBERT
+(MERT-v0 geometry) with its k-means codebook.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from typing import List, Optional
 import torch
 
 from .models.clap.clap import CLAP, JOINT_EMBED, ClapQuantized
+from .models.clap.model_configs import audio_config_from_name
 from .models.clap.roberta import RobertaConfig
 from .models.encodec import EncodecModel, create_encodec_24khz
+from .models.hubert import HubertConfig, HubertModel, HubertWithKmeans
 from .models.rvq import RVQState, rvq_init
 from .models.stages import (
     Stage,
@@ -260,8 +263,9 @@ def _target_device(device, caller: str) -> torch.device:
 
 
 def build_encodec(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> EncodecModel:
-    """The Encodec codec (decoder and codebooks) with a seeded random init,
-    drawn in float32 on the CPU, then moved to ``device``."""
+    """The Encodec codec with a seeded random init (the decoder, the
+    codebooks, then the encoder), drawn in float32 on the CPU, then moved to
+    ``device``."""
     device = _target_device(device, "build_encodec")
     return create_encodec_24khz(
         bandwidth=mc.encodec_cfg.bandwidth,
@@ -271,16 +275,36 @@ def build_encodec(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> E
 
 
 def build_clap(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> ClapQuantized:
-    """The CLAP text branch (RoBERTa-base, the text projection) and a
-    ``clap_rvq_cfg.rq_num_quantizers`` x ``codebook_size`` x 512 RVQ, with a
-    seeded random init drawn in float32 on the CPU (the CLAP, then the
-    codebooks), then moved to ``device``, in eval() mode."""
+    """The CLAP (RoBERTa-base and the text projection, then the audio tower
+    of ``clap_rvq_cfg.amodel_type`` / ``enable_fusion`` and the audio
+    projection) and a ``clap_rvq_cfg.rq_num_quantizers`` x ``codebook_size``
+    x 512 RVQ, with a seeded random init drawn in float32 on the CPU (the
+    CLAP, then the codebooks), then moved to ``device``, in eval() mode."""
     device = _target_device(device, "build_clap")
     cfg = mc.clap_rvq_cfg
-    model = CLAP(RobertaConfig(), generator=generator)
+    audio_cfg = audio_config_from_name(cfg.amodel_type, enable_fusion=cfg.enable_fusion)
+    model = CLAP(RobertaConfig(), generator=generator, audio_cfg=audio_cfg)
     rvq = rvq_init(cfg.rq_num_quantizers, cfg.codebook_size, JOINT_EMBED, generator)
     return ClapQuantized(model=model.to(device).eval(), rvq=RVQState(rvq.codebooks.to(device)),
-                         num_quantizers=cfg.rq_num_quantizers, codebook_size=cfg.codebook_size)
+                         num_quantizers=cfg.rq_num_quantizers, codebook_size=cfg.codebook_size,
+                         sample_rate=audio_cfg.sample_rate, clip_samples=audio_cfg.clip_samples)
+
+
+def build_hubert(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> HubertWithKmeans:
+    """HuBERT at the MERT-v0 geometry and a ``hubert_kmeans_cfg.codebook_size``
+    x 768 k-means codebook (N(0, 1)), with a seeded random init drawn in
+    float32 on the CPU (the model, then the codebook), then moved to
+    ``device``, in eval() mode."""
+    device = _target_device(device, "build_hubert")
+    hk = mc.hubert_kmeans_cfg
+    cfg = HubertConfig()
+    model = HubertModel(cfg, generator=generator)
+    centroids = torch.randn(hk.codebook_size, cfg.hidden_size, generator=generator)
+    return HubertWithKmeans(
+        model, centroids, embed_layer=hk.embed_layer, normalize_embeds=hk.normalize_embeds,
+        target_sample_hz=hk.target_sample_hz, seq_len_multiple_of=hk.seq_len_multiple_of,
+        output_hz=hk.output_hz,
+    ).to(device).eval()
 
 
 def init_stage(

@@ -1,13 +1,17 @@
-"""CLAP text branch and the quantized conditioning tokens (port of the text
-side of open_musiclm_tpu/models/clap/clap.py).
+"""CLAP towers and the quantized conditioning tokens (port of
+open_musiclm_tpu/models/clap/clap.py).
 
 ``CLAP.get_text_embedding``: RoBERTa pooler -> ``text_projection`` (Linear,
-ReLU, Linear) -> L2-normalized 512-d joint embedding. ``ClapQuantized``
-quantizes it with the residual VQ into the [B, Q, 1] conditioning tokens
-every stage takes. The ``state_dict`` keys follow the laion CLAP checkpoint
-(``text_branch.*``, ``text_projection.{0,2}``,
-``text_transform.sequential.{0,3}``, ``logit_scale_t``). The audio tower,
-``audio_embedding`` and the RVQ's EMA training are not ported yet.
+ReLU, Linear) -> L2-normalized 512-d joint embedding.
+``CLAP.get_audio_embedding``: HTSAT ``embedding`` -> ``audio_projection`` ->
+L2-normalized joint embedding. ``ClapQuantized`` quantizes an embedding
+with the residual VQ into the [B, Q, 1] conditioning tokens every stage
+takes, and prepares audio as the laion hook does (int16 round trip,
+repeat-pad or crop to 10 s at 48 kHz). The ``state_dict`` keys follow the
+laion CLAP checkpoint (``text_branch.*``, ``audio_branch.*``,
+``{text,audio}_projection.{0,2}``, ``{text,audio}_transform.sequential.{0,3}``,
+``logit_scale_{t,a}``). The fusion tower, PANN and the RVQ's EMA training
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...ops.audio import int16_round_trip
 from ..rvq import RVQState, rvq_encode
+from .htsat import HTSAT, HTSATConfig
 from .roberta import RobertaConfig, RobertaModel, init_normal_
 
 JOINT_EMBED = 512
@@ -52,12 +58,14 @@ class MLPLayers(nn.Module):
 
 
 class CLAP(nn.Module):
-    """The text side of the dual-tower CLAP (RoBERTa-base by default);
-    weights drawn as ``RobertaModel``'s."""
+    """The dual-tower CLAP: RoBERTa-base, and HTSAT when ``audio_cfg`` is
+    given (without it the CLAP has the text side only). The text side's
+    weights are drawn first, as ``RobertaModel``'s, then the audio side's."""
 
     def __init__(self, text_cfg: RobertaConfig = RobertaConfig(), joint_embed_shape: int = JOINT_EMBED,
                  compute_dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 audio_cfg: Optional[HTSATConfig] = None):
         super().__init__()
         self.text_branch = RobertaModel(text_cfg, compute_dtype=compute_dtype, generator=generator)
         self.text_projection = Projection(text_cfg.hidden_size, joint_embed_shape)
@@ -65,6 +73,14 @@ class CLAP(nn.Module):
         self.logit_scale_t = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         init_normal_(self.text_projection, generator)
         init_normal_(self.text_transform, generator)
+        self.audio_branch = None
+        if audio_cfg is not None:
+            self.audio_branch = HTSAT(audio_cfg, generator=generator)
+            self.audio_projection = Projection(audio_cfg.num_features, joint_embed_shape)
+            self.audio_transform = MLPLayers(joint_embed_shape)
+            self.logit_scale_a = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+            init_normal_(self.audio_projection, generator)
+            init_normal_(self.audio_transform, generator)
 
     def get_text_embedding(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """Tokenized [B, T] -> L2-normalized [B, joint] in float32."""
@@ -72,7 +88,24 @@ class CLAP(nn.Module):
         return l2_normalize(self.text_projection(pooled.to(self.text_projection[0].weight.dtype)).float())
 
     def get_audio_embedding(self, wav: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError("the CLAP audio tower is not ported yet")
+        """[B, T] at the tower's rate -> L2-normalized [B, joint] float32."""
+        if self.audio_branch is None:
+            raise ValueError("this CLAP was built without an audio tower (audio_cfg=None)")
+        w = self.audio_projection[0].weight
+        emb = self.audio_branch(wav.to(w.device, w.dtype))["embedding"]
+        return l2_normalize(self.audio_projection(emb).float())
+
+
+def prepare_clap_audio(wav: torch.Tensor, clip_samples: int = 480000) -> torch.Tensor:
+    """Each [B, T] row cropped to its first ``clip_samples``, or repeated
+    whole and zero-padded up to them (the hook's ``repeatpad``)."""
+    T = wav.shape[-1]
+    if T > clip_samples:
+        return wav[..., :clip_samples]
+    if T < clip_samples:
+        wav = wav.repeat(1, clip_samples // T)
+        wav = torch.nn.functional.pad(wav, (0, clip_samples - wav.shape[-1]))
+    return wav
 
 
 def _on(x, device: torch.device) -> torch.Tensor:
@@ -91,6 +124,8 @@ class ClapQuantized:
     rvq: RVQState
     num_quantizers: int = 12
     codebook_size: int = 1024
+    sample_rate: int = 48000
+    clip_samples: int = 480000
 
     @torch.no_grad()
     def text_embedding(self, input_ids, attention_mask) -> torch.Tensor:
@@ -99,8 +134,12 @@ class ClapQuantized:
         device = self.model.logit_scale_t.device
         return self.model.get_text_embedding(_on(input_ids, device), _on(attention_mask, device))
 
-    def audio_embedding(self, wav):
-        raise NotImplementedError("the CLAP audio tower is not ported yet")
+    @torch.no_grad()
+    def audio_embedding(self, wav: torch.Tensor) -> torch.Tensor:
+        """[B, T] at ``sample_rate`` -> [B, joint] float32 on the model's
+        device: int16 round trip, repeat-pad or crop to ``clip_samples``."""
+        wav = prepare_clap_audio(int16_round_trip(wav), self.clip_samples)
+        return self.model.get_audio_embedding(wav)
 
     @torch.no_grad()
     def quantize(self, embedding: torch.Tensor) -> torch.Tensor:
@@ -111,8 +150,8 @@ class ClapQuantized:
     def tokenize_text(self, input_ids, attention_mask) -> torch.Tensor:
         return self.quantize(self.text_embedding(input_ids, attention_mask))
 
-    def tokenize_audio(self, wav):
-        raise NotImplementedError("the CLAP audio tower is not ported yet")
+    def tokenize_audio(self, wav: torch.Tensor) -> torch.Tensor:
+        return self.quantize(self.audio_embedding(wav))
 
     def learn_rvq_step(self, embedding, *args, **kwargs):
         raise NotImplementedError("the RVQ's EMA training is not ported yet")

@@ -1,10 +1,12 @@
-"""Encodec 24 kHz decoder (port of open_musiclm_tpu/models/encodec.py, decode only).
+"""Encodec 24 kHz codec (port of open_musiclm_tpu/models/encodec.py).
 
-SEANet causal conv decoder with a 2-layer LSTM stem: RVQ dequantize ->
-conv_in -> LSTM (frame rate) -> transposed-conv upsampling + resblocks ->
-conv_out (sample rate). Convolutions run on torch's [B, C, T]; the public
-functions keep the JAX layouts ([B, T', n_q] codes, [B, T', C] stem state,
-[B, T] waveform). The encoder is not ported yet.
+Decode: SEANet causal conv decoder with a 2-layer LSTM stem: RVQ dequantize
+-> conv_in -> LSTM (frame rate) -> transposed-conv upsampling + resblocks ->
+conv_out (sample rate). Encode: the SEANet encoder (conv_in, per stage a
+resblock and a strided downsampling conv, LSTM, conv_out) -> latent at the
+frame rate -> residual nearest-code loop over the codebooks. Convolutions
+run on torch's [B, C, T]; the public functions keep the JAX layouts
+([B, T', n_q] codes, [B, T', D] latent and stem state, [B, T] waveform).
 """
 
 from __future__ import annotations
@@ -143,9 +145,38 @@ class SEANetDecoder(nn.Module):
         return self.conv_out(F.elu(h))
 
 
+class SEANetEncoder(nn.Module):
+    def __init__(self, channels: int = 1, dimension: int = 128, n_filters: int = 32,
+                 ratios: Sequence[int] = (8, 5, 4, 2), kernel_size: int = 7,
+                 last_kernel_size: int = 7, residual_kernel_size: int = 3,
+                 compress: int = 2, lstm_layers: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        mult = 1
+        self.conv_in = CausalConv1d(channels, n_filters, kernel_size, generator=generator)
+        self.res = nn.ModuleList()
+        self.downs = nn.ModuleList()
+        for ratio in reversed(tuple(ratios)):
+            self.res.append(SEANetResnetBlock(
+                mult * n_filters, compress, residual_kernel_size, 1, generator=generator))
+            self.downs.append(CausalConv1d(
+                mult * n_filters, mult * n_filters * 2, ratio * 2, stride=ratio, generator=generator))
+            mult *= 2
+        self.lstm = StreamLSTM(mult * n_filters, lstm_layers, generator=generator)
+        self.conv_out = CausalConv1d(mult * n_filters, dimension, last_kernel_size, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, 1, T] -> [B, T', D]
+        h = self.conv_in(x)
+        for res, down in zip(self.res, self.downs):
+            h = down(F.elu(res(h)))
+        h = self.lstm(h.transpose(1, 2)).transpose(1, 2)
+        return self.conv_out(F.elu(h)).transpose(1, 2)
+
+
 class EncodecModel(nn.Module):
-    """Codec decode: [B, T', n_q] codes -> [B, T] waveform. Coarse codes are
-    codes[..., :3], fine codes[..., 3:]."""
+    """Codec: ``encode`` [B, T] waveform -> [B, T', n_q] codes, ``decode``
+    the way back. Coarse codes are codes[..., :3], fine codes[..., 3:]. The
+    encoder's seeded draws come after the decoder's and the codebooks'."""
 
     def __init__(self, sample_rate: int = 24000, channels: int = 1, num_quantizers: int = 8,
                  codebook_size: int = 1024, dimension: int = 128, n_filters: int = 32,
@@ -158,10 +189,31 @@ class EncodecModel(nn.Module):
         with torch.no_grad():
             self.codebooks = nn.Parameter(nn.init.normal_(
                 torch.empty(num_quantizers, codebook_size, dimension), generator=generator))
+        self.encoder = SEANetEncoder(channels, dimension, n_filters, ratios, generator=generator)
 
     @property
     def hop_length(self) -> int:
         return math.prod(self.ratios)
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T] waveform -> latent [B, T', D] (before quantization)."""
+        return self.encoder(x[:, None].to(self.encoder.conv_in.conv.weight.dtype))
+
+    def quantize_embedding(self, z: torch.Tensor) -> torch.Tensor:
+        """[B, T', D] -> int64 codes [B, T', n_q]: at each quantizer the code
+        maximizing ``2 r.c - |c|^2`` (the first on a tie), subtracted from the
+        residual r."""
+        resid, idxs = z, []
+        for cb in self.codebooks.to(z.dtype):
+            idx = torch.argmax(2.0 * resid @ cb.t() - cb.square().sum(-1), dim=-1)
+            resid = resid - cb[idx]
+            idxs.append(idx)
+        return torch.stack(idxs, dim=-1)
+
+    @torch.no_grad()
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T] waveform -> [B, T', n_q] codes."""
+        return self.quantize_embedding(self.embed(x))
 
     def dequantize(self, codes: torch.Tensor) -> torch.Tensor:
         """[B, T', n_q] -> latent [B, T', D]."""

@@ -6,20 +6,27 @@ text -> BPE tokenizer -> CLAP text tower -> RVQ -> 12 conditioning tokens
 overlap) -> coarse stage over 4 s semantic windows (continuing from the
 previous window's last coarse tokens) -> fine stage over 2 s coarse windows
 (non-overlapping windows decode as one batched call) -> Encodec decode.
-Sampling draws come from a generator or from per-row keys. Audio-prompt
-continuation, reranking and multi-device pipelining are not ported yet.
+Sampling draws come from a generator or from per-row keys.
+
+Audio-prompt continuation: a prime wave's HuBERT + k-means semantic ids and
+Encodec codes seed the first window of each stage; the outputs' fronts are
+trimmed and the prime's codes prepended. ``generate_top_match`` reranks
+``num_samples`` generations a prompt by CLAP audio-text similarity.
+Multi-device pipelining is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.sampling import fold_in_rows
+from ..ops.audio import int16_round_trip, prepare_audio, resample
 from .clap.clap import ClapQuantized
 from .encodec import EncodecModel
+from .hubert import HubertWithKmeans
 from .stages import Stage
 
 # Encodec decodes at most this many rows * frames per head call; the stem
@@ -48,7 +55,8 @@ def _gather_span(segments: Sequence[torch.Tensor], start: int, length: int) -> t
 class MusicLM:
     """``clap`` and ``tokenizer`` (any callable giving numpy ``input_ids``
     and ``attention_mask`` for a list of texts) serve text prompts; without
-    them ``generate`` takes precomputed CLAP tokens only."""
+    them ``generate`` takes precomputed CLAP tokens only. ``wav2vec``
+    (HuBERT + k-means) serves audio prompts."""
 
     codec: EncodecModel
     semantic_stage: Stage
@@ -56,6 +64,7 @@ class MusicLM:
     fine_stage: Stage
     clap: Optional[ClapQuantized] = None
     tokenizer: Any = None
+    wav2vec: Optional[HubertWithKmeans] = None
 
     def clap_tokens_from_text(self, text: List[str]) -> torch.Tensor:
         """Texts -> [b, Q, 1] CLAP tokens on the CLAP's device."""
@@ -79,6 +88,24 @@ class MusicLM:
             [self.codec.decode_head(h[i: i + rows]) for i in range(0, b, rows)], dim=0
         )
 
+    def _prime_tokens(self, prime_wave, sample_hz: Optional[int], batch: int, seconds: float):
+        """The prime's first ``seconds``: semantic ids [1, t, 1] (HuBERT +
+        k-means) and Encodec codes [1, t', n_q]."""
+        if sample_hz is None or self.wav2vec is None:
+            raise ValueError("a prime wave needs prime_wave_sample_hz and a wav2vec (HuBERT + k-means)")
+        prime = torch.as_tensor(prime_wave, dtype=torch.float32)
+        if prime.ndim == 1:
+            prime = prime[None]
+        wav_sem = prepare_audio(prime.to(self.wav2vec.centroids.device), sample_hz,
+                                self.wav2vec.target_sample_hz, target_length_seconds=seconds)
+        if wav_sem.shape[0] != batch:
+            raise ValueError(
+                f"continuation takes one prime for one prompt row: the prepared prime has "
+                f"{wav_sem.shape[0]} row(s) (a [C, T] prime is mixed to mono), the prompts {batch}")
+        wav_enc = prepare_audio(prime.to(self.codec.codebooks.device), sample_hz, self.codec.sample_rate,
+                                normalize=False, target_length_seconds=seconds)
+        return self.wav2vec(wav_sem)[..., None], self.codec.encode(wav_enc)
+
     @torch.no_grad()
     def generate(
         self,
@@ -87,12 +114,15 @@ class MusicLM:
         clap_token_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         per_row_keys: Optional[torch.Tensor] = None,
+        prime_wave: Optional[torch.Tensor] = None,
+        prime_wave_sample_hz: Optional[int] = None,
         output_seconds: float = 8,
         semantic_window_seconds: int = 10,
         coarse_window_seconds: int = 4,
         fine_window_seconds: int = 2,
         semantic_steps_per_second: int = 50,
         acoustic_steps_per_second: int = 75,
+        return_coarse_generated_wave: bool = False,
         semantic_sliding_window_step_percent: float = 0.5,
         coarse_sliding_window_step_percent: float = 0.5,
         fine_sliding_window_step_percent: float = 1.0,
@@ -108,7 +138,14 @@ class MusicLM:
         (the stages' device) or, given ``per_row_keys`` ([b] keys of
         ``core.sampling``), row i's from its own key only, whatever the batch
         around it; ``generator`` is then ignored. Each window folds (stage,
-        window) into the keys."""
+        window) into the keys.
+
+        ``prime_wave`` ([T], or [C, T] mixed to mono, at
+        ``prime_wave_sample_hz``) continues a clip: one prime, so one prompt
+        row. The returned wave starts with the prime's first
+        ``semantic_window_seconds`` as Encodec codes. With
+        ``return_coarse_generated_wave`` the coarse windows are decoded
+        alone, untrimmed."""
         if output_seconds < coarse_window_seconds:
             raise ValueError(
                 f"output_seconds={output_seconds} is shorter than the coarse "
@@ -124,11 +161,39 @@ class MusicLM:
         def row_keys(stage: int, window: int) -> Optional[torch.Tensor]:
             return None if per_row_keys is None else fold_in_rows(per_row_keys, stage, window)
 
+        # audio-prompt continuation: the prime's tokens seed each stage's
+        # first window, and the front trims drop what the prime covers
+        cond_semantic = cond_coarse = cond_fine = prime_codes = None
+        semantic_adj = coarse_adj = fine_adj = 0
+        if prime_wave is not None:
+            sem_ids, prime_codes = self._prime_tokens(prime_wave, prime_wave_sample_hz, b,
+                                                      semantic_window_seconds)
+            n_coarse = self.coarse_stage.model.specs[-1].num_quantizers
+            sem_carry = int(semantic_steps_per_second * semantic_window_seconds
+                            * (1 - semantic_sliding_window_step_percent))
+            coarse_carry = int(acoustic_steps_per_second * coarse_window_seconds
+                               * (1 - coarse_sliding_window_step_percent))
+            fine_carry = int(acoustic_steps_per_second * fine_window_seconds
+                             * (1 - fine_sliding_window_step_percent))
+            cond_semantic = sem_ids[:, -sem_carry:] if sem_ids.shape[1] >= sem_carry else sem_ids
+            cond_coarse = prime_codes[:, -coarse_carry:, :n_coarse]
+            cond_fine = prime_codes[:, -fine_carry:, n_coarse:] if fine_carry > 0 else None
+            semantic_adj = sem_carry - int(semantic_steps_per_second * coarse_window_seconds
+                                           * (1 - coarse_sliding_window_step_percent))
+            coarse_adj = coarse_carry - int(acoustic_steps_per_second * fine_window_seconds
+                                            * (1 - fine_sliding_window_step_percent))
+            fine_adj = fine_carry
+
+        def front(total: int, adj: int) -> int:
+            """Where a trimmed output starts: ``x[:, adj:]`` for either sign."""
+            return adj if adj >= 0 else max(total + adj, 0)
+
         # ---- semantic stage: sliding-window AR ----
         first_T = int(min(output_seconds, semantic_window_seconds) * semantic_steps_per_second)
         sem_kw = dict(temperature=semantic_temperature, filter_thres=semantic_filter_thres)
         sem_segments = [
             self.semantic_stage.generate([clap], generator, max_time_steps=first_T,
+                                         init_pred_ids=cond_semantic,
                                          per_row_keys=row_keys(0, 0), **sem_kw)
         ]
         sem_total = first_T
@@ -144,27 +209,32 @@ class MusicLM:
             )
             sem_segments.append(cont[:, cond_len:])
             sem_total += cont.shape[1] - cond_len
+        sem_start = front(sem_total, semantic_adj)
 
         # ---- coarse stage over semantic windows ----
         window = int(coarse_window_seconds * semantic_steps_per_second - 1)
         step = int(window * coarse_sliding_window_step_percent)
-        n_coarse_windows = (sem_total - window) // step + 1
+        n_coarse_windows = (sem_total - sem_start - window) // step + 1
         coarse_T = int(coarse_window_seconds * acoustic_steps_per_second)
         coarse_cond_len = int(coarse_window_seconds * acoustic_steps_per_second
                               * (1 - coarse_sliding_window_step_percent))
         coarse_segments = []
         prev_pred = None
         for wi in range(n_coarse_windows):
-            init = None
-            if prev_pred is not None and coarse_cond_len > 0:
-                init = prev_pred[:, -coarse_cond_len:]
+            init = cond_coarse
+            if prev_pred is not None:
+                init = prev_pred[:, -coarse_cond_len:] if coarse_cond_len > 0 else None
             prev_pred = self.coarse_stage.generate(
-                [clap, _gather_span(sem_segments, wi * step, window)], generator,
+                [clap, _gather_span(sem_segments, sem_start + wi * step, window)], generator,
                 max_time_steps=coarse_T, init_pred_ids=init, per_row_keys=row_keys(1, wi),
                 temperature=coarse_temperature, filter_thres=coarse_filter_thres,
             )  # [b, coarse_T, n_coarse]
             coarse_segments.append(prev_pred if wi == 0 else prev_pred[:, coarse_cond_len:])
-        coarse_len = sum(s.shape[1] for s in coarse_segments)
+        coarse_total = sum(s.shape[1] for s in coarse_segments)
+        if return_coarse_generated_wave:
+            return self._decode(torch.cat(coarse_segments, dim=1).to(self.codec.codebooks.device))
+        coarse_start = front(coarse_total, coarse_adj)
+        coarse_len = coarse_total - coarse_start
 
         # ---- fine stage over coarse windows ----
         fine_window = int(fine_window_seconds * acoustic_steps_per_second)
@@ -175,9 +245,9 @@ class MusicLM:
                        filter_thres=fine_filter_thres)
 
         def coarse_win(wj: int) -> torch.Tensor:
-            return _gather_span(coarse_segments, wj * fine_step, fine_window)
+            return _gather_span(coarse_segments, coarse_start + wj * fine_step, fine_window)
 
-        if fine_cond_len == 0 and n_windows > 1:
+        if fine_cond_len == 0 and cond_fine is None and n_windows > 1:
             # non-overlapping windows are independent given coarse + clap: one
             # batched decode of [windows * b] rows, capped at MAX_FINE_ROWS
             win_per_call = max(1, MAX_FINE_ROWS // max(b, 1))
@@ -198,9 +268,9 @@ class MusicLM:
             fine = None
             prev_fine = None
             for wi in range(n_windows):
-                init = None
-                if prev_fine is not None and fine_cond_len > 0:
-                    init = prev_fine[:, -fine_cond_len:]
+                init = cond_fine
+                if prev_fine is not None:
+                    init = prev_fine[:, -fine_cond_len:] if fine_cond_len > 0 else None
                 prev_fine = self.fine_stage.generate(
                     [clap, coarse_win(wi)], generator, init_pred_ids=init,
                     per_row_keys=row_keys(2, wi), **fine_kw
@@ -208,7 +278,53 @@ class MusicLM:
                 fine = prev_fine if fine is None else torch.cat(
                     [fine, prev_fine[:, fine_cond_len:]], dim=1)
 
-        coarse = _gather_span(coarse_segments, 0, coarse_len).to(fine.device)
+        fine = fine[:, fine_adj:]
+        coarse = _gather_span(coarse_segments, coarse_start, coarse_len).to(fine.device)
+        if prime_codes is not None:  # the prime's own codes come first
+            n_coarse = coarse.shape[-1]
+            fine = torch.cat([prime_codes[..., n_coarse:].to(fine.device), fine], dim=1)
+            coarse = torch.cat([prime_codes[..., :n_coarse].to(fine.device), coarse], dim=1)
         T = min(coarse.shape[1], fine.shape[1])  # unfold may drop a partial window
         acoustic = torch.cat([coarse[:, :T], fine[:, :T]], dim=-1)
         return self._decode(acoustic.to(self.codec.codebooks.device))
+
+    @torch.no_grad()
+    def generate_top_match(
+        self,
+        *,
+        text: List[str],
+        num_samples: int = 4,
+        num_top_matches: int = 1,
+        generator: Optional[torch.Generator] = None,
+        per_row_keys: Optional[torch.Tensor] = None,
+        **kwargs,
+    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Per prompt, ``num_samples`` generations ranked by the cosine
+        similarity of their CLAP audio embedding to the prompt's text
+        embedding: ([num_top_matches, samples] waves, [num_top_matches]
+        similarities) a prompt, best first (ties: the lower sample index).
+        ``per_row_keys`` holds ``len(text) * num_samples`` keys, prompt i's
+        samples at rows ``i * num_samples`` on; ``kwargs`` go to ``generate``."""
+        if self.clap is None or self.tokenizer is None:
+            raise ValueError("generate_top_match needs a CLAP with its audio tower and a tokenizer")
+        if per_row_keys is not None and per_row_keys.shape[0] != len(text) * num_samples:
+            raise ValueError(f"per_row_keys: {per_row_keys.shape[0]} keys for "
+                             f"{len(text)} prompts x {num_samples} samples")
+        all_samples, all_sims = [], []
+        for pi, prompt in enumerate(text):
+            enc = self.tokenizer([prompt])
+            text_latent = self.clap.text_embedding(enc["input_ids"], enc["attention_mask"])  # [1, joint]
+            clap_tokens = self.clap.quantize(text_latent).repeat_interleave(num_samples, dim=0)
+            keys = None if per_row_keys is None else per_row_keys[pi * num_samples:(pi + 1) * num_samples]
+            waves = self.generate(clap_token_ids=clap_tokens, generator=generator, per_row_keys=keys,
+                                  **kwargs)  # [num_samples, T]
+            clap_in = int16_round_trip(resample(waves.float(), self.codec.sample_rate, self.clap.sample_rate))
+            audio_latents = self.clap.audio_embedding(clap_in)  # [num_samples, joint]
+            text_latent = text_latent.to(audio_latents.device)
+            sim = (audio_latents * text_latent).sum(-1) / (
+                torch.linalg.vector_norm(audio_latents, dim=-1)
+                * torch.linalg.vector_norm(text_latent, dim=-1) + 1e-12)
+            top = torch.sort(sim, descending=True, stable=True).indices[:num_top_matches]
+            all_sims.append(sim[top])
+            all_samples.append(waves[top.to(waves.device)])
+        return all_samples, all_sims

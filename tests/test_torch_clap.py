@@ -334,12 +334,26 @@ def test_build_clap(monkeypatch):
 
 
 def test_unported_clap_paths_raise():
+    """What is still unported raises NotImplementedError: the RVQ's EMA
+    training, the fusion CLAP (musiclm_large), the PANN towers and the
+    HTSAT presets other than HTSAT-tiny; a CLAP built without an audio tower
+    refuses audio."""
+    from open_musiclm_torch import config as tconfig
+    from open_musiclm_torch.models.clap.htsat import HTSATConfig
+    from open_musiclm_torch.models.clap.model_configs import audio_config_from_name
+
     _, _, model = _clap_pair()
     clap = ClapQuantized(model=model, rvq=rvq_state(j_rvq_init(N_CLAP_Q, CB, 16, jax.random.PRNGKey(0))))
-    for call in (lambda: clap.audio_embedding(torch.zeros(1, 8)), lambda: clap.tokenize_audio(torch.zeros(1, 8)),
-                 lambda: clap.learn_rvq_step(torch.zeros(1, 16)), lambda: model.get_audio_embedding(None)):
+    mc = tconfig.load_model_config(str(Path(__file__).resolve().parents[1] / "configs/model/musiclm_small.json"))
+    pann = dataclasses.replace(mc, clap_rvq_cfg=dataclasses.replace(mc.clap_rvq_cfg, amodel_type="PANN-14"))
+    for call in (lambda: clap.learn_rvq_step(torch.zeros(1, 16)),
+                 lambda: CLAP(TEXT_CFG, audio_cfg=HTSATConfig(enable_fusion=True)),
+                 lambda: tconfig.build_clap(pann, device="cpu"),
+                 lambda: audio_config_from_name("HTSAT-base")):
         with pytest.raises(NotImplementedError):
             call()
+    with pytest.raises(ValueError, match="audio tower"):
+        clap.audio_embedding(torch.zeros(1, 8))
 
 
 def test_text_path_imports_no_jax():

@@ -62,7 +62,10 @@ def port_codec(jcodec, jparams) -> EncodecModel:
         codebook_size=jcodec.codebook_size, dimension=jcodec.dimension,
         n_filters=jcodec.n_filters, ratios=jcodec.ratios,
     )
-    codec.load_state_dict(codec_state_dict(jax.device_get(jparams), len(jcodec.ratios)))
+    missing, unexpected = codec.load_state_dict(
+        codec_state_dict(jax.device_get(jparams), len(jcodec.ratios)), strict=False)
+    # params initialised through decode alone have no encoder
+    assert not unexpected and all(k.startswith("encoder.") for k in missing)
     return codec.eval()
 
 
