@@ -75,6 +75,20 @@ Phases, each of which fails the run:
      kernels 1-4), once more with return_coarse_generated_wave; and
      generate_top_match(2 prompts x 4 samples, 4 s) in "fused" (sims in
      [-1, 1], exactly kernels 7, 1 and 4; its wall and HTSAT's share).
+  8. musiclm_large: musiclm_large_small_context (24 layers x 16 heads x
+     dim 1024, random weights from a seed) built through
+     load.create_musiclm_from_config on the card in float32; its semantic
+     stage written as a reference-layout .pt and read back equal through
+     load.load_stage_params; 24 teacher-forced decode steps of each stage
+     in the fp decode (kernel 1), "int8" (kernels 1-4) and "fused" (kernels
+     1, 4, 7) against the CPU plain path (phase 3's limits); generate(text=1
+     prompt) in "fused" at b1 x 4 s (exactly kernels 1, 4 and 7, kernel 7
+     24 times a decode step); musiclm_large's fusion CLAP (HTSAT-tiny with
+     the AFF patch fusion) + projection at b4 x 30 s on the card against
+     the CPU; python -m open_musiclm_torch.cli.infer --int8 --flash_kv int8
+     --duration 4 at musiclm_small, which must write a 4 s wav. Phase 2
+     also holds kernels 1, 2, 5 and 6 at 16 heads, and kernels 2 and 7 over
+     musiclm_large's 2,816-row coarse cache.
 
 Times a call, two readings of each kernel and library call:
   ms         stream time: CUDA events around 20 calls as the host launches
@@ -126,6 +140,10 @@ TOL_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
+
+# musiclm_large's coarse cache: a 10 s window's 2,766 rows (12 + 1 CLAP,
+# 499 + 1 semantic, 3 start tokens, 2,250 coarse steps) padded to 256-row chunks
+LARGE_N = 2816
 
 # kernel 4's cases (name, rows, K, N): the logit head at the decode batch
 # (b 8), the fine stage's rows (b 14: batch 2 x 7 windows; b 16), b 64 and
@@ -428,9 +446,13 @@ def main() -> int:
     #    the continuation's semantic first window with the prime's 250 tokens
     #    (b 1, n 265), its first coarse window (b 1, n 666) and its 5 fine
     #    windows (b 5, n 467), the reranking's coarse windows (b 4, n 216)
-    for b, n in ((8, 216), (2, 666), (16, 467), (1, 265), (1, 666), (5, 467), (4, 216)):
-        ins = dict(q=attention.l2norm(rand(b, H, n, D)), k=attention.l2norm(rand(b, n, D)),
-                   v=rand(b, n, D), attn_bias=rand(H, n, n))
+    #    musiclm_large's 16 heads (phase 8): the first coarse window of
+    #    musiclm_large_small_context (b 1 and 8, n 216) and musiclm_large's
+    #    10 s coarse window (b 1, n 516)
+    for b, n, h in ((8, 216, H), (2, 666, H), (16, 467, H), (1, 265, H), (1, 666, H), (5, 467, H), (4, 216, H),
+                    (1, 216, 16), (8, 216, 16), (1, 516, 16)):
+        ins = dict(q=attention.l2norm(rand(b, h, n, D)), k=attention.l2norm(rand(b, n, D)),
+                   v=rand(b, n, D), attn_bias=rand(h, n, n))
         for dt in (torch.bfloat16, torch.float32):
             def summary(low, out, b=b, n=n):
                 mask = causal_float_mask(low["attn_bias"], None, n, n, low["q"].dtype)
@@ -441,11 +463,11 @@ def main() -> int:
                 return (nbytes(low["q"], low["k"], low["v"], low["attn_bias"], out),
                         4 * D * pairs, lib)
 
-            check("prefill_attention", f"b{b} n{n}", dt,
+            check("prefill_attention", f"b{b} n{n}" + ("" if h == H else f" h{h}"), dt,
                   lambda q, k, v, attn_bias: attention.shared_kv_attention_fused(q, k, v, attn_bias),
                   lambda q, k, v, attn_bias: attention.shared_kv_attention(
                       q, k, v, attn_bias=attn_bias, causal=True),
-                  ins, summary=summary if (b, n, dt) == (8, 216, torch.bfloat16) else None)
+                  ins, summary=summary if (b, n, h, dt) == (8, 216, H, torch.bfloat16) else None)
     # 2. flash decode: the coarse / fine cache (N 1280) at b 8, 2 and 16 (the
     #    bench's batch, one long request, the fine stage's windows) and pos 0,
     #    100, 700 and 1279 (one split to 20), with int8, activation-dtype and
@@ -493,6 +515,29 @@ def main() -> int:
                           keep_f32=("bias_row", "add_mask") + (("kv_cache",) if mode == "f32" else ()),
                           summary=summary if (b, mode, pos, dt) == (8, "bf16", N - 1, torch.bfloat16) else None,
                           library=(lambda low, lib_ms=lib_ms: lib_ms) if dt == torch.bfloat16 else None)
+    # 2 at musiclm_large's shapes (phase 8): 16 heads over the 1280-row cache,
+    #    and the 2,816-row cache of its 10 s coarse window (2,766 live rows:
+    #    12 + 1 CLAP, 499 + 1 semantic, 3 start tokens, 2,250 coarse steps)
+    #    at its last live row, at b 1 (one request) and b 8
+    for b, h, n_cache, pos in ((8, 16, N, N - 1), (1, 16, LARGE_N, LARGE_N - 51), (8, 16, LARGE_N, LARGE_N - 51)):
+        k, v = attention.l2norm(rand(b, n_cache, D)), rand(b, n_cache, D)
+        kq, ks = decode_attention.quantize_kv_row(k)
+        vq, vs = decode_attention.quantize_kv_row(v)
+        caches = {"int8": (torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous()),
+                  "bf16": (torch.cat([k, v], -1).contiguous(), None),
+                  "f32": (torch.cat([k, v], -1).contiguous(), None)}
+        ins = dict(q_t=attention.l2norm(rand(b, h, D)), bias_row=rand(n_cache, h),
+                   add_mask=torch.zeros(b, n_cache, device=dev))
+        for mode, (kv, sc) in caches.items():
+            for dt in (torch.bfloat16, torch.float32):
+                check("flash_decode_step", f"{mode} b{b} N{n_cache} pos{pos} h{h}", dt,
+                      lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
+                          decode_attention.flash_decode_step(q_t, kv_cache, pos, bias_row, add_mask, sc),
+                      lambda q_t, kv_cache, bias_row, add_mask, pos=pos, sc=sc:
+                          decode_attention.flash_decode_step_plain(q_t, kv_cache, pos, bias_row, add_mask, sc),
+                      dict(ins, kv_cache=kv),
+                      keep_f32=("bias_row", "add_mask") + (("kv_cache",) if mode == "f32" else ()))
+        del k, v, kq, vq, caches, ins
     # 3. fused FF: the fine stage's rows at batch 8 (2 windows x 8), batch 8,
     #    and phase 7's continuation rows (b 5 fine windows, b 1)
     from open_musiclm_torch.models.transformer import ConvFeedForward
@@ -602,14 +647,17 @@ def main() -> int:
               f"{plan.stage_off}, staging {4 * plan.stage_floats} B, partials {4 * plan.part_floats} B), "
               f"weights {sum(held) / 1e6:.2f} MB", flush=True)
 
-    for heads, cases in ((H, ((8, 100), (8, N - 1), (14, N - 1), (3, 700), (8, 0), (4, 100), (4, N - 1))),
-                         (16, ((8, N - 1),))):
+    #    Then musiclm_large's coarse cache (2,816 rows) at its last live row,
+    #    b 1 and 8 (phase 8).
+    for heads, cases in ((H, ((8, 100, N), (8, N - 1, N), (14, N - 1, N), (3, 700, N), (8, 0, N), (4, 100, N),
+                              (4, N - 1, N))),
+                         (16, ((8, N - 1, N), (1, LARGE_N - 51, LARGE_N), (8, LARGE_N - 51, LARGE_N)))):
         layer_model = layer_model_of(heads)
         layer_plan_line(heads)
         lpacked = fused_layer.pack_layer_weights(layer_model.transformer.attns[0], layer_model.transformer.ffs[0])
         two_model = copy.deepcopy(layer_model).to(torch.bfloat16)
         two_qp = {"ff_0": {"packed": fused_ff.pack_ff_weights(layer_model.transformer.ffs[0])}}
-        for b, pos in cases:
+        for b, pos, N in cases:
             kq, ks = decode_attention.quantize_kv_row(attention.l2norm(rand(b, N, D)))
             vq, vs = decode_attention.quantize_kv_row(rand(b, N, D))
             kv, sc = torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous()
@@ -746,6 +794,30 @@ def main() -> int:
                        (ms56f[0] - ms5f[0], ms56f[1] - ms5f[1]), plain_ms)
                 del out_f, stats_f, args_f, got_f, want_f
             del out, stats, want_out, want_stats, args, want, got
+    # 5 and 6 at musiclm_large's 16 heads: its coarse training shape (b 2, n
+    # 1116 in musiclm_large_small_context), bf16 with the key mask
+    b, n, h = 2, 1116, 16
+    q, k = attention.l2norm(rand(b, h, n, D)) * 1.5, attention.l2norm(rand(b, n, D)) * 1.5
+    v, dout, bias = rand(b, n, D), rand(b, n, h * D), rand(h, n, n)
+    q, k, v, dout, bias = (t.to(torch.bfloat16) for t in (q, k, v, dout, bias))
+    key_mask = (torch.rand(b, n, generator=g) > 0.15).to(dev)
+    key_mask[:, 0] = True
+    out, stats = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
+    args = (q, k, v, bias, key_mask, out, stats, dout)
+    want = attention.shared_kv_attention_bwd_plain(
+        q.float(), k.float(), v.float(), dout.float(), attn_bias=bias.float(), key_mask=key_mask)
+    got = bwd(*args)
+    torch.cuda.synchronize()
+    ms5, ms56 = both_ms(lambda: bwd(*args, dbias=False)), both_ms(lambda: bwd(*args))
+    plain_ms = time_ms(lambda: attention.shared_kv_attention_bwd_plain(
+        q, k, v, dout, attn_bias=bias, key_mask=key_mask), reps=5)
+    label = f"coarse b{b} n{n} mask h{h}"
+    report("attention_bwd", label, torch.bfloat16,
+           *compare("attention_bwd", label, torch.bfloat16, got[:3], want[:3]), ms5, plain_ms)
+    report("attention_dbias", label, torch.bfloat16,
+           *compare("attention_dbias", label, torch.bfloat16, got[3], want[3]),
+           (ms56[0] - ms5[0], ms56[1] - ms5[1]), plain_ms)
+    del q, k, v, dout, bias, out, stats, args, want, got
     print("  (plain ms of attention_bwd / attention_dbias: one plain backward computing "
           "dq, dk, dv and dbias together)")
     timer.release()  # frees the L2 flush buffer before the phases that read peak memory
@@ -930,6 +1002,11 @@ def main() -> int:
     # ---- 7. audio prompts and reranking ----
     audio_launches = audio_prompt_phase(torch, omt_config, mc, dev, card, counters, expect, windows, time_ms)
     print(json.dumps({"phase7_launches": audio_launches}))
+    torch.cuda.empty_cache()
+
+    # ---- 8. musiclm_large: loading, 24 x 16 stages, the fusion CLAP, the CLI ----
+    large_launches = large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms)
+    print(json.dumps({"phase8_launches": large_launches}))
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
@@ -1813,6 +1890,188 @@ def audio_prompt_phase(torch, omt_config, mc, dev, card, counters, expect, windo
     phase_launches["reranking"] = launches
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return phase_launches
+
+
+def reference_stage_state_dict(model) -> dict:
+    """A port stage's weights in the reference TokenConditionedTransformer
+    layout (``embeddings.{i}``, ``logit_weights.{i}``,
+    ``transformer.layers.{l}.0`` / ``.2``, ``rel_pos_bias.net.{j}``, the
+    conv-FF's ``ds_conv`` [C, 1, 3]): what import_torch reads back."""
+    sd, out = model.state_dict(), {}
+    for i in range(len(model.specs)):
+        out[f"start_tokens.{i}"] = sd["start_tokens"][i]
+        out[f"embeddings.{i}.weight"] = sd[f"embeds.{i}.weight"]
+        out[f"logit_weights.{i}"] = sd[f"logit_heads.{i}"]
+    rp = "transformer.rel_pos_bias."
+    n_mid = sum(1 for k in sd if k.startswith(rp + "mid_layers.") and k.endswith(".weight"))
+    names = [("in_layer", "net.0.0")] + [(f"mid_layers.{j}", f"net.{j + 1}.0") for j in range(n_mid)]
+    for port, ref in names + [("out_layer", f"net.{n_mid + 1}")]:
+        for w in ("weight", "bias"):
+            out[f"{rp}{ref}.{w}"] = sd[f"{rp}{port}.{w}"]
+    for l in range(model.depth):
+        a, f, ra, rf = f"transformer.attns.{l}.", f"transformer.ffs.{l}.", f"transformer.layers.{l}.0.", \
+            f"transformer.layers.{l}.2."
+        for name in ("norm.gamma", "to_q.weight", "to_kv.weight", "q_scale", "k_scale"):
+            out[ra + name] = sd[a + name]
+        out[ra + "to_out.0.weight"] = sd[a + "to_out.weight"]
+        out[rf + "0.gamma"], out[rf + "1.weight"] = sd[f + "norm_in.gamma"], sd[f + "proj_in.weight"]
+        out[rf + "2.ds_conv.weight"] = sd[f + "conv_w"].t()[:, None, :].contiguous()
+        out[rf + "4.gamma"], out[rf + "6.weight"] = sd[f + "norm_mid.gamma"], sd[f + "proj_out.weight"]
+    out["transformer.norm.gamma"] = sd["transformer.final_norm.gamma"]
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms):
+    """Phase 8: musiclm_large_small_context (24 layers x 16 heads x dim 1024)
+    through load.create_musiclm_from_config at full width in float32: a
+    reference-layout .pt of its semantic stage read back equal; 24
+    teacher-forced decode steps of each stage in the fp decode, "int8" and
+    "fused" against the CPU; generate(text) in "fused" at b1 x 4 s; the fusion
+    CLAP of musiclm_large at b4 x 30 s against the CPU; the infer CLI at
+    musiclm_small. Returns the launches of the generate call."""
+    from open_musiclm_torch import load
+    from open_musiclm_torch.models import token_cond
+    from open_musiclm_torch.models.musiclm import MusicLM
+    from open_musiclm_torch.models.quant_decode import generate_quantized, quantize_stage_params
+    from open_musiclm_torch.models.stages import Stage
+
+    t_phase = time.perf_counter()
+    mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_large_small_context.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_demo_vocab(tmp)
+        # (a) the whole model from the config, seeded
+        t0 = time.perf_counter()
+        musiclm = load.create_musiclm_from_config(mc, tokenizer_path=str(tmp), seed=8, device=dev)
+        torch.cuda.synchronize()
+        stages = {name: getattr(musiclm, f"{name}_stage") for name in ("semantic", "coarse", "fine")}
+        n_stage = [sum(p.numel() for p in st.model.parameters()) for st in stages.values()]
+        print(f"phase 8: musiclm_large_small_context built in {time.perf_counter() - t0:.1f} s: stages "
+              f"{[st.model.depth for st in stages.values()]} layers x {mc.semantic_cfg.heads} heads x dim "
+              f"{mc.semantic_cfg.dim}, {[round(n / 1e6, 1) for n in n_stage]} M parameters "
+              f"({4 * sum(n_stage) / 1e9:.2f} GB float32), peak mem "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+        sem = stages["semantic"].model
+        ref_path = tmp / "semantic_reference.pt"
+        torch.save(reference_stage_state_dict(sem), ref_path)
+        back, own = load.load_stage_params(str(ref_path), sem), sem.state_dict()
+        if sorted(back) != sorted(own) or not all(torch.equal(back[k], own[k].cpu()) for k in own):
+            fail("phase 8: the semantic stage read back from its reference-layout .pt differs")
+        first = [k for k in own if k.startswith(("transformer.attns.0.", "transformer.ffs.0."))]
+        print(f"  reference-layout .pt ({ref_path.stat().st_size / 1e9:.2f} GB) read back through "
+              f"load.load_stage_params: the first block's {len(first)} tensors and all {len(own)} equal")
+        del back, own
+        ref_path.unlink()
+
+        # (b) teacher-forced logits of each 24-layer stage, card vs CPU
+        g = torch.Generator().manual_seed(81)
+        for name, st in stages.items():
+            model, specs = st.model, st.model.specs
+            cpu_model = copy.deepcopy(model).cpu()
+            qp_cpu = quantize_stage_params(cpu_model, fused=True)
+            qp_gpu = to_device(qp_cpu, dev)
+            prefix = {"semantic": (12,), "coarse": (12, 20), "fine": (12, 30)}[name]
+            cond = [torch.randint(0, spec.codebook_size, (2, n), generator=g) for spec, n in zip(specs, prefix)]
+            q_last = specs[-1].num_quantizers
+            T = -(-24 // q_last)
+            teacher = torch.randint(0, specs[-1].codebook_size, (2, T, q_last), generator=g)
+            for mode, rel, path in (("fp", 1e-4, {"prefill_attention"}),
+                                    ("int8", 1e-2, {"prefill_attention", "flash_decode_step", "fused_ff_apply",
+                                                    "int8_matmul"}),
+                                    ("fused", 1e-2, {"prefill_attention", "int8_matmul",
+                                                     "fused_layer_decode_step"})):
+                kw = dict(max_time_steps=T, temperature=0.0, teacher_ids=teacher, return_logits=True)
+                gpu_cond = [c.to(dev) for c in cond]
+                for fn, attr in counters.values():
+                    setattr(fn, attr, 0)
+                if mode == "fp":
+                    _, got = token_cond.generate(model, gpu_cond, **kw)
+                    launches = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+                    _, want = token_cond.generate(cpu_model, cond, **kw)
+                else:
+                    kw.update(flash_kv=mode, fused_ff=True)
+                    _, got = generate_quantized(model, qp_gpu, gpu_cond, **kw)
+                    launches = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+                    _, want = generate_quantized(cpu_model, qp_cpu, cond, **kw)
+                got, want = got.cpu()[..., :-1], want[..., :-1]  # the EOS column is -1e9 on both
+                err = (got - want).abs().max().item()
+                tol = rel * max(1.0, want.abs().max().item())
+                print(f"  {name} stage ({model.depth} x {model.heads} heads) f32 b2, {T * q_last} teacher-forced "
+                      f"steps, {mode}: CUDA vs CPU plain logits max_abs_err {err:.3e} tol {tol:.3e}", flush=True)
+                if not err <= tol:
+                    fail(f"phase 8: {name} {mode} logits differ: {err} > {tol}")
+                expect(f"phase 8 {name} {mode}", launches, path)
+            del cpu_model, qp_cpu, qp_gpu
+
+        # (c) text to waveform in "fused" at b1 x 4 s
+        fused = MusicLM(codec=musiclm.codec, clap=musiclm.clap, tokenizer=musiclm.tokenizer,
+                        wav2vec=musiclm.wav2vec,
+                        **{f"{n}_stage": Stage(st.model, name=n, quantized=True, flash_kv="fused")
+                           for n, st in stages.items()})
+        gen = torch.Generator(device=dev).manual_seed(8)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave = fused.generate(text=[PROMPTS[0]], generator=gen, output_seconds=4.0, **windows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+        print(f"  MusicLM.generate(text=1 prompt) fused, musiclm_large_small_context float32, batch 1 x 4 s: "
+              f"wave {tuple(wave.shape)} {wall:.2f} s wall [{card}]", flush=True)
+        if tuple(wave.shape) != (1, 96000) or not torch.isfinite(wave.float()).all():
+            fail(f"phase 8: fused generate gave {tuple(wave.shape)} or non-finite samples")
+        expect("phase 8 generate fused", launches, {"prefill_attention", "int8_matmul", "fused_layer_decode_step"})
+        depth = stages["semantic"].model.depth
+        if launches["fused_layer_decode_step"] != depth * launches["int8_matmul"]:
+            fail(f"phase 8: kernel 7 launched {launches['fused_layer_decode_step']} times, "
+                 f"want {depth} x {launches['int8_matmul']}")
+        del fused, musiclm, stages, sem, wave
+        torch.cuda.empty_cache()
+
+        # (d) musiclm_large's fusion CLAP: the fusion HTSAT + projection at b4 x 30 s
+        mc_large = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_large.json"))
+        clap = omt_config.build_clap(mc_large, torch.Generator().manual_seed(9), device="cpu")
+        gpu_model = copy.deepcopy(clap.model).to(dev)
+        seconds = mc_large.global_cfg.clap_audio_length_seconds
+        wav = torch.cat([seeded_prime(90 + i, seconds, clap.sample_rate) for i in range(4)])
+        with torch.no_grad():
+            want = clap.model.get_audio_embedding(wav)
+            wav_gpu = wav.to(dev)
+            got = gpu_model.get_audio_embedding(wav_gpu).cpu()
+            ms = time_ms(lambda: gpu_model.get_audio_embedding(wav_gpu), reps=5)
+        err = (got - want).abs().max().item()
+        print(f"  fusion CLAP (musiclm_large: HTSAT-tiny, AFF, mel_conv2d) + projection, b4 x {seconds:.0f} s "
+              f"at {clap.sample_rate} Hz (longer: all): card vs CPU f32 embeddings max_abs_err {err:.3e} tol "
+              f"{TOWER_ABS:.1e}; {ms:.3f} ms a call on the card [{card}]", flush=True)
+        if not (err <= TOWER_ABS and torch.isfinite(got).all()):
+            fail(f"phase 8: fusion CLAP embeddings differ: {err}")
+        del clap, gpu_model, wav_gpu
+        torch.cuda.empty_cache()
+
+        # (e) the infer CLI, musiclm_small in "int8"
+        out_dir = tmp / "cli"
+        cmd = [sys.executable, "-m", f"{PACKAGE}.cli.infer", PROMPTS[1], "--model_config",
+               str(ROOT / "configs" / "model" / "musiclm_small.json"), "--int8", "--flash_kv", "int8",
+               "--duration", "4", "--tokenizer_path", str(tmp), "--results_folder", str(out_dir)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"phase 8: the infer CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        wavs = list(out_dir.glob("*_generated.wav"))
+        import wave as wave_mod
+
+        if len(wavs) != 1:
+            fail(f"phase 8: the infer CLI wrote {len(wavs)} wavs")
+        with wave_mod.open(str(wavs[0]), "rb") as w:
+            frames, rate = w.getnframes(), w.getframerate()
+        print(f"  python -m {PACKAGE}.cli.infer --int8 --flash_kv int8 --duration 4 (musiclm_small): "
+              f"{time.perf_counter() - t0:.1f} s, wrote {wavs[0].name} ({frames} frames at {rate} Hz) "
+              f"[{card}]", flush=True)
+        if (frames, rate) != (96000, 24000):
+            fail(f"phase 8: the CLI's wav has {frames} frames at {rate} Hz")
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
 
 
 def kernel4_times(root: Path) -> int:

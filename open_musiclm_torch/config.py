@@ -250,7 +250,7 @@ def build_fine_transformer(mc: MusicLMModelConfig, generator=None) -> TokenCondi
     )
 
 
-def _target_device(device, caller: str) -> torch.device:
+def target_device(device, caller: str) -> torch.device:
     """The device an entry point builds on; asking for the card without one
     is an error, never a quiet move to the CPU."""
     device = torch.device(device)
@@ -262,43 +262,48 @@ def _target_device(device, caller: str) -> torch.device:
     return device
 
 
-def build_encodec(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> EncodecModel:
+def build_encodec(mc: MusicLMModelConfig, generator=None, *, device="cuda",
+                  dtype: torch.dtype = torch.float32) -> EncodecModel:
     """The Encodec codec with a seeded random init (the decoder, the
     codebooks, then the encoder), drawn in float32 on the CPU, then moved to
-    ``device``."""
-    device = _target_device(device, "build_encodec")
+    ``device``. ``dtype`` is the compute dtype (the parameters stay float32),
+    as the JAX package's flax ``dtype``; likewise for the other towers."""
+    device = target_device(device, "build_encodec")
     return create_encodec_24khz(
         bandwidth=mc.encodec_cfg.bandwidth,
         codebook_size=mc.encodec_cfg.codebook_size,
         generator=generator,
+        compute_dtype=dtype,
     ).to(device)
 
 
-def build_clap(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> ClapQuantized:
+def build_clap(mc: MusicLMModelConfig, generator=None, *, device="cuda",
+               dtype: torch.dtype = torch.float32) -> ClapQuantized:
     """The CLAP (RoBERTa-base and the text projection, then the audio tower
     of ``clap_rvq_cfg.amodel_type`` / ``enable_fusion`` and the audio
     projection) and a ``clap_rvq_cfg.rq_num_quantizers`` x ``codebook_size``
     x 512 RVQ, with a seeded random init drawn in float32 on the CPU (the
     CLAP, then the codebooks), then moved to ``device``, in eval() mode."""
-    device = _target_device(device, "build_clap")
+    device = target_device(device, "build_clap")
     cfg = mc.clap_rvq_cfg
     audio_cfg = audio_config_from_name(cfg.amodel_type, enable_fusion=cfg.enable_fusion)
-    model = CLAP(RobertaConfig(), generator=generator, audio_cfg=audio_cfg)
+    model = CLAP(RobertaConfig(), generator=generator, audio_cfg=audio_cfg, compute_dtype=dtype)
     rvq = rvq_init(cfg.rq_num_quantizers, cfg.codebook_size, JOINT_EMBED, generator)
     return ClapQuantized(model=model.to(device).eval(), rvq=RVQState(rvq.codebooks.to(device)),
                          num_quantizers=cfg.rq_num_quantizers, codebook_size=cfg.codebook_size,
                          sample_rate=audio_cfg.sample_rate, clip_samples=audio_cfg.clip_samples)
 
 
-def build_hubert(mc: MusicLMModelConfig, generator=None, *, device="cuda") -> HubertWithKmeans:
+def build_hubert(mc: MusicLMModelConfig, generator=None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32) -> HubertWithKmeans:
     """HuBERT at the MERT-v0 geometry and a ``hubert_kmeans_cfg.codebook_size``
     x 768 k-means codebook (N(0, 1)), with a seeded random init drawn in
     float32 on the CPU (the model, then the codebook), then moved to
     ``device``, in eval() mode."""
-    device = _target_device(device, "build_hubert")
+    device = target_device(device, "build_hubert")
     hk = mc.hubert_kmeans_cfg
     cfg = HubertConfig()
-    model = HubertModel(cfg, generator=generator)
+    model = HubertModel(cfg, generator=generator, compute_dtype=dtype)
     centroids = torch.randn(hk.codebook_size, cfg.hidden_size, generator=generator)
     return HubertWithKmeans(
         model, centroids, embed_layer=hk.embed_layer, normalize_embeds=hk.normalize_embeds,
@@ -322,7 +327,7 @@ def init_stage(
     moved to ``device`` and cast to ``dtype``), in eval() mode.
     ``compute_dtype`` runs the stream in another dtype than the parameters
     (bfloat16 training on float32 master weights)."""
-    device = _target_device(device, "init_stage")
+    device = target_device(device, "init_stage")
     factory = {
         "semantic": build_semantic_transformer,
         "coarse": build_coarse_transformer,

@@ -226,10 +226,34 @@ def hubert_state_dict(params) -> StateDict:
     return sd
 
 
+def fusion_state_dict(params, stats, prefix: str = "") -> StateDict:
+    """A fusion module's flax params and batch_stats (``DAF`` has none;
+    ``AFF``: ``local_att`` and ``global_att``; ``iAFF`` also ``local_att2``
+    and ``global_att2``, each conv1, bn1, conv2, bn2) -> the port's entries
+    under ``prefix`` in the laion Sequential layout (the global branches'
+    entries one on, after their pooling)."""
+    sd: StateDict = {}
+    for branch, node in params.items():
+        off = 1 if branch.startswith("global") else 0
+        for name, idx in (("conv1", 0), ("bn1", 1), ("conv2", 3), ("bn2", 4)):
+            pre = f"{prefix}{branch}.{idx + off}."
+            if name.startswith("conv"):
+                sd[pre + "weight"] = _conv2d(node[name]["kernel"])
+                sd[pre + "bias"] = _t(node[name]["bias"])
+            else:
+                st = stats[branch][name]
+                sd[pre + "weight"], sd[pre + "bias"] = _t(node[name]["scale"]), _t(node[name]["bias"])
+                sd[pre + "running_mean"], sd[pre + "running_var"] = _t(st["mean"]), _t(st["var"])
+                sd[pre + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
 def htsat_state_dict(variables) -> StateDict:
     """HTSAT flax variables (``params`` and ``batch_stats``) -> the port's
     state_dict in the laion ``audio_branch`` layout; bn0's running mean and
-    variance come from ``batch_stats``."""
+    variance come from ``batch_stats``. A fusion HTSAT's ``mel_conv2d`` and
+    its fusion module (flax's ``AFF_0``) go to ``patch_embed.mel_conv2d`` and
+    ``patch_embed.fusion_model``."""
     p, stats = variables["params"], variables["batch_stats"]
     sd: StateDict = {
         "bn0.weight": _t(p["bn0"]["scale"]), "bn0.bias": _t(p["bn0"]["bias"]),
@@ -242,6 +266,10 @@ def htsat_state_dict(variables) -> StateDict:
     }
     _layer_norm_entry(sd, "patch_embed.norm", p["patch_norm"])
     _layer_norm_entry(sd, "norm", p["norm"])
+    if "mel_conv2d" in p:
+        sd["patch_embed.mel_conv2d.weight"] = _conv2d(p["mel_conv2d"]["kernel"])
+        sd["patch_embed.mel_conv2d.bias"] = _t(p["mel_conv2d"]["bias"])
+        sd.update(fusion_state_dict(p["AFF_0"], stats["AFF_0"], "patch_embed.fusion_model."))
     for key, node in p.items():
         if key.startswith("stage_"):
             _, si, _, bi = key.split("_")

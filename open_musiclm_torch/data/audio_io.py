@@ -1,0 +1,194 @@
+"""Audio file I/O through the native audioio library, with a stdlib WAV
+fallback (port of open_musiclm_tpu/data/audio_io.py).
+
+``native/audioio/audioio.cc`` decodes WAV (PCM 8/16/24/32, float32/64), MP3
+(libmpg123, loaded at run time) and FLAC, mixes to mono and resamples with
+the windowed-sinc kernel of ``ops/audio.py``; it writes PCM16 WAV. The
+library tracked in ``native/lib`` was built with ``-march=native`` on another
+host, and a library built for another CPU can load and then stop on an
+illegal instruction. So at first use the port builds its own copy of the
+source into ``build/native/`` (no ``-march=native``) and binds that; only
+where no C++ compiler is found does it bind the tracked library. Where
+neither loads, the stdlib ``wave`` module reads and writes PCM16 WAV and
+``ops.audio.resample`` resamples.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import wave as wave_mod
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+_REPO_ROOT = Path(__file__).resolve().parents[2]
+_SOURCE = _REPO_ROOT / "native" / "audioio" / "audioio.cc"
+_TRACKED_LIB = _REPO_ROOT / "native" / "lib" / "libaudioio.so"
+_BUILT_LIB = _REPO_ROOT / "build" / "native" / "libaudioio.so"
+
+_F32P = ctypes.POINTER(ctypes.c_float)
+_SIGNATURES = {
+    "aio_wav_info": ([ctypes.c_char_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_long)], ctypes.c_int),
+    "aio_read_wav": ([ctypes.c_char_p, ctypes.c_int, _F32P, ctypes.c_long, ctypes.POINTER(ctypes.c_int)],
+                     ctypes.c_long),
+    "aio_read_mp3": ([ctypes.c_char_p, ctypes.c_int, _F32P, ctypes.c_long, ctypes.POINTER(ctypes.c_int)],
+                     ctypes.c_long),
+    "aio_read_flac": ([ctypes.c_char_p, ctypes.c_int, _F32P, ctypes.c_long, ctypes.POINTER(ctypes.c_int)],
+                      ctypes.c_long),
+    "aio_resample": ([_F32P, ctypes.c_long, ctypes.c_int, ctypes.c_int, _F32P, ctypes.c_long], ctypes.c_long),
+    "aio_write_wav": ([ctypes.c_char_p, _F32P, ctypes.c_long, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+}
+
+_lib = None  # the bound library, False where none loads
+
+
+def _build() -> Optional[Path]:
+    """Compile the source into build/native/ (once; the file is replaced
+    atomically, so concurrent first uses do not clash). None without a
+    compiler or when it fails."""
+    if _BUILT_LIB.exists():
+        return _BUILT_LIB
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None or not _SOURCE.exists():
+        return None
+    _BUILT_LIB.parent.mkdir(parents=True, exist_ok=True)
+    tmp = _BUILT_LIB.with_name(f"{_BUILT_LIB.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, "-O3", "-std=c++17", "-shared", "-fPIC", str(_SOURCE), "-o", str(tmp)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return None
+    os.replace(tmp, _BUILT_LIB)
+    return _BUILT_LIB
+
+
+def _load_lib():
+    global _lib
+    if _lib is None:
+        _lib = False
+        for path in (_build(), _TRACKED_LIB):
+            if path is None or not path.exists():
+                continue
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError:
+                continue
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes, fn.restype = argtypes, restype
+            _lib = lib
+            break
+    return _lib
+
+
+def have_native() -> bool:
+    return bool(_load_lib())
+
+
+def wav_info(path: str) -> Tuple[int, int, int]:
+    """(sample_rate, channels, frames)."""
+    lib = _load_lib()
+    if lib:
+        sr, ch, fr = ctypes.c_int(), ctypes.c_int(), ctypes.c_long()
+        rc = lib.aio_wav_info(str(path).encode(), sr, ch, fr)
+        if rc != 0:
+            raise IOError(f"failed to parse wav {path} (rc={rc})")
+        return sr.value, ch.value, fr.value
+    with wave_mod.open(str(path), "rb") as w:
+        return w.getframerate(), w.getnchannels(), w.getnframes()
+
+
+def read_audio(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """WAV / MP3 / FLAC -> (mono float32 samples, their rate), resampled to
+    ``target_sr`` when given."""
+    p = str(path).lower()
+    if p.endswith(".mp3"):
+        return _read_via(path, "aio_read_mp3", target_sr)
+    if p.endswith(".flac"):
+        return _read_via(path, "aio_read_flac", target_sr)
+    return read_wav(path, target_sr)
+
+
+def _read_via(path: str, fn_name: str, target_sr: Optional[int]) -> Tuple[np.ndarray, int]:
+    lib = _load_lib()
+    if not lib or getattr(lib, fn_name, None) is None:
+        raise IOError(f"the native decoder {fn_name} is unavailable")
+    # room for mp3 at up to ~14x compression of 16-bit audio, flac at ~4x
+    cap = max(int(Path(path).stat().st_size * 24), 1 << 20)
+    if target_sr:
+        cap = int(cap * max(target_sr / 8000, 1.0)) + 64
+    buf = np.empty(cap, np.float32)
+    native_sr = ctypes.c_int()
+    n = getattr(lib, fn_name)(str(path).encode(), int(target_sr or 0), buf.ctypes.data_as(_F32P), cap,
+                              native_sr)
+    if n < 0:
+        raise IOError(f"failed to decode {path} (rc={n})")
+    return buf[:n].copy(), (target_sr or native_sr.value)
+
+
+def read_wav(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """A WAV -> (mono float32 samples, their rate), resampled to
+    ``target_sr`` when given."""
+    p = str(path)
+    lib = _load_lib()
+    if lib:
+        sr, _, fr = wav_info(p)
+        t = target_sr or 0
+        cap = int(fr * (max(t, sr) / sr + 1)) + 64
+        buf = np.empty(cap, np.float32)
+        native_sr = ctypes.c_int()
+        n = lib.aio_read_wav(p.encode(), int(t), buf.ctypes.data_as(_F32P), cap, native_sr)
+        if n < 0:
+            raise IOError(f"failed to decode {p} (rc={n})")
+        return buf[:n].copy(), (target_sr or native_sr.value)
+    with wave_mod.open(p, "rb") as w:  # stdlib fallback: PCM16 only
+        sr, ch = w.getframerate(), w.getnchannels()
+        if w.getsampwidth() != 2:
+            raise IOError(f"the stdlib fallback reads PCM16 only: {p}")
+        raw = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
+    mono = (raw.reshape(-1, ch).mean(axis=1) / 32768.0).astype(np.float32)
+    if target_sr and target_sr != sr:
+        mono, sr = resample_np(mono, sr, target_sr), target_sr
+    return mono, sr
+
+
+def resample_np(x: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
+    """Host-side resample: the native library's, else ``ops.audio.resample``."""
+    lib = _load_lib()
+    x = np.ascontiguousarray(x, np.float32)
+    if lib:
+        cap = int(np.ceil(len(x) * new_sr / orig_sr)) + 16
+        out = np.empty(cap, np.float32)
+        n = lib.aio_resample(x.ctypes.data_as(_F32P), len(x), int(orig_sr), int(new_sr),
+                             out.ctypes.data_as(_F32P), cap)
+        return out[:n].copy()
+    from ..ops.audio import resample
+
+    return resample(torch.from_numpy(x)[None], orig_sr, new_sr)[0].numpy()
+
+
+def write_wav(path: str, data: np.ndarray, sample_rate: int) -> None:
+    """[T] or [C, T] float32 in [-1, 1] -> a PCM16 WAV."""
+    data = np.asarray(data, np.float32)
+    if data.ndim == 1:
+        data = data[None]
+    ch, frames = data.shape
+    interleaved = np.ascontiguousarray(data.T.reshape(-1))
+    lib = _load_lib()
+    if lib:
+        if lib.aio_write_wav(str(path).encode(), interleaved.ctypes.data_as(_F32P), frames, ch,
+                             int(sample_rate)) != 0:
+            raise IOError(f"failed to write {path}")
+        return
+    with wave_mod.open(str(path), "wb") as w:
+        w.setnchannels(ch)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes((np.clip(interleaved, -1, 1) * 32767.0).astype(np.int16).tobytes())

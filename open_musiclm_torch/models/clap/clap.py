@@ -10,8 +10,10 @@ takes, and prepares audio as the laion hook does (int16 round trip,
 repeat-pad or crop to 10 s at 48 kHz). The ``state_dict`` keys follow the
 laion CLAP checkpoint (``text_branch.*``, ``audio_branch.*``,
 ``{text,audio}_projection.{0,2}``, ``{text,audio}_transform.sequential.{0,3}``,
-``logit_scale_{t,a}``). The fusion tower, PANN and the RVQ's EMA training
-are not ported yet.
+``logit_scale_{t,a}``). A fusion CLAP (``enable_fusion``, musiclm_large)
+embeds every clip through the four-view mel stack (``wav_to_mel_fusion``),
+a clip-length one with ``longer`` unset; longer clips keep their whole
+length. PANN and the RVQ's EMA training are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ from torch import nn
 
 from ...ops.audio import int16_round_trip
 from ..rvq import RVQState, rvq_encode
+from .fusion import build_mel_fusion
 from .htsat import HTSAT, HTSATConfig
+from .mel import logmel
 from .roberta import RobertaConfig, RobertaModel, init_normal_
 
 JOINT_EMBED = 512
@@ -34,6 +38,17 @@ JOINT_EMBED = 512
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True), min=eps)
+
+
+def wav_to_mel_fusion(cfg: HTSATConfig, wav: torch.Tensor):
+    """[B, T] wave -> ([B, 4, chunk_frames, mel_bins] view stack, [B] bool
+    ``longer``): ``longer`` follows from the input's length (T > clip_samples)."""
+    mel = logmel(wav.float(), sr=cfg.sample_rate, n_fft=cfg.window_size_fft, hop=cfg.hop_size,
+                 n_mels=cfg.mel_bins, fmin=cfg.fmin, fmax=cfg.fmax)
+    chunk_frames = cfg.clip_samples // cfg.hop_size + 1
+    stacks = torch.stack([build_mel_fusion(m, chunk_frames) for m in mel])
+    longer = torch.full((wav.shape[0],), wav.shape[-1] > cfg.clip_samples, device=wav.device)
+    return stacks, longer
 
 
 class Projection(nn.Sequential):
@@ -75,7 +90,7 @@ class CLAP(nn.Module):
         init_normal_(self.text_transform, generator)
         self.audio_branch = None
         if audio_cfg is not None:
-            self.audio_branch = HTSAT(audio_cfg, generator=generator)
+            self.audio_branch = HTSAT(audio_cfg, generator=generator, compute_dtype=compute_dtype)
             self.audio_projection = Projection(audio_cfg.num_features, joint_embed_shape)
             self.audio_transform = MLPLayers(joint_embed_shape)
             self.logit_scale_a = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
@@ -88,12 +103,22 @@ class CLAP(nn.Module):
         return l2_normalize(self.text_projection(pooled.to(self.text_projection[0].weight.dtype)).float())
 
     def get_audio_embedding(self, wav: torch.Tensor) -> torch.Tensor:
-        """[B, T] at the tower's rate -> L2-normalized [B, joint] float32."""
+        """[B, T] at the tower's rate -> L2-normalized [B, joint] float32; a
+        fusion CLAP always takes the four-view mel stack."""
         if self.audio_branch is None:
             raise ValueError("this CLAP was built without an audio tower (audio_cfg=None)")
+        wav = wav.to(self.audio_projection[0].weight.device)
+        if self.audio_branch.cfg.enable_fusion:
+            return self.get_audio_embedding_fusion(*wav_to_mel_fusion(self.audio_branch.cfg, wav))
+        return self._project_audio(self.audio_branch(wav.float()))
+
+    def get_audio_embedding_fusion(self, mel_fusion: torch.Tensor, longer: torch.Tensor) -> torch.Tensor:
+        """mel_fusion [B, 4, frames, mel_bins], longer [B] bool -> [B, joint]."""
+        return self._project_audio(self.audio_branch(mel_fusion=mel_fusion, longer=longer))
+
+    def _project_audio(self, out: dict) -> torch.Tensor:
         w = self.audio_projection[0].weight
-        emb = self.audio_branch(wav.to(w.device, w.dtype))["embedding"]
-        return l2_normalize(self.audio_projection(emb).float())
+        return l2_normalize(self.audio_projection(out["embedding"].to(w.dtype)).float())
 
 
 def prepare_clap_audio(wav: torch.Tensor, clip_samples: int = 480000) -> torch.Tensor:
@@ -137,8 +162,12 @@ class ClapQuantized:
     @torch.no_grad()
     def audio_embedding(self, wav: torch.Tensor) -> torch.Tensor:
         """[B, T] at ``sample_rate`` -> [B, joint] float32 on the model's
-        device: int16 round trip, repeat-pad or crop to ``clip_samples``."""
-        wav = prepare_clap_audio(int16_round_trip(wav), self.clip_samples)
+        device: int16 round trip, repeat-pad or crop to ``clip_samples``
+        (a fusion CLAP keeps a longer clip whole)."""
+        wav = int16_round_trip(wav)
+        tower = self.model.audio_branch
+        if not (tower is not None and tower.cfg.enable_fusion and wav.shape[-1] > self.clip_samples):
+            wav = prepare_clap_audio(wav, self.clip_samples)
         return self.model.get_audio_embedding(wav)
 
     @torch.no_grad()

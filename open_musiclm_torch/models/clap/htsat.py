@@ -1,5 +1,4 @@
-"""HTSAT, the CLAP audio tower (port of open_musiclm_tpu/models/clap/htsat.py,
-the path without fusion).
+"""HTSAT, the CLAP audio tower (port of open_musiclm_tpu/models/clap/htsat.py).
 
 48 kHz waveform -> log-mel [B, 1001, 64] -> BatchNorm over mel bins
 (running statistics) -> fold into a 256 x 256 "image" (freq_ratio 4;
@@ -11,7 +10,18 @@ framewise outputs. A stage whose grid is at most the window takes
 window = min(H, W) and no shift. Parameter names follow the laion CLAP
 checkpoint's ``audio_branch`` (``patch_embed.proj``,
 ``layers.{s}.blocks.{b}.attn.qkv``, ``layers.{s}.downsample.reduction``,
-``tscam_conv``, ``bn0``). Fusion (musiclm_large) is not ported.
+``tscam_conv``, ``bn0``).
+
+With ``enable_fusion`` (musiclm_large) the tower takes a [B, 4, frames,
+mel_bins] stack of log-mel views (``fusion.build_mel_fusion``): the global
+view through the patch conv, the three local chunks through
+``patch_embed.mel_conv2d`` (kernel and stride three times as wide), side by
+side, fused into the global patches by ``patch_embed.fusion_model`` (AFF,
+the ``aff_2d`` fusion) where ``longer`` is set.
+
+``compute_dtype`` (None: the parameters' dtype) runs the tower after bn0 in
+another dtype, flax's ``dtype``: the weights are cast at their use; the mel
+front end, bn0, the LayerNorm statistics and the softmax stay in float32.
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.relpos import lecun_normal_
+from ...ops.relpos import conv, lecun_normal_, linear, norm
+from .fusion import fuse_patches, make_fusion
 from .mel import logmel
 
 
@@ -136,15 +147,15 @@ class WindowAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B_, N, C = x.shape
         h = self.num_heads
-        q, k, v = self.qkv(x).reshape(B_, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
+        q, k, v = linear(x, self.qkv).reshape(B_, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
         attn = (q * (C // h) ** -0.5) @ k.transpose(-2, -1)
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
-        attn = attn + bias.reshape(N, N, h).permute(2, 0, 1)[None]
+        attn = attn.float() + bias.float().reshape(N, N, h).permute(2, 0, 1)[None]
         if mask is not None:
             nW = mask.shape[0]
             attn = (attn.reshape(B_ // nW, nW, h, N, N) + mask[None, :, None]).reshape(B_, h, N, N)
-        out = attn.softmax(dim=-1) @ v
-        return self.proj(out.transpose(1, 2).reshape(B_, N, C))
+        out = attn.softmax(dim=-1).to(v.dtype) @ v
+        return linear(out.transpose(1, 2).reshape(B_, N, C), self.proj)
 
 
 class Mlp(nn.Module):
@@ -154,7 +165,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        return linear(F.gelu(linear(x, self.fc1)), self.fc2)
 
 
 class SwinBlock(nn.Module):
@@ -175,14 +186,14 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (H, W), window, shift = self.resolution, self.window, self.shift
         B, L, C = x.shape
-        h = self.norm1(x).reshape(B, H, W, C)
+        h = norm(x, self.norm1).reshape(B, H, W, C)
         if shift > 0:
             h = torch.roll(h, (-shift, -shift), dims=(1, 2))
         h = window_reverse(self.attn(window_partition(h, window), self.attn_mask), window, H, W)
         if shift > 0:
             h = torch.roll(h, (shift, shift), dims=(1, 2))
         x = x + h.reshape(B, L, C)
-        return x + self.mlp(self.norm2(x))
+        return x + self.mlp(norm(x, self.norm2))
 
 
 class PatchMerging(nn.Module):
@@ -196,7 +207,7 @@ class PatchMerging(nn.Module):
         (H, W), (B, _, C) = self.resolution, x.shape
         x = x.reshape(B, H, W, C)
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
-        return self.reduction(self.norm(x.reshape(B, (H // 2) * (W // 2), 4 * C)))
+        return linear(norm(x.reshape(B, (H // 2) * (W // 2), 4 * C), self.norm), self.reduction)
 
 
 class BasicLayer(nn.Module):
@@ -221,9 +232,22 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.proj = nn.Conv2d(1, cfg.embed_dim, cfg.patch_size, stride=cfg.patch_stride)
         self.norm = nn.LayerNorm(cfg.embed_dim)
+        if cfg.enable_fusion:
+            p, s = cfg.patch_size, cfg.patch_stride
+            self.mel_conv2d = nn.Conv2d(1, cfg.embed_dim, (p, 3 * p), stride=(s[0], 3 * s[1]))
+            self.fusion_model = make_fusion("aff_2d", cfg.embed_dim)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:  # [B, H, W] -> [B, H'*W', E]
-        return self.norm(self.proj(img[:, None]).flatten(2).transpose(1, 2))
+    def forward(self, img: torch.Tensor, longer: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, H, W] image, or [B, 4, H, W] with fusion (the global view
+        first) -> [B, H'*W', E]."""
+        if img.dim() == 3:
+            h = conv(img[:, None], self.proj)
+        else:
+            B, n, H, W = img.shape
+            local = conv(img[:, 1:].reshape(B * (n - 1), 1, H, W), self.mel_conv2d)
+            h = fuse_patches(conv(img[:, :1], self.proj), local.reshape(B, n - 1, *local.shape[1:]),
+                             self.fusion_model, longer)
+        return norm(h.flatten(2).transpose(1, 2), self.norm)
 
 
 class HTSAT(nn.Module):
@@ -231,11 +255,11 @@ class HTSAT(nn.Module):
     before bn0) -> dict of ``embedding`` [B, num_features],
     ``clipwise_output`` [B, classes] and ``framewise_output``."""
 
-    def __init__(self, cfg: HTSATConfig = HTSATConfig(), generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: HTSATConfig = HTSATConfig(), generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.enable_fusion:
-            raise NotImplementedError("the fusion HTSAT (enable_fusion=True, musiclm_large) is not ported yet")
         self.cfg = cfg
+        self.compute_dtype = compute_dtype
         self.bn0 = nn.BatchNorm1d(cfg.mel_bins)
         self.patch_embed = PatchEmbed(cfg)
         grid = (cfg.spec_size // cfg.patch_stride[0], cfg.spec_size // cfg.patch_stride[1])
@@ -269,25 +293,34 @@ class HTSAT(nn.Module):
         x = x.transpose(1, 2).reshape(mel.shape[0], target_F, fr, target_T // fr).transpose(1, 2)
         return x.reshape(mel.shape[0], fr * target_F, target_T // fr)
 
-    def forward(self, wav: Optional[torch.Tensor] = None, *, mel: Optional[torch.Tensor] = None) -> dict:
+    def forward(self, wav: Optional[torch.Tensor] = None, *, mel: Optional[torch.Tensor] = None,
+                mel_fusion: Optional[torch.Tensor] = None, longer: Optional[torch.Tensor] = None) -> dict:
+        """``mel_fusion`` [B, 4, frames, mel_bins] (before bn0) and ``longer``
+        [B] bool (None: every row) take the fusion path."""
         cfg = self.cfg
-        if mel is None:
-            mel = logmel(wav, sr=cfg.sample_rate, n_fft=cfg.window_size_fft, hop=cfg.hop_size,
+        fusion = cfg.enable_fusion and mel_fusion is not None
+        if fusion:
+            mel = mel_fusion
+        elif mel is None:
+            mel = logmel(wav.float(), sr=cfg.sample_rate, n_fft=cfg.window_size_fft, hop=cfg.hop_size,
                          n_mels=cfg.mel_bins, fmin=cfg.fmin, fmax=cfg.fmax)
+        shape = mel.shape
+        mel = mel.reshape(-1, *shape[-2:]).float()
         bn = self.bn0  # running statistics: the inference path of the JAX package's BatchNorm
-        mel = F.batch_norm(mel.transpose(1, 2), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                           False, 0.0, bn.eps).transpose(1, 2)
-        h = self.patch_embed(self.fold(mel))
+        mel = F.batch_norm(mel.transpose(1, 2), bn.running_mean.float(), bn.running_var.float(),
+                           bn.weight.float(), bn.bias.float(), False, 0.0, bn.eps).transpose(1, 2)
+        img = self.fold(mel.to(self.compute_dtype or bn.weight.dtype))
+        h = self.patch_embed(img.reshape(*shape[:-2], *img.shape[-2:]), longer)
         for layer in self.layers:
             h = layer(h)
-        h = self.norm(h)
+        h = norm(h, self.norm)
 
         # freq-unfold latent pooling
         B, (SF, ST), C = h.shape[0], self.final_resolution, h.shape[-1]
         c_freq_bin = SF // cfg.freq_ratio
         g = h.transpose(1, 2).reshape(B, C, SF // c_freq_bin, c_freq_bin, ST)
         g = g.permute(0, 1, 3, 2, 4).reshape(B, C, c_freq_bin, -1)
-        tc = self.tscam_conv(g).flatten(2).transpose(1, 2)  # [B, frames'', classes]
+        tc = conv(g, self.tscam_conv).flatten(2).transpose(1, 2)  # [B, frames'', classes]
         return {
             "embedding": g.reshape(B, C, -1).mean(dim=-1),
             "clipwise_output": torch.sigmoid(tc.mean(dim=1)),

@@ -7,6 +7,11 @@ resblock and a strided downsampling conv, LSTM, conv_out) -> latent at the
 frame rate -> residual nearest-code loop over the codebooks. Convolutions
 run on torch's [B, C, T]; the public functions keep the JAX layouts
 ([B, T', n_q] codes, [B, T', D] latent and stem state, [B, T] waveform).
+
+``EncodecModel.compute_dtype`` (None: the parameters' dtype) runs the convs
+in another dtype, flax's ``dtype``, the weights cast at their use; the LSTM
+recurs in its parameters' dtype and the nearest-code loop in the
+codebooks'.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.relpos import lecun_normal_
+from ..ops.relpos import conv, lecun_normal_
 
 
 def _pad1d_reflect(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
@@ -59,7 +64,7 @@ class CausalConv1d(nn.Module):
         T = x.shape[-1]
         n_frames = (T - eff_k + pad_total) / self.stride + 1
         ideal = (math.ceil(n_frames) - 1) * self.stride + (eff_k - pad_total)
-        return self.conv(_pad1d_reflect(x, pad_total, max(ideal - T, 0)))
+        return conv(_pad1d_reflect(x, pad_total, max(ideal - T, 0)), self.conv)
 
 
 class CausalConvTranspose1d(nn.Module):
@@ -73,7 +78,9 @@ class CausalConvTranspose1d(nn.Module):
         self.trim = kernel - stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.convtr(x)
+        ct = self.convtr
+        y = ct(x) if ct.weight.dtype == x.dtype else F.conv_transpose1d(
+            x, ct.weight.to(x.dtype), ct.bias.to(x.dtype), stride=ct.stride)
         return y[..., : y.shape[-1] - self.trim] if self.trim > 0 else y
 
 
@@ -181,9 +188,11 @@ class EncodecModel(nn.Module):
     def __init__(self, sample_rate: int = 24000, channels: int = 1, num_quantizers: int = 8,
                  codebook_size: int = 1024, dimension: int = 128, n_filters: int = 32,
                  ratios: Sequence[int] = (8, 5, 4, 2),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.sample_rate = sample_rate
+        self.compute_dtype = compute_dtype
         self.ratios = tuple(ratios)
         self.decoder = SEANetDecoder(channels, dimension, n_filters, ratios, generator=generator)
         with torch.no_grad():
@@ -195,16 +204,20 @@ class EncodecModel(nn.Module):
     def hop_length(self) -> int:
         return math.prod(self.ratios)
 
+    @property
+    def stream_dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.encoder.conv_in.conv.weight.dtype
+
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """[B, T] waveform -> latent [B, T', D] (before quantization)."""
-        return self.encoder(x[:, None].to(self.encoder.conv_in.conv.weight.dtype))
+        return self.encoder(x[:, None].to(self.stream_dtype))
 
     def quantize_embedding(self, z: torch.Tensor) -> torch.Tensor:
         """[B, T', D] -> int64 codes [B, T', n_q]: at each quantizer the code
         maximizing ``2 r.c - |c|^2`` (the first on a tie), subtracted from the
         residual r."""
-        resid, idxs = z, []
-        for cb in self.codebooks.to(z.dtype):
+        resid, idxs = z.to(self.codebooks.dtype), []
+        for cb in self.codebooks:
             idx = torch.argmax(2.0 * resid @ cb.t() - cb.square().sum(-1), dim=-1)
             resid = resid - cb[idx]
             idxs.append(idx)
@@ -223,11 +236,11 @@ class EncodecModel(nn.Module):
         return out
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
-        return self.decoder.head(self.decoder.stem(self.dequantize(codes)))[:, 0]
+        return self.decoder.head(self.decode_stem(codes))[:, 0]
 
     def decode_stem(self, codes: torch.Tensor) -> torch.Tensor:
         """codes -> frame-rate decoder state [B, T', C]."""
-        return self.decoder.stem(self.dequantize(codes))
+        return self.decoder.stem(self.dequantize(codes).to(self.stream_dtype))
 
     def decode_head(self, h: torch.Tensor) -> torch.Tensor:
         """Frame-rate state [B, T', C] -> [B, T] waveform."""

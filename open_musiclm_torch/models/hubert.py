@@ -11,7 +11,11 @@ Module and parameter names follow ``transformers.HubertModel``
 (``feature_extractor.conv_layers.{i}.conv``, ``feature_projection.*``,
 ``encoder.pos_conv_embed.conv``, ``encoder.layers.{i}.attention.q_proj``, ...).
 The positional conv holds the folded weight; a checkpoint's
-``weight_g`` / ``weight_v`` pair is folded by whoever loads it.
+``weight_g`` / ``weight_v`` pair is folded by ``import_torch.import_hubert``.
+
+``HubertModel.compute_dtype`` (None: the parameters' dtype) runs the stream
+in another dtype, flax's ``dtype``: the weights are cast at their use, the
+GroupNorm / LayerNorm statistics taken in float32.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.audio import zero_mean_unit_var_norm as zero_mean_unit_var
-from ..ops.relpos import lecun_normal_
+from ..ops.relpos import conv, lecun_normal_, linear, norm
 from .kmeans import kmeans_predict
 
 
@@ -75,11 +79,11 @@ class ConvLayer(nn.Module):
             self.layer_norm = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, C, T]
-        x = self.conv(x)
+        x = conv(x, self.conv)
         if isinstance(self.layer_norm, nn.LayerNorm):
-            x = self.layer_norm(x.transpose(1, 2)).transpose(1, 2)
+            x = norm(x.transpose(1, 2), self.layer_norm).transpose(1, 2)
         elif self.layer_norm is not None:
-            x = self.layer_norm(x)
+            x = norm(x, self.layer_norm)
         return F.gelu(x)
 
 
@@ -102,7 +106,7 @@ class FeatureProjection(nn.Module):
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.layer_norm(x))
+        return linear(norm(x, self.layer_norm), self.projection)
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -114,7 +118,7 @@ class PositionalConvEmbedding(nn.Module):
         self.trim = 1 if k % 2 == 0 else 0  # HF SamePad drops the last step of an even kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, H]
-        h = self.conv(x.transpose(1, 2))
+        h = conv(x.transpose(1, 2), self.conv)
         if self.trim:
             h = h[..., :-self.trim]
         return F.gelu(h).transpose(1, 2)
@@ -133,9 +137,9 @@ class Attention(nn.Module):
         def split(t):
             return t.reshape(B, T, self.heads, -1).transpose(1, 2)
 
-        out = F.scaled_dot_product_attention(split(self.q_proj(x)), split(self.k_proj(x)),
-                                             split(self.v_proj(x)))
-        return self.out_proj(out.transpose(1, 2).reshape(B, T, H))
+        out = F.scaled_dot_product_attention(split(linear(x, self.q_proj)), split(linear(x, self.k_proj)),
+                                             split(linear(x, self.v_proj)))
+        return linear(out.transpose(1, 2).reshape(B, T, H), self.out_proj)
 
 
 class FeedForward(nn.Module):
@@ -145,7 +149,7 @@ class FeedForward(nn.Module):
         self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+        return linear(F.gelu(linear(x, self.intermediate_dense)), self.output_dense)
 
 
 class EncoderLayer(nn.Module):
@@ -159,8 +163,8 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.layer_norm(x + self.attention(x))
-        return self.final_layer_norm(x + self.feed_forward(x))
+        x = norm(x + self.attention(x), self.layer_norm)
+        return norm(x + self.feed_forward(x), self.final_layer_norm)
 
 
 class Encoder(nn.Module):
@@ -172,9 +176,11 @@ class Encoder(nn.Module):
 
 
 class HubertModel(nn.Module):
-    def __init__(self, cfg: HubertConfig = HubertConfig(), generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: HubertConfig = HubertConfig(), generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = compute_dtype
         self.feature_extractor = FeatureEncoder(cfg)
         self.feature_projection = FeatureProjection(cfg)
         self.encoder = Encoder(cfg)
@@ -183,8 +189,9 @@ class HubertModel(nn.Module):
     def forward(self, wav: torch.Tensor, num_layers: Optional[int] = None) -> List[torch.Tensor]:
         """wav [B, T] at 16 kHz -> hidden states [B, T', H], Hugging Face
         indexing, through the first ``num_layers`` layers (all by default)."""
+        wav = wav.to(self.compute_dtype or self.feature_projection.projection.weight.dtype)
         h = self.feature_projection(self.feature_extractor(wav))
-        h = self.encoder.layer_norm(h + self.encoder.pos_conv_embed(h))
+        h = norm(h + self.encoder.pos_conv_embed(h), self.encoder.layer_norm)
         hidden_states = [h]
         for layer in self.encoder.layers[:num_layers]:
             h = layer(h)
@@ -218,12 +225,12 @@ class HubertWithKmeans(nn.Module):
 
     @torch.no_grad()
     def features(self, wav: torch.Tensor) -> torch.Tensor:
-        """[B, T] -> [B, T', H] layer-``embed_layer`` features, each frame
-        normalized when ``normalize_embeds``."""
+        """[B, T] -> [B, T', H] layer-``embed_layer`` features in float32,
+        each frame normalized when ``normalize_embeds``."""
         if self.seq_len_multiple_of:
             wav = wav[..., : (wav.shape[-1] // self.seq_len_multiple_of) * self.seq_len_multiple_of]
         w = self.centroids
-        emb = self.model.extract_features(wav.to(w.device, w.dtype), self.embed_layer)
+        emb = self.model.extract_features(wav.to(w.device, w.dtype), self.embed_layer).float()
         return zero_mean_unit_var(emb) if self.normalize_embeds else emb
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:

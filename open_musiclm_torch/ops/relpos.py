@@ -32,9 +32,42 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """``layer`` applied with its parameters cast to x's dtype (flax's Dense
-    with ``dtype``: float32 master weights, a bfloat16 pass)."""
+    with ``dtype``: float32 master weights, a bfloat16 pass); the module
+    itself where the dtypes agree, as for ``norm``."""
+    if layer.weight.dtype == x.dtype:
+        return layer(x)
     bias = layer.bias.to(x.dtype) if layer.bias is not None else None
     return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def conv(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """A Conv1d / Conv2d ``layer`` applied with its parameters cast to x's
+    dtype (the module itself where they agree, as for ``norm``). A grouped
+    conv in a low-precision dtype runs in float32 on the rounded operands
+    (what a float32-accumulating bf16 conv computes): the CPU's bf16 grouped
+    conv gives wrong values at some group counts."""
+    if layer.weight.dtype == x.dtype:
+        return layer(x)
+    w = layer.weight.to(x.dtype)
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    if layer.groups == 1 or x.dtype not in (torch.bfloat16, torch.float16):
+        return layer._conv_forward(x, w, bias)
+    return layer._conv_forward(x.float(), w.float(), None if bias is None else bias.float()).to(x.dtype)
+
+
+def norm(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """A LayerNorm (over the last axis) or GroupNorm (over [B, C, T])
+    ``layer`` in float32, returned in x's dtype. Where x and the parameters
+    are float32 the module itself runs, so its forward hooks see the call
+    (``chip_smoke.py`` counts a tower's work by them)."""
+    if x.dtype == layer.weight.dtype == torch.float32:
+        return layer(x)
+    w, b = layer.weight.float(), layer.bias.float()
+    if isinstance(layer, nn.GroupNorm):
+        out = F.group_norm(x.float(), layer.num_groups, w, b, layer.eps)
+    else:
+        out = F.layer_norm(x.float(), layer.normalized_shape, w, b, layer.eps)
+    return out.to(x.dtype)
 
 
 def init_linear_(layer: nn.Linear, generator: Optional[torch.Generator]) -> None:

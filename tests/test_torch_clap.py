@@ -335,11 +335,10 @@ def test_build_clap(monkeypatch):
 
 def test_unported_clap_paths_raise():
     """What is still unported raises NotImplementedError: the RVQ's EMA
-    training, the fusion CLAP (musiclm_large), the PANN towers and the
-    HTSAT presets other than HTSAT-tiny; a CLAP built without an audio tower
-    refuses audio."""
+    training, the PANN towers and the HTSAT presets other than HTSAT-tiny; a
+    CLAP built without an audio tower refuses audio. (The fusion CLAP is
+    held to JAX in tests/test_torch_fusion.py.)"""
     from open_musiclm_torch import config as tconfig
-    from open_musiclm_torch.models.clap.htsat import HTSATConfig
     from open_musiclm_torch.models.clap.model_configs import audio_config_from_name
 
     _, _, model = _clap_pair()
@@ -347,7 +346,6 @@ def test_unported_clap_paths_raise():
     mc = tconfig.load_model_config(str(Path(__file__).resolve().parents[1] / "configs/model/musiclm_small.json"))
     pann = dataclasses.replace(mc, clap_rvq_cfg=dataclasses.replace(mc.clap_rvq_cfg, amodel_type="PANN-14"))
     for call in (lambda: clap.learn_rvq_step(torch.zeros(1, 16)),
-                 lambda: CLAP(TEXT_CFG, audio_cfg=HTSATConfig(enable_fusion=True)),
                  lambda: tconfig.build_clap(pann, device="cpu"),
                  lambda: audio_config_from_name("HTSAT-base")):
         with pytest.raises(NotImplementedError):

@@ -93,7 +93,7 @@ ATTN_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("h", [4, 8])
+@pytest.mark.parametrize("h", [4, 8, 16])  # 16: musiclm_large's heads
 @pytest.mark.parametrize("b,n,m,mask,ncp", [
     (2, 100, 100, None, 0),      # n off the tile and off a block's queries
     (2, 77, 150, "random", 0),   # m > n: the queries are the last n keys
@@ -147,6 +147,33 @@ def test_prefill_attention_kernel_long_key_mask(dev):
     torch.testing.assert_close(attention.shared_kv_attention_fused(q, k, v, None, key_mask), want, **TOL)
     with pytest.raises(ValueError):
         attention.shared_kv_attention_fused(*(t.to(torch.bfloat16) for t in (q, k, v)), None, key_mask)
+
+
+# Kernel 2 at musiclm_large's shapes: 16 heads, and the 2,816-row cache of
+# its 10 s coarse window (12 + 1 CLAP, 499 + 1 semantic, 3 start tokens and
+# 2,250 coarse steps: 2,766 rows, padded to the 256-row chunk), up to its
+# last live row 2,765, in every row dtype.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("b,h,N,pos", [(8, 16, 1280, 1279), (8, 16, 2816, 2765), (2, 16, 2816, 1000),
+                                       (1, 8, 2816, 2765), (16, 16, 2816, 2560), (2, 16, 2816, 0)])
+def test_flash_decode_kernel_large(dev, rows, b, h, N, pos):
+    g = torch.Generator().manual_seed(pos + b + h)
+    k, v = attention.l2norm(_randn(g, b, N, 64)), _randn(g, b, N, 64)
+    sc, q_dtype = None, torch.bfloat16
+    if rows == "int8":
+        kq, ks = decode_attention.quantize_kv_row(k)
+        vq, vs = decode_attention.quantize_kv_row(v)
+        kv, sc, q_dtype = torch.cat([kq, vq], -1).to(dev), torch.stack([ks, vs]).to(dev), torch.float32
+    else:
+        kv = torch.cat([k, v], -1).to(dev, torch.bfloat16 if rows == "bf16" else torch.float32)
+    bias_row = _randn(g, N, h).to(dev)
+    add_mask = torch.where(torch.rand(b, N, generator=g) > 0.2, 0.0, -1e9).to(dev)
+    add_mask[:, 0] = 0.0
+    q = attention.l2norm(_randn(g, b, h, 64)).to(dev, q_dtype)
+    got = decode_attention.flash_decode_step(q, kv, pos, bias_row, add_mask, sc)
+    want = decode_attention.flash_decode_step_plain(q.float(), kv, pos, bias_row, add_mask, sc)
+    _assert_within("out", got, want, 1e-4 if q_dtype == torch.float32 else 2.0 ** -7)
 
 
 @pytest.mark.cuda
@@ -527,7 +554,7 @@ def test_attention_bwd_kernels_fully_masked_row(dev):
 # Held against the float32 plain backward on the same bf16 values within
 # 2**-7 of the largest gradient.
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [4, 8])
+@pytest.mark.parametrize("h", [4, 8, 16])  # 16: musiclm_large's heads
 @pytest.mark.parametrize("b,n,m,mask,ncp", [
     (2, 130, 130, "random", 70), (1, 200, 260, "random", 66), (2, 150, 150, "head", 0),
     (3, 64, 64, None, 0), (2, 300, 300, "head", 5),
@@ -599,6 +626,19 @@ def test_dbias_kernel_bf16(dev, bias_dtype, b, n, m, mask, ncp):
     got = fn(*args, **opts)
     assert fn.dbias_launches == before + 1
     assert got[3].dtype == bias_dtype
+    for name, a, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _assert_within(name, a, ref, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16], ids=["bias_f32", "bias_bf16"])
+@pytest.mark.parametrize("b,n,m,mask,ncp", [(2, 514, 514, True, 0), (2, 130, 201, True, 70), (1, 99, 99, False, 5)])
+def test_dbias_kernel_bf16_16_heads(dev, bias_dtype, b, n, m, mask, ncp):
+    """Kernels 5 and 6 at musiclm_large's 16 heads."""
+    g = torch.Generator().manual_seed(n + m + 16)
+    args, opts, want = _bwd_bf16(g, b, 16, n, m, mask, dev, bias_dtype, ncp)
+    got = attention.shared_kv_attention_bwd(*args, **opts)
+    assert got[3].shape == (16, n, m)
     for name, a, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
         _assert_within(name, a, ref, 2.0 ** -7)
 
@@ -760,6 +800,15 @@ def test_fused_layer_kernel_full_width(dev, dtype, heads, b):
     second and third pass over the resident weights, and their attention
     items a second round of the grid."""
     _check_layer(dev, dtype, b, 1279, heads + b, dim=1024, heads=heads, N=1280)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads,b,pos", [(16, 8, 2765), (16, 2, 1500), (8, 1, 2765), (16, 4, 2815)])
+def test_fused_layer_kernel_long_cache(dev, dtype, heads, b, pos):
+    """musiclm_large's layer over its coarse stage's 2,816-row cache (a 10 s
+    window: 2,766 live rows), at the last live row, mid-cache and the last row."""
+    _check_layer(dev, dtype, b, pos, heads + b + pos, dim=1024, heads=heads, N=2816)
 
 
 @pytest.mark.cuda
