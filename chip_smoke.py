@@ -89,6 +89,27 @@ Phases, each of which fails the run:
      --duration 4 at musiclm_small, which must write a 4 s wav. Phase 2
      also holds kernels 1, 2, 5 and 6 at 16 heads, and kernels 2 and 7 over
      musiclm_large's 2,816-row coarse cache.
+  9. stage training from raw audio through the five training CLIs, in
+     process, at musiclm_small's full width with random weights from a seed,
+     on 9 seeded tracks (44.1 and 48 kHz, 12-35 s, one of 7 s):
+     train_stage --stage coarse --bf16 on the fly at the shipped trainer
+     config (b2 x accum 8), cut to 3 steps with results and checkpoints
+     every 2 (3 finite losses, valid loss and accuracy at steps 0 and 2,
+     coarse.tokens.{0,2}.txt, 4 s reconstructions at 24 kHz,
+     coarse.transformer.2.ckpt, kernels 5 and 6 once a layer and
+     micro-batch and kernel 1 in every forward, no other kernel), its step
+     wall and fetch share from the log; a resume from that checkpoint that
+     takes exactly one step, numbered 3, then one on-the-fly step under
+     torch.profiler (fetch share, device idle share); one coarse
+     micro-batch tokenized on the card in float32 against the CPU (CLAP
+     tokens, semantic ids, codes equal off near ties, the near ties
+     counted); one step each of the semantic (b4 x accum 8) and fine stages;
+     preprocess_data over the folder (a row a track; track 0's stored tokens
+     against the CPU off near ties) and one fine step on that store;
+     train_clap_rvq, 2 steps at the shipped b64 x accumulate 32 (finite
+     rvq_mse, clap.rvq.*.ckpt read back equal by load.load_rvq) and
+     train_hubert_kmeans, 4 feature steps of 32 clips and 1024 clusters
+     (kmeans.ckpt with a finite inertia, read back by load.load_kmeans).
 
 Times a call, two readings of each kernel and library call:
   ms         stream time: CUDA events around 20 calls as the host launches
@@ -109,6 +130,10 @@ Prints the card, the kernels' JSON summary, and as its last line
 times kernel 4 alone at its phase-2 shapes from the port in the checkout
 ROOT (another commit's, for a comparison within one call) and prints a JSON
 line of its device ms.
+
+    python3 chip_smoke.py --phase9
+
+builds the kernels and runs phase 9 alone.
 """
 
 from __future__ import annotations
@@ -1007,6 +1032,11 @@ def main() -> int:
     # ---- 8. musiclm_large: loading, 24 x 16 stages, the fusion CLAP, the CLI ----
     large_launches = large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms)
     print(json.dumps({"phase8_launches": large_launches}))
+    torch.cuda.empty_cache()
+
+    # ---- 9. stage training from raw audio: the five training CLIs ----
+    raw_launches = raw_audio_phase(torch, omt_config, dev, card, counters)
+    print(json.dumps({"phase9_launches": raw_launches}))
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
@@ -2074,6 +2104,377 @@ def large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms
     return launches
 
 
+# phase 9: seeded tracks (seconds, rate): 44.1 and 48 kHz, 12-35 s, the
+# first longer than the preprocessor's 30 s crop, the last shorter than the
+# 10 s window
+RAW_TRACKS = ((31.5, 44100), (12.0, 48000), (18.3, 44100), (35.0, 48000), (22.7, 44100), (14.2, 48000),
+              (27.9, 44100), (16.6, 48000), (7.0, 44100))
+# how many of track 0's CLAP windows (of 21) phase 9 recomputes on the CPU
+CHECKED_CLAP_WINDOWS = 4
+
+
+def write_raw_tracks(folder: Path) -> None:
+    """RAW_TRACKS as PCM16 wavs ``track_{i:02d}.wav``: sines plus noise from seed i."""
+    from open_musiclm_torch.data.audio_io import write_wav
+
+    folder.mkdir(parents=True, exist_ok=True)
+    for i, (seconds, hz) in enumerate(RAW_TRACKS):
+        write_wav(str(folder / f"track_{i:02d}.wav"), seeded_prime(200 + i, seconds, hz)[0].numpy(), hz)
+
+
+class Patched:
+    """Attribute replacements (object, name, value) undone on exit."""
+
+    def __init__(self, *patches):
+        self.patches, self.saved = patches, []
+
+    def __enter__(self):
+        for obj, name, value in self.patches:
+            self.saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+
+
+def tower_tokens_check(torch, cpu, gpu, clap_wave, sem_wave, ac_wave, got, what: str, dev):
+    """Token ids the card gave (``got``: CLAP [W, Q], semantic [B, T'],
+    codes [B, T', q]) against the CPU towers' on the same float32 waves,
+    off near ties (check_off_near_ties; the card's own embeddings give each
+    row's error). ``cpu`` / ``gpu``: (ClapQuantized, HubertWithKmeans,
+    EncodecModel). Returns {tower: (checked, near ties)}."""
+    (clap_c, w2v_c, codec_c), (clap_g, w2v_g, codec_g) = cpu, gpu
+    out = {}
+    with torch.no_grad():
+        x_c = clap_c.audio_embedding(clap_wave)
+        x_g = clap_g.audio_embedding(clap_wave.to(dev)).cpu()
+        out["clap"] = check_off_near_ties(torch, x_c, (x_g - x_c).abs().amax(1), clap_c.rvq.codebooks,
+                                          got[0].cpu(), clap_c.quantize(x_c)[..., 0], f"{what} CLAP tokens")
+        f_c = w2v_c.features(sem_wave).reshape(-1, w2v_c.centroids.shape[1])
+        f_g = w2v_g.features(sem_wave.to(dev)).reshape(-1, w2v_c.centroids.shape[1]).cpu()
+        out["semantic"] = check_off_near_ties(torch, f_c, (f_g - f_c).abs().amax(1), w2v_c.centroids[None],
+                                              got[1].cpu().reshape(-1, 1), w2v_c(sem_wave).reshape(-1, 1),
+                                              f"{what} semantic ids")
+        z_c = codec_c.embed(ac_wave)
+        z_g = codec_g.embed(ac_wave.to(dev)).cpu()
+        q = got[2].shape[-1]
+        flat = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+        out["codes"] = check_off_near_ties(torch, flat(z_c), flat(z_g - z_c).abs().amax(1), codec_c.codebooks[:q],
+                                           flat(got[2].cpu()), flat(codec_c.quantize_embedding(z_c))[:, :q],
+                                           f"{what} Encodec codes")
+    return out
+
+
+def raw_audio_phase(torch, omt_config, dev, card, counters, model_config: Path = None):
+    """Phase 9: stage training from raw audio through the five training
+    CLIs, in process, at musiclm_small's full width with random weights from
+    a seed, on seeded tracks (RAW_TRACKS). The CLIs share one tower build
+    per flag set (the same seed and flags build the same towers; each build
+    is seconds of seeded CPU draws). ``model_config`` (musiclm_small's by
+    default) and ``dev`` let a rehearsal run it on the CPU at small widths.
+    Returns the launches of the coarse run."""
+    import argparse
+    import wave as wave_mod
+
+    from open_musiclm_torch import load
+    from open_musiclm_torch.cli import (common, preprocess_data, train_clap_rvq, train_hubert_kmeans,
+                                        train_stage)
+    from open_musiclm_torch.data import dataset, pipeline
+    from open_musiclm_torch.data.preprocess import DataPreprocessor
+    from open_musiclm_torch.data.tokenstore import ShardedTokenStore
+    from open_musiclm_torch.models.clap.clap import ClapQuantized
+    from open_musiclm_torch.train import tokenizer_trainers
+    from open_musiclm_torch.train.trainer import StageTrainer
+    from torch.profiler import ProfilerActivity, profile
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    small = model_config or ROOT / "configs" / "model" / "musiclm_small.json"
+    mc = omt_config.load_model_config(str(small))
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    g = mc.global_cfg
+    builds, build_s = {}, []
+    build_musiclm = common.build_musiclm
+
+    def shared_build(args):
+        key = (args.model_config, args.seed, args.bf16, args.device)
+        if key not in builds:
+            t0 = time.perf_counter()
+            builds[key] = build_musiclm(args)
+            build_s.append(time.perf_counter() - t0)
+        return builds[key]
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    def log_of(folder: Path, stage: str):
+        return [json.loads(line) for line in (folder / f"{stage}.log.jsonl").read_text().splitlines()]
+
+    def wav_shape(path: Path):
+        with wave_mod.open(str(path), "rb") as w:
+            return w.getnframes(), w.getframerate()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_audio_") as tmp, Patched(
+            *((mod, "build_musiclm", shared_build) for mod in (common, preprocess_data, train_clap_rvq,
+                                                                train_hubert_kmeans))):
+        tmp = Path(tmp)
+        tracks, store = tmp / "tracks", tmp / "store"
+        write_raw_tracks(tracks)
+        tc = json.loads((ROOT / "configs" / "training" / "train_musiclm_fma.json").read_text())
+        for stage in ("semantic", "coarse", "fine"):
+            tc[f"{stage}_trainer_cfg"].update(folder=str(tracks), num_train_steps=1)
+        tc["coarse_trainer_cfg"].update(num_train_steps=3, save_results_every=2, save_model_every=2)
+        tc["data_preprocessor_cfg"] = dict(folder=str(tracks), results_folder=str(store))
+        tc["clap_rvq_trainer_cfg"].update(folder=str(tracks), num_train_steps=2)
+        tc["hubert_kmeans_trainer_cfg"].update(folder=str(tracks), feature_extraction_num_steps=4)
+
+        def config(name, **stage_cfgs):
+            cfg = copy.deepcopy(tc)
+            for key, over in stage_cfgs.items():
+                cfg[key].update(over)
+            path = tmp / f"{name}.json"
+            path.write_text(json.dumps(cfg))
+            return ["--model_config", str(small), "--training_config", str(path), "--device", str(dev)]
+
+        ctc = tc["coarse_trainer_cfg"]
+        print(f"phase 9: {len(RAW_TRACKS)} seeded tracks ({sum(s for s, _ in RAW_TRACKS):.0f} s at 44.1 and "
+              f"48 kHz); coarse trainer config b{ctc['batch_size']} x accum {ctc['grad_accum_every']}", flush=True)
+
+        # (a) train_stage --stage coarse --bf16 on the fly: 3 steps, results and checkpoints every 2
+        res = tmp / "coarse"
+        reset()
+        t0 = time.perf_counter()
+        train_stage.main(["--stage", "coarse", "--bf16", "--results_folder", str(res)] + config("coarse"))
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read()
+        recs = log_of(res, "coarse")
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        valid = [(r["step"], r["valid_loss"], r["valid_accuracy"]) for r in recs if "valid_loss" in r]
+        print(f"  (a) train_stage coarse --bf16, 3 on-the-fly steps: {wall:.1f} s (tower build "
+              f"{build_s[-1]:.1f} s), losses {losses}, valid (step, loss, accuracy) {valid} [{card}]", flush=True)
+        if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+            fail(f"phase 9 coarse: train losses {losses}")
+        if [v[0] for v in valid] != [0, 2] or not all(math.isfinite(v[1]) and 0 <= v[2] <= 1 for v in valid):
+            fail(f"phase 9 coarse: valid metrics {valid}")
+        want = {"coarse.log.jsonl", "coarse.transformer.2.ckpt", "coarse.tokens.0.txt", "coarse.tokens.2.txt"}
+        want |= {f"coarse.recon.{s}.{i}.wav" for s in (0, 2) for i in (0, 1)}
+        got_files = {p.name for p in res.iterdir() if p.is_file()}
+        if not want <= got_files:
+            fail(f"phase 9 coarse: missing {sorted(want - got_files)}")
+        shapes = {wav_shape(res / f"coarse.recon.{s}.{i}.wav") for s in (0, 2) for i in (0, 1)}
+        print(f"    files {sorted(got_files)}; reconstructions (frames, rate) {shapes}")
+        if shapes != {(96000, 24000)}:
+            fail(f"phase 9 coarse: reconstructions {shapes}, want 4 s at 24 kHz")
+        per_step = 3 * ctc["grad_accum_every"] * mc.coarse_cfg.depth
+        print(f"    launches: {launches}")
+        if launches["attention_bwd"] != per_step or launches["attention_dbias"] != per_step \
+                or launches["prefill_attention"] < per_step:
+            fail(f"phase 9 coarse: kernels 1 / 5 / 6 launched {launches}, want 5 and 6 {per_step} times each")
+        if any(n for name, n in launches.items()
+               if name not in ("prefill_attention", "attention_bwd", "attention_dbias")):
+            fail(f"phase 9 coarse: a serving kernel launched in training: {launches}")
+        times = [r["time"] for r in recs if "train_loss" in r]
+        step_wall = times[2] - times[1]
+        train_s = [r["step_time_s"] for r in recs if "train_loss" in r][2]
+        print(f"    on-the-fly step 2: {step_wall:.3f} s wall (log times), train step {train_s:.3f} s, "
+              f"tokenizing (fetch) share {100 * (1 - train_s / step_wall):.1f} % [{card}]", flush=True)
+
+        # resume: the checkpoint of step 2 holds the state after 3 steps, so one
+        # more step, numbered 3; then one more on-the-fly step under the profiler
+        prof_out = {}
+        train = StageTrainer.train
+
+        def train_then_profile(self, state, data_iter, **kw):
+            state = train(self, state, data_iter, **kw)
+            sync()
+            with profile(activities=[ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * on_card) as prof:
+                t0 = time.perf_counter()
+                batch = next(data_iter)
+                sync()
+                t1 = time.perf_counter()
+                self.train_step(state, batch, kw.get("generator"))
+                sync()
+                t2 = time.perf_counter()
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+            prof_out.update(wall=t2 - t0, fetch=t1 - t0, train=t2 - t1, busy=busy)
+            return state
+
+        with Patched((StageTrainer, "train", train_then_profile)):
+            train_stage.main(["--stage", "coarse", "--bf16", "--results_folder", str(res),
+                              "--continue_from_dir", str(res)] + config("coarse_resume", coarse_trainer_cfg=dict(
+                                  num_train_steps=4)))
+        steps = [r["step"] for r in log_of(res, "coarse") if "train_loss" in r]
+        print(f"    resumed from coarse.transformer.2.ckpt with num_train_steps 4: logged steps {steps}")
+        if steps != [0, 1, 2, 3]:
+            fail(f"phase 9 coarse resume: logged steps {steps}, want [0, 1, 2, 3]")
+        p = prof_out
+        print(f"    profiled on-the-fly coarse step (b{ctc['batch_size']} x accum {ctc['grad_accum_every']}, "
+              f"bf16): {p['wall']:.3f} s wall, tokenizing (fetch) {p['fetch']:.3f} s = "
+              f"{100 * p['fetch'] / p['wall']:.1f} %, train step {p['train']:.3f} s; device busy "
+              f"{p['busy']:.3f} s, idle share {100 * (1 - p['busy'] / p['wall']):.1f} % [{card}]", flush=True)
+
+        # (a') one coarse micro-batch tokenized on the card in float32 against the CPU
+        fp32 = ["--model_config", str(small), "--device", str(dev), "--seed", "0"]
+        parser = argparse.ArgumentParser()
+        common.add_model_args(parser)
+        musiclm, _ = shared_build(parser.parse_args(fp32))
+        gpu = (musiclm.clap, musiclm.wav2vec, musiclm.codec)
+        cpu = (ClapQuantized(model=copy.deepcopy(musiclm.clap.model).cpu(),
+                             rvq=type(musiclm.clap.rvq)(*(None if t is None else t.cpu()
+                                                          for t in musiclm.clap.rvq)),
+                             num_quantizers=musiclm.clap.num_quantizers,
+                             codebook_size=musiclm.clap.codebook_size, sample_rate=musiclm.clap.sample_rate,
+                             clip_samples=musiclm.clap.clip_samples),
+               copy.deepcopy(musiclm.wav2vec).cpu(), copy.deepcopy(musiclm.codec).cpu())
+        ds = dataset.SoundDataset(folder=str(tracks), **pipeline.stage_ds_config("coarse", *gpu, g))
+        batch = tuple(np.stack(c) for c in zip(ds[0], ds[3]))
+        toks = pipeline.tokenize_audio_batch("coarse", batch, *gpu)
+        lens = omt_config.stage_example_lengths(mc, "coarse")
+        if tuple(t.shape[1] for t in toks) != lens:
+            fail(f"phase 9: coarse token lengths {[tuple(t.shape) for t in toks]}, want {lens}")
+        q_c = g.num_coarse_quantizers
+        b = torch.as_tensor(batch[0]), torch.as_tensor(batch[1]), torch.as_tensor(batch[2])
+        out = tower_tokens_check(torch, cpu, gpu, b[0], b[1], b[2],
+                                 (toks[0], toks[1], toks[2].reshape(2, -1, q_c)), "coarse micro-batch", dev)
+        print(f"  coarse micro-batch (b2: CLAP 10 s, HuBERT 4 s, Encodec 4 s) tokenized on the card in float32 "
+              f"vs the CPU: lengths {lens}; (decided and equal, near ties) {out}", flush=True)
+
+        # (b) one on-the-fly step each of the semantic and fine stages, their shipped batch x accum
+        for stage in ("semantic", "fine"):
+            cfg = tc[f"{stage}_trainer_cfg"]
+            res = tmp / stage
+            reset()
+            t0 = time.perf_counter()
+            train_stage.main(["--stage", stage, "--bf16", "--results_folder", str(res)] + config(stage))
+            sync()
+            wall = time.perf_counter() - t0
+            run = read()
+            recs = log_of(res, stage)
+            losses = [r["train_loss"] for r in recs if "train_loss" in r]
+            n = cfg["grad_accum_every"] * getattr(mc, f"{stage}_cfg").depth
+            print(f"  (b) train_stage {stage} --bf16, 1 on-the-fly step at b{cfg['batch_size']} x accum "
+                  f"{cfg['grad_accum_every']}: {wall:.1f} s, loss {losses}, launches {run} [{card}]", flush=True)
+            if len(losses) != 1 or not math.isfinite(losses[0]):
+                fail(f"phase 9 {stage}: train losses {losses}")
+            if run["attention_bwd"] != n or run["attention_dbias"] != n or run["prefill_attention"] < n:
+                fail(f"phase 9 {stage}: kernels 1 / 5 / 6 launched {run}, want 5 and 6 {n} times each")
+
+        # (c) preprocess_data over the folder (float32 towers), one track's
+        # tokens against the CPU, then one fine step on the store
+        t0 = time.perf_counter()
+        rows = preprocess_data.main(["--seed", "0"] + config("preprocess"))
+        pre_s = time.perf_counter() - t0
+        reader = ShardedTokenStore(str(store))
+        print(f"\n  (c) preprocess_data: {rows} rows in {pre_s:.1f} s, {pre_s / max(rows, 1):.2f} s a track "
+              f"(a 30 s crop at most; towers float32) [{card}]", flush=True)
+        if rows != len(RAW_TRACKS) or len(reader) != len(RAW_TRACKS):
+            fail(f"phase 9 preprocess: {rows} rows written, {len(reader)} in the store, want {len(RAW_TRACKS)}")
+        fields = ("clap", "semantic", "coarse", "fine")
+        clap_ids, sem, coarse, fine = (torch.from_numpy(a.astype(np.int64)) for a in reader.get(0, fields))
+        item = dataset.SoundDatasetForPreprocessing(
+            folder=str(tracks), pad_to_seconds=int(g.semantic_audio_length_seconds), max_length_seconds=(30,) * 3,
+            normalize=(False, True, False), target_sample_hz=(cpu[0].sample_rate, cpu[1].target_sample_hz,
+                                                              cpu[2].sample_rate),
+            seq_len_multiple_of=(None, cpu[1].seq_len_multiple_of, None))[0]
+        wave_clap, wave_sem, wave_ac = (torch.from_numpy(v) for v in item["data"])
+        sr, win = cpu[0].sample_rate, int(g.clap_audio_length_seconds) * cpu[0].sample_rate
+        windows = torch.stack([wave_clap[j * sr: j * sr + win] for j in range(CHECKED_CLAP_WINDOWS)])
+        codes = torch.cat([coarse, fine], dim=-1)
+        print(f"    track 0 ({Path(item['file_path']).name}, {RAW_TRACKS[0][0]} s cropped to 30 s): stored clap "
+              f"{tuple(clap_ids.shape)}, semantic {tuple(sem.shape)}, coarse {tuple(coarse.shape)}, fine "
+              f"{tuple(fine.shape)}", flush=True)
+        if clap_ids.shape[0] != 21 or sem.shape[1] != 30 * 50 - 1 or codes.shape[1] != 30 * 75:
+            fail(f"phase 9 preprocess: track 0's token shapes {[tuple(t.shape) for t in (clap_ids, sem, codes)]}")
+        out = tower_tokens_check(torch, cpu, gpu, windows, wave_sem[None], wave_ac[None],
+                                 (clap_ids[:CHECKED_CLAP_WINDOWS], sem, codes), "stored track 0", dev)
+        print(f"    stored tokens of track 0 vs the CPU (its first {CHECKED_CLAP_WINDOWS} CLAP windows, all its "
+              f"semantic ids and codes): (decided and equal, near ties) {out}", flush=True)
+        res = tmp / "fine_store"
+        reset()
+        train_stage.main(["--stage", "fine", "--bf16", "--results_folder", str(res)] + config(
+            "fine_store", fine_trainer_cfg=dict(folder=str(store), use_preprocessed_data=True)))
+        losses = [r["train_loss"] for r in log_of(res, "fine") if "train_loss" in r]
+        print(f"    train_stage fine --bf16 on the store: 1 step, loss {losses}, launches {read()}", flush=True)
+        if len(losses) != 1 or not math.isfinite(losses[0]) or not read()["attention_bwd"]:
+            fail(f"phase 9 fine on the store: losses {losses}, launches {read()}")
+
+        # (d) train_clap_rvq: 2 steps at the shipped batch x accumulate
+        rvq_cfg = tc["clap_rvq_trainer_cfg"]
+        step_s, mses = [], []
+        learn = ClapQuantized.learn_rvq_step
+
+        def timed_learn(self, embedding, *a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            new, mse = learn(self, embedding, *a, **kw)
+            mses.append(mse.item())
+            step_s.append(time.perf_counter() - t0)
+            return new, mse
+
+        res = tmp / "rvq"
+        t0 = time.perf_counter()
+        with Patched((ClapQuantized, "learn_rvq_step", timed_learn)):
+            state = train_clap_rvq.main(["--seed", "0", "--results_folder", str(res)] + config("rvq"))
+        wall = time.perf_counter() - t0
+        ckpts = sorted(p.name for p in res.iterdir())
+        back = load.load_rvq(str(res / "clap.rvq.1.ckpt"), mc, None, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(back, state))
+        print(f"\n  (d) train_clap_rvq: {rvq_cfg['num_train_steps']} steps of b{rvq_cfg['batch_size']} x accumulate "
+              f"{rvq_cfg['accumulate_batches']} ({rvq_cfg['batch_size'] * rvq_cfg['accumulate_batches']} embeddings "
+              f"a step) in {wall:.1f} s; the RVQ update (k-means init on step 0) {[round(s, 3) for s in step_s]} s; "
+              f"rvq_mse {mses}; {ckpts}; load_rvq reads clap.rvq.1.ckpt back "
+              f"{'equal' if same else 'DIFFERENT'} [{card}]", flush=True)
+        if len(mses) != 2 or not all(math.isfinite(m) for m in mses) or not bool(state.initted):
+            fail(f"phase 9 rvq: mse {mses}")
+        if ckpts != ["clap.rvq.0.ckpt", "clap.rvq.1.ckpt"] or not same:
+            fail(f"phase 9 rvq: checkpoints {ckpts}, read back equal {same}")
+
+        # (e) train_hubert_kmeans: 4 feature steps, 1024 clusters
+        fit_s = []
+        fit = tokenizer_trainers.HubertKmeansTrainer.fit
+
+        def timed_fit(self, *a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fit(self, *a, **kw)
+            sync()
+            fit_s.append(time.perf_counter() - t0)
+            return out
+
+        res = tmp / "kmeans"
+        t0 = time.perf_counter()
+        with Patched((tokenizer_trainers.HubertKmeansTrainer, "fit", timed_fit)):
+            cents = train_hubert_kmeans.main(["--seed", "0", "--results_folder", str(res)] + config("kmeans"))
+        wall = time.perf_counter() - t0
+        tree = torch.load(res / "kmeans.ckpt", map_location="cpu", weights_only=True)
+        back = load.load_kmeans(str(res / "kmeans.ckpt"), mc, None)
+        km = tc["hubert_kmeans_trainer_cfg"]
+        print(f"  (e) train_hubert_kmeans: {km['feature_extraction_num_steps']} steps of "
+              f"{km['feature_extraction_batch_size']} clips x 10 s, {tuple(cents.shape)} centroids in {wall:.1f} s, "
+              f"the fit (k-means++ and minibatch Lloyd's) {fit_s[0]:.2f} s, inertia "
+              f"{tree['inertia'].item():.4f}; load_kmeans reads it back "
+              f"{'equal' if torch.equal(back, cents) else 'DIFFERENT'} [{card}]", flush=True)
+        if tuple(cents.shape) != (mc.hubert_kmeans_cfg.codebook_size, 768) or not torch.equal(back, cents) \
+                or not math.isfinite(tree["inertia"].item()):
+            fail("phase 9 k-means: centroids, inertia or read-back")
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s (tower builds {[round(s, 1) for s in build_s]} s) "
+          f"[{card}]", flush=True)
+    return launches
+
+
 def kernel4_times(root: Path) -> int:
     """Kernel 4 alone at INT8_CASES in bf16 (device and stream ms, error
     against its plain version), from the port in ``root``: another checkout,
@@ -2105,7 +2506,35 @@ def kernel4_times(root: Path) -> int:
     return 0
 
 
+def phase9_only() -> int:
+    """Phase 1 (the build) and phase 9 alone, with the training kernels'
+    counts (kernels 1, 5 and 6)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on a card", file=sys.stderr)
+        return 2
+    from open_musiclm_torch import config as omt_config
+    from open_musiclm_torch.ops import attention, cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    cuda_lib.lib()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    bwd = attention.shared_kv_attention_bwd
+    counters = {"prefill_attention": (attention.shared_kv_attention_fused, "launches"),
+                "attention_bwd": (bwd, "launches"), "attention_dbias": (bwd, "dbias_launches")}
+    print(json.dumps({"phase9_launches": raw_audio_phase(torch, omt_config, torch.device("cuda"), card, counters)}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--kernel4":
         sys.exit(kernel4_times(Path(sys.argv[2])))
+    if len(sys.argv) == 2 and sys.argv[1] == "--phase9":
+        sys.exit(phase9_only())
     sys.exit(main())

@@ -1,5 +1,6 @@
-"""Shared flags and model assembly of the port's inference CLIs (port of
-scripts/common.py: ``add_model_args`` and ``build_musiclm``).
+"""Shared flags and model assembly of the port's CLIs (port of
+scripts/common.py: ``add_model_args``, ``add_training_args`` and
+``build_musiclm``).
 
 The flags are the JAX CLIs', plus ``--device`` (default ``cuda``; ``cpu``
 runs the kernels' plain versions). Paths take the port's checkpoints or the
@@ -42,6 +43,14 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="accepted for the JAX CLIs' flags; the port takes the exact top-k "
                    "(approx_max_k is a TPU op)")
     p.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
+
+
+def add_training_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--training_config",
+                   default=str(REPO_ROOT / "configs/training/train_musiclm_fma.json"))
+    p.add_argument("--results_folder", default="./results")
+    p.add_argument("--continue_from_dir", default=None)
+    p.add_argument("--fine_tune_from", default=None)
 
 
 def build_musiclm(args):

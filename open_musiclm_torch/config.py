@@ -21,7 +21,7 @@ from .models.clap.model_configs import audio_config_from_name
 from .models.clap.roberta import RobertaConfig
 from .models.encodec import EncodecModel, create_encodec_24khz
 from .models.hubert import HubertConfig, HubertModel, HubertWithKmeans
-from .models.rvq import RVQState, rvq_init
+from .models.rvq import rvq_init, rvq_to
 from .models.stages import (
     Stage,
     create_coarse_transformer,
@@ -289,7 +289,7 @@ def build_clap(mc: MusicLMModelConfig, generator=None, *, device="cuda",
     audio_cfg = audio_config_from_name(cfg.amodel_type, enable_fusion=cfg.enable_fusion)
     model = CLAP(RobertaConfig(), generator=generator, audio_cfg=audio_cfg, compute_dtype=dtype)
     rvq = rvq_init(cfg.rq_num_quantizers, cfg.codebook_size, JOINT_EMBED, generator)
-    return ClapQuantized(model=model.to(device).eval(), rvq=RVQState(rvq.codebooks.to(device)),
+    return ClapQuantized(model=model.to(device).eval(), rvq=rvq_to(rvq, device),
                          num_quantizers=cfg.rq_num_quantizers, codebook_size=cfg.codebook_size,
                          sample_rate=audio_cfg.sample_rate, clip_samples=audio_cfg.clip_samples)
 

@@ -313,5 +313,5 @@ def kmeans_centroids(centroids) -> torch.Tensor:
 
 def rvq_state(rvq) -> RVQState:
     """A JAX ``RVQState`` (or anything with ``codebooks`` [Q, K, D]) -> the
-    port's RVQState; the EMA statistics are training state and stay behind."""
-    return RVQState(_t(rvq.codebooks))
+    port's RVQState, with the EMA training state where ``rvq`` has one."""
+    return RVQState(*(None if a is None else _t(a) for a in (getattr(rvq, f, None) for f in RVQState._fields)))

@@ -12,11 +12,140 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import random
+from pathlib import Path
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .audio_io import read_audio, resample_np
 from .tokenstore import ShardedTokenStore
+
+AUDIO_EXTS = ("wav", "flac", "mp3")
+
+
+def zero_mean_unit_var_np(x: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Each row to zero mean and unit (unbiased) variance."""
+    n = x.shape[-1]
+    var = x.var(axis=-1, keepdims=True) * n / max(n - 1, 1)
+    return (x - x.mean(axis=-1, keepdims=True)) / np.sqrt(var + eps)
+
+
+def int16_round_trip_np(x: np.ndarray) -> np.ndarray:
+    return ((np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16)).astype(np.float32) / 32767.0
+
+
+def _cast_tuple(v, n):
+    return v if isinstance(v, tuple) else (v,) * n
+
+
+@dataclasses.dataclass
+class SoundDataset:
+    """Nested multi-rate views of random crops of the audio files under
+    ``folder``: one view per entry of ``target_sample_hz``."""
+
+    folder: str
+    max_length_seconds: Tuple[Optional[float], ...] = (1.0,)
+    normalize: Tuple[bool, ...] = (False,)
+    target_sample_hz: Tuple[Optional[int], ...] = (None,)
+    seq_len_multiple_of: Tuple[Optional[int], ...] = (None,)
+    ignore_files: Optional[List[str]] = None
+    ignore_load_errors: bool = True
+    random_crop: bool = True
+    exts: Tuple[str, ...] = AUDIO_EXTS
+    seed: int = 0
+
+    def __post_init__(self):
+        n = len(self.target_sample_hz)
+        self.max_length_seconds = _cast_tuple(self.max_length_seconds, n)
+        self.normalize = _cast_tuple(self.normalize, n)
+        self.seq_len_multiple_of = _cast_tuple(self.seq_len_multiple_of, n)
+        ignore = {f.split("/")[-1] for f in (self.ignore_files or [])}
+        files: List[Path] = []
+        for ext in self.exts:
+            files.extend(f for f in Path(self.folder).glob(f"**/*.{ext}") if f.name not in ignore)
+        if not files:
+            raise FileNotFoundError(f"no sound files found in {self.folder}")
+        self.files = sorted(files)
+        self._rng = random.Random(self.seed)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def _load(self, idx: int) -> Tuple[np.ndarray, int]:
+        data, sr = read_audio(str(self.files[idx]))
+        return data[None, :], sr  # [1, T] mono
+
+    def __getitem__(self, idx: int):
+        try:
+            data, sr = self._load(idx)
+        except Exception:
+            if self.ignore_load_errors:
+                return self[self._rng.randrange(len(self))]
+            raise
+        return self.process_audio(data, sr, pad_to_target_length=True)
+
+    def process_audio(self, data: np.ndarray, sample_hz: int, pad_to_target_length: bool = True):
+        """[1, T] at ``sample_hz`` -> one float32 [T_i] view per target rate
+        (a bare array when there is one view). Longest view first: a view
+        shorter than the audio so far is a random crop of it, a longer one
+        is zero-padded when ``pad_to_target_length``."""
+        temp, temp_norm = data, zero_mean_unit_var_np(data)
+        n = len(self.target_sample_hz)
+        views: List[Optional[np.ndarray]] = [None] * n
+        order = sorted(enumerate(self.max_length_seconds), key=lambda t: (t[1] is not None, t[1]))
+        for unsorted_i, max_len_s in order:
+            if max_len_s is not None:
+                audio_len = temp.shape[1]
+                target = int(max_len_s * sample_hz)
+                if audio_len > target:
+                    start = self._rng.randrange(audio_len - target) if self.random_crop else 0
+                    temp = temp[:, start: start + target]
+                    temp_norm = temp_norm[:, start: start + target]
+                elif pad_to_target_length:
+                    pad = target - audio_len
+                    temp = np.pad(temp, ((0, 0), (0, pad)))
+                    temp_norm = np.pad(temp_norm, ((0, 0), (0, pad)))
+            views[unsorted_i] = temp_norm if self.normalize[unsorted_i] else temp
+
+        out = []
+        for i, (view, tsr, mult) in enumerate(zip(views, self.target_sample_hz, self.seq_len_multiple_of)):
+            v = view
+            if tsr is not None and tsr != sample_hz:
+                v = resample_np(v[0], sample_hz, tsr)[None]
+            if not self.normalize[i]:
+                v = int16_round_trip_np(v)
+            v = v[0]
+            if mult is not None:
+                v = v[: (len(v) // mult) * mult]
+            out.append(v.astype(np.float32))
+        return out[0] if n == 1 else tuple(out)
+
+
+@dataclasses.dataclass
+class SoundDatasetForPreprocessing(SoundDataset):
+    """Whole tracks: a track shorter than ``pad_to_seconds`` is repeated
+    and zero-padded up to it, a longer one zero-padded to a whole second
+    (a whole second more when it already is one), then cut into views as
+    ``SoundDataset`` does without padding. An unreadable file gives None."""
+
+    pad_to_seconds: int = 10
+
+    def __getitem__(self, idx: int):
+        try:
+            data, sr = self._load(idx)
+        except Exception:
+            if self.ignore_load_errors:
+                return None
+            raise
+        max_len = self.pad_to_seconds * sr
+        T = data.shape[1]
+        if T < max_len:
+            data = np.tile(data, (1, max_len // T))
+            data = np.pad(data, ((0, 0), (0, max_len - data.shape[1])))
+        else:
+            data = np.pad(data, ((0, 0), (0, sr - T % sr)))
+        return {"idx": idx, "data": self.process_audio(data, sr, pad_to_target_length=False),
+                "file_path": str(self.files[idx])}
 
 
 @dataclasses.dataclass
@@ -86,7 +215,9 @@ class PreprocessedDataset:
 
 
 def pad_to_longest(batch: List[Tuple[np.ndarray, ...]]) -> Tuple[np.ndarray, ...]:
-    """Stack per-example tuples, right-padding dim 0 to the longest."""
+    """Stack per-example tuples, right-padding dim 0 to the longest. A bare
+    array (a one-view ``SoundDataset``) is a tuple of one."""
+    batch = [(x,) if isinstance(x, np.ndarray) else x for x in batch]
     out = []
     for col in zip(*batch):
         maxlen = max(x.shape[0] for x in col)
@@ -99,20 +230,25 @@ def batch_iterator(
     dataset,
     batch_size: int,
     *,
+    shuffle: bool = True,
     seed: int = 0,
     num_workers: int = 4,
+    collate=pad_to_longest,
     indices: Optional[Sequence[int]] = None,
+    flatten_token_batches: bool = True,
 ) -> Iterator[Tuple[np.ndarray, ...]]:
-    """Infinite threaded prefetching batch iterator over shuffled epochs.
-    Token tuples from PreprocessedDataset are padded to the longest and
-    flattened to [B, n] per sequence."""
+    """Infinite threaded prefetching batch iterator over (shuffled) epochs.
+    Items that come back None are dropped and replaced. With
+    ``flatten_token_batches`` the token tuples of PreprocessedDataset are
+    flattened to [B, n] per sequence; audio views stay [B, T]."""
     idxs = list(indices if indices is not None else range(len(dataset)))
     rng = random.Random(seed)
 
     def sample_indices():
         while True:
             order = idxs[:]
-            rng.shuffle(order)
+            if shuffle:
+                rng.shuffle(order)
             yield from order
 
     index_stream = sample_indices()
@@ -125,8 +261,10 @@ def batch_iterator(
             results = [r for r in (f.result() for f in items) if r is not None]
             while len(results) < batch_size:
                 results.append(dataset[next(index_stream)])
-            yield tuple(b.reshape(b.shape[0], -1) if b.ndim > 2 else b
-                        for b in pad_to_longest(results))
+            batch = collate(results)
+            if flatten_token_batches:
+                batch = tuple(b.reshape(b.shape[0], -1) if b.ndim > 2 else b for b in batch)
+            yield batch
 
 
 def train_valid_split(n: int, valid_frac: float, seed: int = 42):

@@ -6,7 +6,7 @@ codebook, the Encodec codec and the tokenizer. Every path is a file, in one
 of two layouts:
   * the port's own checkpoint (``checkpoint.save_checkpoint``): a module's
     ``state_dict`` (for a stage also a trainer checkpoint's ``{"model": ...}``),
-    an RVQ's ``{"codebooks": ...}`` or k-means ``{"centroids": ...}``;
+    an RVQ's ``{"codebooks": ...}`` or whole state, k-means ``{"centroids": ...}``;
   * the reference ecosystem's file, read through ``import_torch``: a stage
     ``.pt``, the Encodec / HuBERT / laion CLAP state dicts, a
     ``vector_quantize_pytorch`` ResidualVQ, a scikit-learn k-means joblib.
@@ -36,7 +36,7 @@ from .config import (
 )
 from .models.clap.tokenizer import load_tokenizer
 from .models.musiclm import MusicLM
-from .models.rvq import RVQState, rvq_init
+from .models.rvq import RVQState, rvq_init, rvq_to
 from .models.stages import Stage
 
 _TORCH_ZIP_MAGIC = b"PK\x03\x04"
@@ -95,7 +95,8 @@ def load_stage(mc: MusicLMModelConfig, stage_name: str, path: Optional[str], see
 
 def load_rvq(path: Optional[str], mc: MusicLMModelConfig, generator: Optional[torch.Generator],
              *, device="cuda") -> RVQState:
-    """The CLAP's residual VQ: the port's ``{"codebooks": ...}``, a
+    """The CLAP's residual VQ: the port's ``{"codebooks": ...}`` or a whole
+    ``RVQState`` (``ClapRVQTrainer``'s ``clap.rvq.{step}.ckpt``), a
     ResidualVQ state dict, or standard-normal Q x K x 512 codebooks."""
     device = target_device(device, "load_rvq")
     cfg = mc.clap_rvq_cfg
@@ -103,9 +104,11 @@ def load_rvq(path: Optional[str], mc: MusicLMModelConfig, generator: Optional[to
         rvq = rvq_init(cfg.rq_num_quantizers, cfg.codebook_size, 512, generator)
     else:
         tree = _read(path)
-        rvq = RVQState(tree["codebooks"]) if set(tree) == {"codebooks"} else it.import_rvq(
-            it.numpy_state_dict(tree))
-    return RVQState(rvq.codebooks.to(device))
+        if "codebooks" in tree and set(tree) <= set(RVQState._fields):
+            rvq = RVQState(**tree)
+        else:
+            rvq = it.import_rvq(it.numpy_state_dict(tree))
+    return rvq_to(rvq, device)
 
 
 def load_kmeans(path: Optional[str], mc: MusicLMModelConfig, generator: Optional[torch.Generator]) -> torch.Tensor:

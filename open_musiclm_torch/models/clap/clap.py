@@ -13,7 +13,8 @@ laion CLAP checkpoint (``text_branch.*``, ``audio_branch.*``,
 ``logit_scale_{t,a}``). A fusion CLAP (``enable_fusion``, musiclm_large)
 embeds every clip through the four-view mel stack (``wav_to_mel_fusion``),
 a clip-length one with ``longer`` unset; longer clips keep their whole
-length. PANN and the RVQ's EMA training are not ported yet.
+length. ``learn_rvq_step`` is one step of the RVQ's EMA training. PANN is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 from torch import nn
 
 from ...ops.audio import int16_round_trip
-from ..rvq import RVQState, rvq_encode
+from ..rvq import RVQState, rvq_encode, rvq_update
 from .fusion import build_mel_fusion
 from .htsat import HTSAT, HTSATConfig
 from .mel import logmel
@@ -182,5 +183,12 @@ class ClapQuantized:
     def tokenize_audio(self, wav: torch.Tensor) -> torch.Tensor:
         return self.quantize(self.audio_embedding(wav))
 
-    def learn_rvq_step(self, embedding, *args, **kwargs):
-        raise NotImplementedError("the RVQ's EMA training is not ported yet")
+    def learn_rvq_step(self, embedding: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+                       decay: float = 0.95, threshold_ema_dead_code: float = 0.0):
+        """One EMA RVQ update on a batch of embeddings [n, joint]. Returns
+        (a copy of self with the new RVQ, the mean squared quantization
+        error as a 0-d tensor)."""
+        embedding = embedding.to(self.rvq.codebooks.device, self.rvq.codebooks.dtype)
+        new_state, quant, _ = rvq_update(self.rvq, embedding, generator, decay=decay,
+                                         threshold_ema_dead_code=threshold_ema_dead_code)
+        return dataclasses.replace(self, rvq=new_state), (quant - embedding).square().mean()

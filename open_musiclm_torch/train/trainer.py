@@ -4,9 +4,12 @@ One device, no mesh. A step is the forward and backward of
 ``stage_training_loss`` for each of ``accum`` microbatches, the mean of
 their gradients and losses, then the optimizer (global-norm clip, AdamW with
 warmup; train/optimizer.py). Evaluation gives the valid loss and the token
-accuracy of the final sequence. Metrics go to ``{stage}.log.jsonl``;
-checkpoints are ``{stage}.transformer.{step}.ckpt``. TensorBoard, wandb and
-the artifact dumps are not ported.
+accuracy of the final sequence. Metrics go to ``{stage}.log.jsonl``, and
+to TensorBoard (``tb/{stage}`` under the results folder) and wandb where
+those packages are installed (a missing package skips its sink);
+checkpoints are ``{stage}.transformer.{step}.ckpt``. At the
+``save_results_every`` cadence ``train`` hands the valid batch to an
+``artifact_fn`` (train/artifacts.py through ``artifact_logits``).
 
 Randomness (FF dropout, the forgetful causal mask) comes from an explicit
 ``torch.Generator`` on the model's device.
@@ -19,8 +22,9 @@ import json
 import signal
 import time
 from pathlib import Path
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..checkpoint import load_checkpoint, save_checkpoint
@@ -81,10 +85,33 @@ class StageTrainer:
     save_model_every: int = 1000
     save_results_every: int = 250
     stage_name: str = "stage"
+    use_tensorboard: bool = True
+    # wandb: no-op where the package is absent or its init fails;
+    # ``wandb_run_config`` is the run's recorded hyperparameters
+    use_wandb: bool = False
+    wandb_project: str = "open-musiclm-tpu"
+    wandb_run_config: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
         Path(self.results_folder).mkdir(parents=True, exist_ok=True)
         self._log_path = Path(self.results_folder) / f"{self.stage_name}.log.jsonl"
+        self._tb = None
+        if self.use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(str(Path(self.results_folder) / "tb" / self.stage_name))
+            except Exception:
+                self._tb = None
+        self._wandb = None
+        if self.use_wandb:
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project=self.wandb_project, name=f"{self.stage_name}_{int(time.time())}",
+                                         dir=self.results_folder, config=self.wandb_run_config or {})
+            except Exception:
+                self._wandb = None
 
     @property
     def device(self) -> torch.device:
@@ -134,15 +161,27 @@ class StageTrainer:
         return state, loss_sum
 
     @torch.no_grad()
+    def _eval(self, state: TrainState, batch: Sequence[torch.Tensor],
+              generator: Optional[torch.Generator] = None):
+        """(loss, final sequence's logits [B, n, vocab], its labels [B, n])
+        of the model in eval mode on a batch of [B, n_i]."""
+        state.model.eval()
+        loss, aux = stage_training_loss(
+            state.model, list(self._on_device(batch)), self.loss_cfg, generator=generator, train=False)
+        return loss, aux["logits"][-1], aux["labels"][-1]
+
     def eval_step(self, state: TrainState, batch: Sequence[torch.Tensor],
                   generator: Optional[torch.Generator] = None):
         """batch: tuple of [B, n_i]. Returns (loss, accuracy of the final
         sequence) as 0-d tensors."""
-        batch = self._on_device(batch)
-        state.model.eval()
-        loss, aux = stage_training_loss(
-            state.model, list(batch), self.loss_cfg, generator=generator, train=False)
-        return loss, token_accuracy(aux["logits"][-1], aux["labels"][-1])
+        loss, logits, labels = self._eval(state, batch, generator)
+        return loss, token_accuracy(logits, labels)
+
+    def artifact_logits(self, state: TrainState, batch: Sequence[torch.Tensor],
+                        generator: Optional[torch.Generator] = None):
+        """The final sequence's (logits, labels) on a valid batch, for the
+        artifact dumps."""
+        return self._eval(state, batch, generator)[1:]
 
     # ---- logs and checkpoints ----
 
@@ -151,6 +190,40 @@ class StageTrainer:
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(self._log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in metrics.items():
+                try:
+                    self._tb.add_scalar(k, float(v), int(step))
+                except Exception:
+                    pass
+        if self._wandb is not None:
+            try:
+                self._wandb.log({k: float(v) for k, v in metrics.items()}, step=int(step))
+            except Exception:
+                pass
+
+    def log_audio(self, step: int, tag: str, waves, sample_rate: int):
+        """Reconstruction audio to the trackers. ``waves``: [n, T] (or [T])
+        in [-1, 1]."""
+        if self._tb is None and self._wandb is None:
+            return
+        waves = torch.as_tensor(waves).detach().float().cpu().numpy()
+        if waves.ndim == 1:
+            waves = waves[None]
+        if self._tb is not None:
+            try:
+                for i, w in enumerate(waves):
+                    self._tb.add_audio(f"{tag}.{i}", torch.from_numpy(w)[None], int(step), sample_rate=sample_rate)
+            except Exception:
+                pass
+        if self._wandb is not None:
+            try:
+                import wandb
+
+                self._wandb.log({tag: [wandb.Audio(np.asarray(w), sample_rate=sample_rate, caption=f"{tag}.{i}")
+                                       for i, w in enumerate(waves)]}, step=int(step))
+            except Exception:
+                pass
 
     def checkpoint_path(self, step: int) -> str:
         return str(Path(self.results_folder) / f"{self.stage_name}.transformer.{step}.ckpt")
@@ -175,10 +248,12 @@ class StageTrainer:
 
     def train(self, state: TrainState, data_iter: Iterator, *, num_steps: int,
               generator: Optional[torch.Generator] = None,
-              valid_iter: Optional[Iterator] = None) -> TrainState:
+              valid_iter: Optional[Iterator] = None,
+              artifact_fn: Optional[Callable] = None) -> TrainState:
         """The reference train loop: steps, the valid metrics every
-        ``save_results_every`` steps, a checkpoint every ``save_model_every``,
-        and on SIGTERM/SIGINT a checkpoint and a clean stop."""
+        ``save_results_every`` steps (then ``artifact_fn(state, valid_batch,
+        step)``), a checkpoint every ``save_model_every``, and on
+        SIGTERM/SIGINT a checkpoint and a clean stop."""
         timer = StepTimer(device=self.device)
         stop = _PreemptionGuard()
         try:
@@ -195,8 +270,11 @@ class StageTrainer:
                 if valid_iter is not None and self.save_results_every and (
                     step % self.save_results_every == 0
                 ):
-                    vloss, vacc = self.eval_step(state, next(valid_iter), generator)
+                    vb = next(valid_iter)
+                    vloss, vacc = self.eval_step(state, vb, generator)
                     self.log(step, valid_loss=vloss, valid_accuracy=vacc)
+                    if artifact_fn is not None:
+                        artifact_fn(state, vb, step)
                 if self.save_model_every and step > 0 and step % self.save_model_every == 0:
                     self.save(state, step)
         finally:

@@ -334,10 +334,12 @@ def test_build_clap(monkeypatch):
 
 
 def test_unported_clap_paths_raise():
-    """What is still unported raises NotImplementedError: the RVQ's EMA
-    training, the PANN towers and the HTSAT presets other than HTSAT-tiny; a
-    CLAP built without an audio tower refuses audio. (The fusion CLAP is
-    held to JAX in tests/test_torch_fusion.py.)"""
+    """What is still unported raises NotImplementedError: the PANN towers
+    and the HTSAT presets other than HTSAT-tiny; a CLAP built without an
+    audio tower refuses audio; the RVQ's EMA training (ported, held to JAX in
+    tests/test_torch_tokenizer_trainers.py) refuses a first batch of fewer
+    embeddings than codes. (The fusion CLAP is held to JAX in
+    tests/test_torch_fusion.py.)"""
     from open_musiclm_torch import config as tconfig
     from open_musiclm_torch.models.clap.model_configs import audio_config_from_name
 
@@ -345,13 +347,14 @@ def test_unported_clap_paths_raise():
     clap = ClapQuantized(model=model, rvq=rvq_state(j_rvq_init(N_CLAP_Q, CB, 16, jax.random.PRNGKey(0))))
     mc = tconfig.load_model_config(str(Path(__file__).resolve().parents[1] / "configs/model/musiclm_small.json"))
     pann = dataclasses.replace(mc, clap_rvq_cfg=dataclasses.replace(mc.clap_rvq_cfg, amodel_type="PANN-14"))
-    for call in (lambda: clap.learn_rvq_step(torch.zeros(1, 16)),
-                 lambda: tconfig.build_clap(pann, device="cpu"),
+    for call in (lambda: tconfig.build_clap(pann, device="cpu"),
                  lambda: audio_config_from_name("HTSAT-base")):
         with pytest.raises(NotImplementedError):
             call()
     with pytest.raises(ValueError, match="audio tower"):
         clap.audio_embedding(torch.zeros(1, 8))
+    with pytest.raises(ValueError, match="at least codebook_size"):
+        clap.learn_rvq_step(torch.zeros(CB - 1, 16))
 
 
 def test_text_path_imports_no_jax():

@@ -871,3 +871,134 @@ def test_int16_round_trip_matches_cpu(dev):
 
     x = torch.linspace(-1.2, 1.2, 200003)
     torch.testing.assert_close(int16_round_trip(x.to(dev)).cpu(), int16_round_trip(x), atol=0, rtol=0)
+
+
+# Stage training from raw audio: small towers built from seeds on the CPU,
+# copied to the card. A nearest-code choice whose CPU margin (second-best
+# less best squared distance) is under TOKEN_TIE may go either way with
+# float32 sums in another order, and is not checked.
+TOKEN_TIE = 1e-3
+
+
+def _small_tokenizers():
+    """CLAP (a 2-stage HTSAT at 8 kHz, a 4 x 16 RVQ over 16-d embeddings),
+    HuBERT (16x downsample, a 16-entry k-means) and Encodec (24 kHz, hop
+    320, 2 filters) with seeded weights, float32, on the CPU, in eval mode."""
+    from open_musiclm_torch.models.clap.clap import CLAP, ClapQuantized
+    from open_musiclm_torch.models.clap.htsat import HTSATConfig
+    from open_musiclm_torch.models.clap.roberta import RobertaConfig
+    from open_musiclm_torch.models.encodec import EncodecModel
+    from open_musiclm_torch.models.hubert import HubertConfig, HubertModel, HubertWithKmeans
+    from open_musiclm_torch.models.rvq import rvq_init
+
+    g = torch.Generator().manual_seed(3)
+    audio = HTSATConfig(spec_size=32, patch_size=4, patch_stride=(4, 4), embed_dim=16, depths=(1, 1),
+                        num_heads=(2, 4), window_size=4, num_classes=10, mel_bins=8, sample_rate=8000,
+                        window_size_fft=64, hop_size=40, fmin=50.0, fmax=3500.0, clip_samples=5080)
+    text = RobertaConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+                         intermediate_size=64, max_position_embeddings=40)
+    clap = ClapQuantized(model=CLAP(text, joint_embed_shape=16, generator=g, audio_cfg=audio).eval(),
+                         rvq=rvq_init(4, 16, 16, g), num_quantizers=4, codebook_size=16, sample_rate=8000,
+                         clip_samples=5080)
+    hcfg = HubertConfig(conv_dim=(16,) * 7, hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+                        intermediate_size=64, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+                        conv_kernel=(4, 3, 2, 2, 1, 1, 1), conv_stride=(2, 2, 2, 2, 1, 1, 1))
+    w2v = HubertWithKmeans(HubertModel(hcfg, generator=g), torch.randn(16, 32, generator=g), embed_layer=1,
+                           target_sample_hz=160, seq_len_multiple_of=16, output_hz=10).eval()
+    codec = EncodecModel(num_quantizers=4, codebook_size=16, dimension=8, n_filters=2, generator=g).eval()
+    return clap, w2v, codec
+
+
+def _decided(x, books, ids):
+    """[n] bool: rows of x [n, D] whose residual nearest-code choices ids
+    [n, Q] over books [Q, K, D] are each decided by more than TOKEN_TIE."""
+    x, ok = x.double(), torch.ones(len(x), dtype=torch.bool)
+    for q, cb in enumerate(books.double()):
+        d2 = torch.cdist(x, cb) ** 2
+        two = d2.topk(2, dim=-1, largest=False).values
+        ok &= (two[:, 1] - two[:, 0] > TOKEN_TIE) & (d2.argmin(-1) == ids[:, q])
+        x = x - cb[ids[:, q]]
+    return ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["semantic", "coarse", "fine"])
+def test_tokenizing_iterator_on_card_matches_cpu(dev, stage):
+    """Two batches of 2 of a stage's views (2 s CLAP, 1 s semantic and
+    acoustic windows): the token batches [2, 2, n_i] on the card equal the
+    CPU's at every position the CPU decides beyond a near tie."""
+    import copy
+
+    import numpy as np
+
+    from open_musiclm_torch.data.pipeline import tokenizing_iterator
+
+    cpu = _small_tokenizers()
+    gpu = tuple(copy.deepcopy(m).to(dev) for m in cpu[1:])
+    clap_gpu = copy.copy(cpu[0])
+    clap_gpu.model = copy.deepcopy(cpu[0].model).to(dev)
+    clap_gpu.rvq = type(cpu[0].rvq)(*(None if t is None else t.to(dev) for t in cpu[0].rvq))
+    rng = np.random.default_rng(0)
+    lens = {"semantic": (16000, 320), "coarse": (16000, 160, 24000), "fine": (16000, 24000)}[stage]
+    batches = [tuple((0.3 * rng.standard_normal((2, n))).astype(np.float32) for n in lens) for _ in range(2)]
+    want = next(tokenizing_iterator(stage, iter(batches), *cpu, num_coarse_quantizers=2, accum=2))
+    got = next(tokenizing_iterator(stage, iter(batches), clap_gpu, *gpu, num_coarse_quantizers=2, accum=2))
+    assert all(t.device.type == dev.type and t.dtype == torch.long for t in got)
+    clap, w2v, codec = cpu
+    near = total = 0
+    for a, batch in enumerate(batches):
+        with torch.no_grad():
+            emb = clap.audio_embedding(torch.from_numpy(batch[0]))
+            masks = [_decided(emb, clap.rvq.codebooks, want[0][a])[:, None].expand(-1, 4)]
+            if stage != "fine":
+                f = w2v.features(torch.from_numpy(batch[1]))
+                masks.append(_decided(f.reshape(-1, f.shape[-1]), w2v.centroids[None],
+                                      want[1][a].reshape(-1, 1)).reshape(2, -1))
+            if stage != "semantic":
+                z = codec.embed(torch.from_numpy(batch[-1]))
+                codes = codec.quantize_embedding(z)
+                ok = _decided(z.reshape(-1, 8), codec.codebooks, codes.reshape(-1, 4)).reshape(2, -1)
+                masks += [ok.repeat_interleave(2, 1)] * (1 if stage == "coarse" else 2)
+        for t, w, m in zip(got, want, masks):
+            assert torch.equal(t[a].cpu()[m], w[a][m])
+            near, total = near + int((~m).sum()), total + m.numel()
+    assert near <= 0.1 * total
+
+
+@pytest.mark.cuda
+def test_train_with_artifact_fn_launches_training_kernels(dev, tmp_path):
+    """StageTrainer.train on the card, 2 steps at accum 2 with a valid batch
+    and an artifact_fn at the save_results cadence: kernels 5 and 6 once a
+    layer and micro-batch, kernel 1 in every forward (the training steps,
+    the valid step and artifact_logits), and the token dump written."""
+    from open_musiclm_torch.core.sequence import TokenSequenceSpec
+    from open_musiclm_torch.models.token_cond import StageLossConfig, TokenConditionedTransformer
+    from open_musiclm_torch.train.artifacts import save_predicted_tokens
+    from open_musiclm_torch.train.trainer import StageTrainer
+
+    g = torch.Generator().manual_seed(0)
+    model = TokenConditionedTransformer((TokenSequenceSpec(16, 2), TokenSequenceSpec(16, 1)), 128, 2, heads=2,
+                                        dim_head=64, generator=g).to(dev)
+    trainer = StageTrainer(model=model, loss_cfg=StageLossConfig((0.5, 1.0)), grad_accum_every=2,
+                           results_folder=str(tmp_path), save_results_every=1, stage_name="coarse",
+                           use_tensorboard=False)
+
+    def batches(accum):
+        while True:
+            yield (torch.randint(0, 16, (accum, 2, 6), generator=g), torch.randint(0, 16, (accum, 2, 40), generator=g))
+
+    calls = []
+
+    def artifact_fn(state, vb, step):
+        logits, labels = trainer.artifact_logits(state, vb)
+        calls.append((step, tuple(logits.shape), logits.device.type == dev.type))
+        save_predicted_tokens(logits, labels, str(tmp_path), "coarse", step)
+
+    fwd, bwd = attention.shared_kv_attention_fused, attention.shared_kv_attention_bwd
+    fwd.launches = bwd.launches = bwd.dbias_launches = 0
+    trainer.train(trainer.init_state(), batches(2), num_steps=2, generator=torch.Generator(device=dev).manual_seed(0),
+                  valid_iter=(tuple(t[0] for t in b) for b in batches(1)), artifact_fn=artifact_fn)
+    assert (bwd.launches, bwd.dbias_launches) == (2 * 2 * 2, 2 * 2 * 2)
+    assert fwd.launches == 2 * 2 * 2 + 2 * 2 * 2  # train forwards, then a valid step and artifact_logits a step
+    assert calls == [(0, (2, 41, 17), True), (1, (2, 41, 17), True)]
+    assert (tmp_path / "coarse.tokens.1.txt").exists()

@@ -378,7 +378,7 @@ def test_trainer_matches_jax(tmp_path):
 
     model = port_model(jmodel, jparams)
     trainer = StageTrainer(model=model, loss_cfg=StageLossConfig(weights, mask_prob=0.0),
-                           results_folder=str(tmp_path / "port"), **hp)
+                           results_folder=str(tmp_path / "port"), use_tensorboard=False, **hp)
     state = trainer.init_state()
     state.optimizer.eps = 1e-2
     for step in range(3):
@@ -420,7 +420,7 @@ def _learnable_batch(rng, accum, batch):
 
 def test_trainer_loss_falls_and_checkpoint_roundtrip(tmp_path):
     trainer = StageTrainer(model=_tiny_port_model(), loss_cfg=StageLossConfig((0.0, 1.0)),
-                           lr=1e-3, lr_warmup=5, grad_accum_every=2,
+                           lr=1e-3, lr_warmup=5, grad_accum_every=2, use_tensorboard=False,
                            results_folder=str(tmp_path), stage_name="test")
     state = trainer.init_state()
     rng = np.random.default_rng(1)
@@ -437,7 +437,7 @@ def test_trainer_loss_falls_and_checkpoint_roundtrip(tmp_path):
     path = find_latest_checkpoint(str(tmp_path), "test.transformer")
     assert path is not None and path.endswith("test.transformer.40.ckpt")
     other = StageTrainer(model=_tiny_port_model(seed=7), loss_cfg=trainer.loss_cfg,
-                         results_folder=str(tmp_path), stage_name="test")
+                         results_folder=str(tmp_path), stage_name="test", use_tensorboard=False)
     restored = other.load(path)
     assert restored.step == 40 and restored.optimizer.count == state.optimizer.count
     for (name, a), b in zip(state.model.state_dict().items(), restored.model.state_dict().values()):
@@ -457,7 +457,7 @@ def test_find_latest_checkpoint(tmp_path):
 
 def test_preemption_guard_saves_and_stops(tmp_path):
     trainer = StageTrainer(model=_tiny_port_model(), loss_cfg=StageLossConfig((0.0, 1.0)),
-                           results_folder=str(tmp_path), stage_name="test")
+                           results_folder=str(tmp_path), stage_name="test", use_tensorboard=False)
     rng = np.random.default_rng(2)
 
     def batches():
