@@ -110,6 +110,25 @@ Phases, each of which fails the run:
      rvq_mse, clap.rvq.*.ckpt read back equal by load.load_rvq) and
      train_hubert_kmeans, 4 feature steps of 32 clips and 1024 clusters
      (kmeans.ckpt with a finite inertia, read back by load.load_kmeans).
+ 10. the rest of training: (a) musiclm_large's coarse stage (24 x 16 heads x
+     1024, its 10 s window) at the shipped coarse trainer config (b2 x accum
+     8, bf16 on float32 masters, ff_dropout 0.1), two StageTrainer steps
+     without remat and two with it from the same weights and generator
+     state: the first step's loss and gradients equal (bit-equal, or within
+     1e-6 x max|grad| a tensor), kernel 1 depth x accum launches a step
+     without remat and twice that with it, kernels 5 and 6 depth x accum,
+     each run's ms a step and peak memory; (b) train_stage --stage coarse
+     under python -m torch.distributed.run --standalone --nproc_per_node 1
+     on NCCL (musiclm_small, a token store, 2 steps, rank 0's log,
+     checkpoint and tokens, then a resume for one more step), and two gloo
+     ranks on the one card (their own processes) for 3 steps at b4 x accum
+     2 against one process on the whole batch (1e-5 x max|p| a tensor),
+     with whether gloo's all_gather takes CUDA tensors; (c) the roofline
+     (train/roofline.py, the H100's data sheet) of (a)'s steps and phase 6's
+     beside their measured ms.
+Phase 8 also builds musiclm_large itself (30 s semantic, 10 s coarse, 3 s
+fine windows, the fusion CLAP) and runs generate(text=1 prompt) in "fused"
+at b1 x 10 s, one whole coarse window (kernel 7 24 times a decode step).
 
 Times a call, two readings of each kernel and library call:
   ms         stream time: CUDA events around 20 calls as the host launches
@@ -131,14 +150,15 @@ times kernel 4 alone at its phase-2 shapes from the port in the checkout
 ROOT (another commit's, for a comparison within one call) and prints a JSON
 line of its device ms.
 
-    python3 chip_smoke.py --phase9
+    python3 chip_smoke.py --phase8      # or --phase9, --phase10
 
-builds the kernels and runs phase 9 alone.
+builds the kernels and runs that phase alone.
 """
 
 from __future__ import annotations
 
 import copy
+import inspect
 import json
 import math
 import statistics
@@ -183,6 +203,14 @@ INT8_CASES = ([("head", b, 1024, 1025) for b in (8, 14, 16, 64, 256, 1, 4, 5)]
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def expect_launches(mode, launches, path):
+    """Fail unless exactly the kernels in ``path`` launched (and each did)."""
+    print(f"  {mode} launches: {launches}")
+    for name, n in launches.items():
+        if (n > 0) != (name in path):
+            fail(f"{mode}: kernel {name} launched {n} times; the path runs {sorted(path)}")
 
 
 def card_line() -> str:
@@ -954,12 +982,7 @@ def main() -> int:
                 fail(f"{mode}: waveform has non-finite samples")
         return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
-    def expect(mode, launches, path):
-        """Fail unless exactly the kernels in ``path`` launched (and each did)."""
-        print(f"  {mode} launches: {launches}")
-        for name, n in launches.items():
-            if (n > 0) != (name in path):
-                fail(f"{mode}: kernel {name} launched {n} times; the path runs {sorted(path)}")
+    expect = expect_launches
 
     # the int8 serving path (flash_kv="int8"): kernels 1-4
     launches = drive(musiclm, "flash_kv=int8", ((8, 4.0, (8, 96000)), (2, 12.0, (2, 336000))))
@@ -1019,7 +1042,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. the training path ----
-    train_launches = training_phase(torch, omt_config, mc, dev, card, attention, kernels)
+    train_launches, phase6_ms = training_phase(torch, omt_config, mc, dev, card, attention, kernels)
     path_launches.update(attention_bwd=train_launches["attention_bwd"],
                          attention_dbias=train_launches["attention_dbias"])
     torch.cuda.empty_cache()
@@ -1037,6 +1060,10 @@ def main() -> int:
     # ---- 9. stage training from raw audio: the five training CLIs ----
     raw_launches = raw_audio_phase(torch, omt_config, dev, card, counters)
     print(json.dumps({"phase9_launches": raw_launches}))
+    torch.cuda.empty_cache()
+
+    # ---- 10. remat at musiclm_large's width, data parallel, the rooflines ----
+    phase10(torch, omt_config, dev, card, counters, phase6_ms)
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
@@ -1455,7 +1482,7 @@ def profile_step(torch, trainer, state, batch, gen, card):
 
 def training_phase(torch, omt_config, mc, dev, card, attention, kernels):
     """Phase 6. Returns the launches of kernels 1, 5 and 6 during the
-    StageTrainer.train run."""
+    StageTrainer.train run, and its ms a step."""
     from open_musiclm_torch.models import transformer
     from open_musiclm_torch.checkpoint import find_latest_checkpoint
     from open_musiclm_torch.data.dataset import PreprocessedDataset, batch_iterator, train_valid_split
@@ -1648,7 +1675,7 @@ def training_phase(torch, omt_config, mc, dev, card, attention, kernels):
           f"{tokens / (step_ms / 1e3):.0f} tokens/s, model {rate / 1e12:.2f} TFLOP/s "
           f"({100 * rate / peak:.2f} % of the {peak / 1e12:.0f} TFLOP/s data-sheet bf16 peak), "
           f"peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
-    return launches
+    return launches, step_ms
 
 
 # phase 7: card vs CPU float32 towers (TF32 off): HuBERT's layer-7 features
@@ -1956,9 +1983,10 @@ def large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms
     through load.create_musiclm_from_config at full width in float32: a
     reference-layout .pt of its semantic stage read back equal; 24
     teacher-forced decode steps of each stage in the fp decode, "int8" and
-    "fused" against the CPU; generate(text) in "fused" at b1 x 4 s; the fusion
-    CLAP of musiclm_large at b4 x 30 s against the CPU; the infer CLI at
-    musiclm_small. Returns the launches of the generate call."""
+    "fused" against the CPU; generate(text) in "fused" at b1 x 4 s; musiclm_large
+    itself at its own 30 s / 10 s / 3 s windows (``large_windows_generate``);
+    the fusion CLAP of musiclm_large at b4 x 30 s against the CPU; the infer
+    CLI at musiclm_small. Returns the launches of the b1 x 4 s generate call."""
     from open_musiclm_torch import load
     from open_musiclm_torch.models import token_cond
     from open_musiclm_torch.models.musiclm import MusicLM
@@ -2059,6 +2087,9 @@ def large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms
         del fused, musiclm, stages, sem, wave
         torch.cuda.empty_cache()
 
+        # (c2) musiclm_large itself at its own windows
+        large_windows_generate(torch, omt_config, dev, card, counters, expect, tmp)
+
         # (d) musiclm_large's fusion CLAP: the fusion HTSAT + projection at b4 x 30 s
         mc_large = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_large.json"))
         clap = omt_config.build_clap(mc_large, torch.Generator().manual_seed(9), device="cpu")
@@ -2101,6 +2132,122 @@ def large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms
         if (frames, rate) != (96000, 24000):
             fail(f"phase 8: the CLI's wav has {frames} frames at {rate} Hz")
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
+def expected_decode_steps(seconds, windows, quantizers, semantic_hz, acoustic_hz, batch):
+    """Decode steps a stage of MusicLM.generate runs for ``seconds`` without
+    a prime, at its default sliding steps (semantic and coarse windows half
+    overlapped, fine windows side by side and batched up to MAX_FINE_ROWS
+    rows): a call decodes (its window - its carried prefix) x the stage's
+    quantizers. ``quantizers`` maps each stage to its count."""
+    from open_musiclm_torch.models.musiclm import MAX_FINE_ROWS
+
+    sem_window = windows["semantic_window_seconds"] * semantic_hz
+    sem_total = int(min(seconds, windows["semantic_window_seconds"]) * semantic_hz)
+    sem = sem_total
+    while sem_total < int(seconds * semantic_hz):  # continuations carry half a window
+        sem += sem_window - sem_window // 2
+        sem_total += sem_window - sem_window // 2
+    window = windows["coarse_window_seconds"] * semantic_hz - 1
+    n_coarse = (sem_total - window) // (window // 2) + 1
+    coarse_t = windows["coarse_window_seconds"] * acoustic_hz
+    coarse_len = coarse_t + (n_coarse - 1) * (coarse_t - coarse_t // 2)
+    fine_t = windows["fine_window_seconds"] * acoustic_hz
+    n_fine = (coarse_len - fine_t) // fine_t + 1
+    fine_calls = math.ceil(n_fine / max(1, MAX_FINE_ROWS // batch))
+    return {"semantic": sem * quantizers["semantic"], "coarse": coarse_len * quantizers["coarse"],
+            "fine": fine_calls * fine_t * quantizers["fine"]}
+
+
+def large_windows_generate(torch, omt_config, dev, card, counters, expect, tokenizer_dir: Path,
+                           model_config: Path = None, seconds: float = 10.0):
+    """Phase 8 (c2): musiclm_large (configs/model/musiclm_large.json: 24 x 16
+    heads x dim 1024, the fusion CLAP, 30 s semantic, 10 s coarse and 3 s
+    fine windows) through load.create_musiclm_from_config in float32, then
+    generate(text=1 prompt) in "fused" at b1 x ``seconds`` (one whole coarse
+    window: 2,250 coarse decode steps over the coarse cache): the wave's
+    shape (the fine windows that fit) and finiteness, exactly kernels 1, 4
+    and 7, kernel 7 once a layer and decode step; its wall, each stage's ms a
+    decode step and the peak memory. ``model_config`` and ``dev`` let a
+    rehearsal run it on the CPU at small widths. Returns the launches."""
+    from open_musiclm_torch import load
+    from open_musiclm_torch.models.musiclm import MusicLM
+    from open_musiclm_torch.models.stages import Stage
+
+    on_card = dev.type == "cuda"
+    mc = omt_config.load_model_config(str(model_config or ROOT / "configs" / "model" / "musiclm_large.json"))
+    g = mc.global_cfg
+    windows = dict(semantic_window_seconds=int(g.semantic_audio_length_seconds),
+                   coarse_window_seconds=int(g.coarse_audio_length_seconds),
+                   fine_window_seconds=int(g.fine_audio_length_seconds))
+    t0 = time.perf_counter()
+    musiclm = load.create_musiclm_from_config(mc, tokenizer_path=str(tokenizer_dir), seed=18, device=dev)
+    build_s = time.perf_counter() - t0
+    stages = {n: Stage(getattr(musiclm, f"{n}_stage").model, name=n, quantized=True, flash_kv="fused")
+              for n in ("semantic", "coarse", "fine")}
+    depth = stages["semantic"].model.depth
+    walls = {}
+    steps = {}
+
+    def timed(name, st):
+        inner = st.generate
+
+        def run(*args, **kw):
+            if on_card:
+                torch.cuda.synchronize()
+            before, t = counters["int8_matmul"][0].launches, time.perf_counter()
+            out = inner(*args, **kw)
+            if on_card:
+                torch.cuda.synchronize()
+            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t
+            steps[name] = steps.get(name, 0) + counters["int8_matmul"][0].launches - before
+            return out
+
+        st.generate = run
+        return st
+
+    fused = MusicLM(codec=musiclm.codec, clap=musiclm.clap, tokenizer=musiclm.tokenizer, wav2vec=musiclm.wav2vec,
+                    **{f"{n}_stage": timed(n, st) for n, st in stages.items()})
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wave = fused.generate(text=[PROMPTS[0]], generator=gen, output_seconds=seconds, **windows)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    launches = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+    ac_hz, hop = mc.encodec_cfg.output_hz, musiclm.codec.sample_rate // mc.encodec_cfg.output_hz
+    fine_window = windows["fine_window_seconds"] * ac_hz
+    frames = ((int(seconds * ac_hz) - fine_window) // fine_window + 1) * fine_window
+    per_step = {n: f"{1e3 * walls[n] / max(steps[n], 1):.3f} ms x {steps[n]} steps" for n in walls}
+    print(f"  (c2) musiclm_large generate(text=1 prompt) fused at its own windows {windows}, float32, b1 x "
+          f"{seconds:.0f} s: built in {build_s:.1f} s; wave {tuple(wave.shape)} in {wall:.2f} s wall; a decode "
+          f"step {per_step}; peak memory {peak:.2f} GiB [{card}]", flush=True)
+    if tuple(wave.shape) != (1, frames * hop) or not torch.isfinite(wave.float()).all():
+        fail(f"phase 8 (c2): musiclm_large generate gave {tuple(wave.shape)} (want (1, {frames * hop})) "
+             "or non-finite samples")
+    expect("phase 8 musiclm_large generate fused", launches,
+           {"prefill_attention", "int8_matmul", "fused_layer_decode_step"})
+    rates = inspect.signature(MusicLM.generate).parameters  # generate's own token rates
+    want = expected_decode_steps(seconds, windows, {n: st.model.specs[-1].num_quantizers for n, st in stages.items()},
+                                 rates["semantic_steps_per_second"].default,
+                                 rates["acoustic_steps_per_second"].default, batch=1)
+    want_k7 = sum(stages[n].model.depth * k for n, k in want.items())
+    if on_card and (steps != want or launches["int8_matmul"] != sum(want.values())
+                    or launches["fused_layer_decode_step"] != want_k7):
+        fail(f"phase 8 (c2): decode steps {steps} (kernel 4 {launches['int8_matmul']}), kernel 7 "
+             f"{launches['fused_layer_decode_step']}; the windows give {want} steps, kernel 7 {want_k7}")
+    print(f"    launches: {launches}; the windows give {want} decode steps, kernel 7 {want_k7} = {depth} x "
+          f"{sum(want.values())}", flush=True)
+    del fused, musiclm, stages, wave
+    if on_card:
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2475,6 +2622,420 @@ def raw_audio_phase(torch, omt_config, dev, card, counters, model_config: Path =
     return launches
 
 
+# phase 10 (b): the data-parallel cases, musiclm_small's coarse stage at b4 x
+# accum 2 in float32 (TF32 off) without dropout or the forgetful mask (each
+# rank draws its own), Adam's eps raised to 1e-2 on both sides as the CPU
+# tests do (an element whose gradient is rounding noise then moves by ~lr x
+# 1e-5, not by +-lr), held to 1e-5 x max|p| a tensor after 3 steps
+DP_STEPS, DP_BATCH, DP_ACCUM, DP_EPS, DP_TOL = 3, 4, 2, 1e-2, 1e-5
+
+
+def dp_setup(torch, omt_config, dev, model_config: Path):
+    """(model, trainer keyword arguments, global token batches) of the
+    data-parallel cases: the same on every rank and in the one-process run."""
+    from open_musiclm_torch.models.token_cond import StageLossConfig
+
+    mc = omt_config.load_model_config(str(model_config))
+    tcfg = omt_config.load_training_config(
+        str(ROOT / "configs" / "training" / "train_musiclm_fma.json")).coarse_trainer_cfg
+    model = omt_config.init_stage(mc, "coarse", 51, device=dev).model
+    for ff in model.transformer.ffs:
+        ff.dropout = 0.0
+    hp = dict(loss_cfg=StageLossConfig(tuple(tcfg.cross_entropy_loss_weights), mask_prob=0.0), lr=tcfg.lr,
+              wd=tcfg.wd, lr_warmup=tcfg.lr_warmup, max_grad_norm=tcfg.max_grad_norm,
+              grad_accum_every=DP_ACCUM, stage_name="coarse", use_tensorboard=False, save_model_every=0)
+    g = torch.Generator().manual_seed(52)
+    lens = omt_config.stage_example_lengths(mc, "coarse")
+    batches = [tuple(torch.randint(0, s.codebook_size, (DP_ACCUM, DP_BATCH, n), generator=g)
+                     for s, n in zip(model.specs, lens)) for _ in range(DP_STEPS)]
+    return model, hp, batches
+
+
+CLIP_SCALE = 1 / 0.07
+
+
+def clip_features(torch):
+    """Seeded L2-normalized audio and text features [8, 512] of phase 10
+    (b)'s clip_loss check."""
+    g = torch.Generator().manual_seed(54)
+    return [torch.nn.functional.normalize(torch.randn(8, 512, generator=g), dim=-1) for _ in range(2)]
+
+
+def dp_rank_main(rank: int, world: int, init_file: str, folder: str, device: str, model_config: str) -> int:
+    """One gloo rank of phase 10 (b) on the one card (every rank on cuda:0;
+    ``device`` cpu in a rehearsal): DP_STEPS StageTrainer steps on its rows
+    of each global batch, then clip_loss gathered over the ranks on the
+    device's tensors (gloo's all_gather and all_reduce)."""
+    import torch
+    import torch.distributed as dist
+
+    from open_musiclm_torch import config as omt_config
+    from open_musiclm_torch.parallel.distributed import initialize_distributed
+    from open_musiclm_torch.parallel.mesh import make_mesh, shard_batch
+    from open_musiclm_torch.train.clip_loss import clip_loss
+    from open_musiclm_torch.train.trainer import StageTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    initialize_distributed(dev.type, init_method=f"file://{init_file}", rank=rank, world_size=world,
+                           local_rank=0, backend="gloo")
+    mesh = make_mesh()
+    model, hp, batches = dp_setup(torch, omt_config, dev, Path(model_config))
+    trainer = StageTrainer(model=model, mesh=mesh, results_folder=str(Path(folder) / "results"), **hp)
+    state = trainer.init_state()
+    state.optimizer.eps = DP_EPS
+    gen = torch.Generator(device=dev).manual_seed(mesh.rank_seed(53))
+    losses = []
+    for b in batches:
+        state, loss = trainer.train_step(state, shard_batch(mesh, b, batch_axis=1), gen)
+        losses.append(loss.item())
+    # clip_loss's gather of this device's tensors: a failure fails the rank
+    mine = [shard_batch(mesh, f).to(dev).requires_grad_(True) for f in clip_features(torch)]
+    loss = clip_loss(*mine, torch.tensor(CLIP_SCALE, device=dev), group=mesh.group)
+    clip = (loss.item(), [g.cpu() for g in torch.autograd.grad(loss, mine)])
+    torch.save({"params": {k: v.detach().cpu() for k, v in model.state_dict().items()}, "losses": losses,
+                "clip": clip}, Path(folder) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def training_roofline(torch, model, lens, batch, accum, *, remat, measured_ms, what, card, dtype_bytes=2):
+    """Prints (and returns) the roofline of one step beside its measured ms."""
+    from open_musiclm_torch.train.roofline import stage_train_roofline
+
+    r = stage_train_roofline(model, lens, batch, accum, device_name=torch.cuda.get_device_name(0),
+                             compute_dtype_bytes=dtype_bytes, remat=remat)
+    out = r.summary(measured_ms / 1e3 if measured_ms else None)
+    share = (f"measured {measured_ms:.1f} ms, bound = {100 * r.bound_s / (measured_ms / 1e3):.3f} % of it"
+             if measured_ms else "measured: not in this run")
+    print(f"  (c) roofline, {what}: {out['bound']}-bound, bound {out['bound_ms']} ms (compute "
+          f"{out['compute_ms']} / memory {out['memory_ms']} ms, {out['model_tflops']} model TFLOP, bytes GB "
+          f"{out['bytes_gb_by_term']}); {share} [{card}]", flush=True)
+    return out
+
+
+def kernel1_bits(torch, model, lens, batch, dev, card):
+    """Kernel 1 three times on the same inputs at a remat step's shape (the
+    stage's heads, b rows of the whole stream, bf16, the rel-pos bias, a key
+    mask): output and row statistics bit-identical call to call, so the
+    backward's recompute saves what the forward would have."""
+    from open_musiclm_torch.ops import attention
+
+    n = sum(lens) + 2 * len(lens) - 1
+    g = torch.Generator().manual_seed(44)
+    q = attention.l2norm(torch.randn(batch, model.heads, n, model.dim_head, generator=g)).to(dev, torch.bfloat16)
+    k = attention.l2norm(torch.randn(batch, n, model.dim_head, generator=g)).to(dev, torch.bfloat16)
+    v = torch.randn(batch, n, model.dim_head, generator=g).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        bias = model.transformer.rel_pos_bias(n, torch.bfloat16)
+    key_mask = (torch.rand(batch, n, generator=g) > 0.15).to(dev)
+    key_mask[:, 0] = True
+    runs = [attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True) for _ in range(3)]
+    same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+    print(f"  kernel 1 at b{batch} x {model.heads} heads x n{n} bf16 (bias, key mask), 3 calls: output and row "
+          f"statistics {'bit-identical' if same else 'DIFFER'} [{card}]", flush=True)
+    if not same:
+        fail("phase 10 (a): kernel 1 is not bit-identical call to call")
+
+
+def remat_phase(torch, omt_config, dev, card, counters, model_config: Path = None):
+    """Phase 10 (a): musiclm_large's coarse stage (24 x 16 heads x 1024, its
+    10 s coarse window) at the shipped coarse trainer config (b2 x accum 8,
+    bf16 compute on float32 master weights, ff_dropout 0.1, forgetful mask
+    0.15): two StageTrainer steps without remat and two with it, each pair
+    from the same weights and generator state. The first step's loss and
+    every gradient (read at the optimizer) must agree (bit-equal, or within
+    1e-6 x max|grad| a tensor); kernel 1 must launch depth x accum times a
+    step without remat and 2 x depth x accum with it, kernels 5 and 6 depth
+    x accum either way. Prints each run's peak memory and ms a step (the
+    second), and the step's roofline. ``model_config`` and ``dev`` let a
+    rehearsal run it on the CPU at small widths."""
+    from open_musiclm_torch.train.trainer import StageTrainer
+    from open_musiclm_torch.models.token_cond import StageLossConfig
+
+    on_card = dev.type == "cuda"
+    mc = omt_config.load_model_config(str(model_config or ROOT / "configs" / "model" / "musiclm_large.json"))
+    tcfg = omt_config.load_training_config(
+        str(ROOT / "configs" / "training" / "train_musiclm_fma.json")).coarse_trainer_cfg
+    b, accum = tcfg.batch_size, tcfg.grad_accum_every
+    t0 = time.perf_counter()
+    model = omt_config.init_stage(mc, "coarse", 41, device=dev, compute_dtype=torch.bfloat16).model
+    depth, lens = model.depth, omt_config.stage_example_lengths(mc, "coarse")
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    g = torch.Generator().manual_seed(42)
+    batches = [tuple(torch.randint(0, s.codebook_size, (accum, b, n), generator=g)
+                     for s, n in zip(model.specs, lens)) for _ in range(2)]
+    print(f"phase 10 (a): musiclm_large coarse stage, {depth} layers x {model.heads} heads x dim {model.dim}, "
+          f"lens {lens}, b{b} x accum {accum}, bf16 on float32 masters, ff_dropout "
+          f"{model.transformer.ffs[0].dropout}, built in {time.perf_counter() - t0:.1f} s", flush=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remat_") as tmp:
+        for remat in (False, True):
+            model.load_state_dict(init)
+            model.transformer.remat = remat
+            trainer = StageTrainer(model=model, loss_cfg=StageLossConfig(tuple(tcfg.cross_entropy_loss_weights)),
+                                   lr=tcfg.lr, wd=tcfg.wd, lr_warmup=tcfg.lr_warmup,
+                                   max_grad_norm=tcfg.max_grad_norm, grad_accum_every=accum,
+                                   results_folder=tmp, stage_name="coarse", use_tensorboard=False)
+            state = trainer.init_state()
+            grads, step = [], state.optimizer.step
+
+            def capture(gs, step=step, grads=grads):
+                if not grads:
+                    grads.extend(x.detach().clone() for x in gs)
+                step(gs)
+
+            state.optimizer.step = capture
+            gen = torch.Generator(device=dev).manual_seed(43)
+            steps = []
+            for batch in batches:
+                for fn, attr in counters.values():
+                    setattr(fn, attr, 0)
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                state, loss = trainer.train_step(state, batch, gen)
+                loss = loss.item()
+                ms = (time.perf_counter() - t1) * 1e3
+                peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+                steps.append((loss, ms, peak, {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}))
+            runs[remat] = (steps, grads)
+            print(f"  remat={remat}: losses {[s[0] for s in steps]}, ms a step {[round(s[1], 1) for s in steps]}, "
+                  f"peak device memory {[round(s[2], 2) for s in steps]} GiB [{card}]", flush=True)
+            del trainer, state
+            if on_card:
+                torch.cuda.empty_cache()
+    (plain, plain_grads), (remat, remat_grads) = runs[False], runs[True]
+    names = [n for n, _ in model.named_parameters()]
+    worst, bit_equal = (0.0, ""), 0
+    for name, a, r in zip(names, plain_grads, remat_grads):
+        if torch.equal(a, r):
+            bit_equal += 1
+            continue
+        err = (a - r).abs().max().item() / max(a.abs().max().item(), 1e-30)
+        worst = max(worst, (err, name))
+    same_loss = plain[0][0] == remat[0][0]
+    print(f"  remat against none, step 1: loss {'bit-equal' if same_loss else 'DIFFERS'} ({plain[0][0]!r} / "
+          f"{remat[0][0]!r}); gradients bit-equal in {bit_equal} of {len(names)} tensors, worst other "
+          f"{worst[0]:.2e} x max|grad| ({worst[1] or '-'}); step 2 loss {plain[1][0]!r} / {remat[1][0]!r}",
+          flush=True)
+    if worst[0] > 1e-6 or abs(plain[0][0] - remat[0][0]) > 1e-6 * abs(plain[0][0]):
+        fail(f"phase 10 (a): remat changes the step: loss {plain[0][0]} / {remat[0][0]}, gradient {worst}")
+    if on_card:
+        kernel1_bits(torch, model, lens, b, dev, card)
+    counts = {}
+    for flag, steps in ((False, plain), (True, remat)):
+        want = {"prefill_attention": (2 if flag else 1) * depth * accum, "attention_bwd": depth * accum,
+                "attention_dbias": depth * accum}
+        for i, (_, _, _, launches) in enumerate(steps):
+            got = {n: launches[n] for n in want}
+            others = {n: c for n, c in launches.items() if n not in want and c}
+            if on_card and (got != want or others):
+                fail(f"phase 10 (a) remat={flag} step {i + 1}: launches {launches}, want {want}")
+        counts[flag] = steps[-1][3]
+        print(f"  remat={flag}: launches a step {steps[-1][3]}")
+    shares = {}
+    for flag, steps in ((False, plain), (True, remat)):
+        shares[flag] = training_roofline(torch, model, lens, b, accum, remat=flag, measured_ms=steps[1][1],
+                                         what=f"musiclm_large coarse b{b} x accum {accum} bf16 remat={flag}",
+                                         card=card) if on_card else None
+    return {"launches": counts, "ms": {str(k): v[0][1][1] for k, v in runs.items()},
+            "peak_gib": {str(k): v[0][1][2] for k, v in runs.items()}, "roofline": shares}
+
+
+def data_parallel_phase(torch, omt_config, dev, card, model_config: Path = None):
+    """Phase 10 (b): train_stage --stage coarse (musiclm_small, bf16, the
+    shipped b2 x accum 8 on a token store) under ``python -m
+    torch.distributed.run --standalone --nproc_per_node 1`` on NCCL (2 steps,
+    a checkpoint, valid metrics and tokens written by rank 0), resumed the
+    same way for one more step; then two gloo ranks on the one card (their
+    own processes, a file:// store) for DP_STEPS steps at b4 x accum 2
+    against a one-process run on the whole batch on the card. ``model_config``
+    (musiclm_small's by default) and ``dev`` let a rehearsal run it on the
+    CPU at small widths (then gloo throughout)."""
+    from open_musiclm_torch.train.trainer import StageTrainer
+
+    model_config = model_config or ROOT / "configs" / "model" / "musiclm_small.json"
+    mc = omt_config.load_model_config(str(model_config))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        tmp = Path(tmp)
+        write_token_store(tmp / "store", mc, n_tracks=8, seconds=12, seed=7)
+        tc = json.loads((ROOT / "configs" / "training" / "train_musiclm_fma.json").read_text())
+        tc["coarse_trainer_cfg"].update(use_preprocessed_data=True, folder=str(tmp / "store"), num_train_steps=2,
+                                        save_model_every=1, save_results_every=1)
+        cfg = tmp / "train.json"
+        cfg.write_text(json.dumps(tc))
+        res = tmp / "results"
+
+        def torchrun(steps, *extra):
+            tc["coarse_trainer_cfg"]["num_train_steps"] = steps
+            cfg.write_text(json.dumps(tc))
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                   "-m", f"{PACKAGE}.cli.train_stage", "--stage", "coarse", "--bf16", "--num_workers", "1",
+                   "--training_config", str(cfg), "--results_folder", str(res), "--model_config",
+                   str(model_config), "--device", dev.type, *extra]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"phase 10 (b): torchrun train_stage exited {proc.returncode}: "
+                     f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+            return proc.stdout, wall
+
+        stdout, wall = torchrun(2)
+        said = [line for line in stdout.splitlines() if "training coarse" in line]
+        recs = [json.loads(line) for line in (res / "coarse.log.jsonl").read_text().splitlines()]
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        files = sorted(p.name for p in res.iterdir() if p.is_file())
+        print(f"phase 10 (b): python -m torch.distributed.run --standalone --nproc_per_node 1 -m "
+              f"{PACKAGE}.cli.train_stage --stage coarse --bf16 (token store, b2 x accum 8): {wall:.1f} s; "
+              f"{said}; losses {losses}; files {files} [{card}]", flush=True)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if not said or backend not in said[0] or len(losses) != 2 or not all(map(math.isfinite, losses)):
+            fail(f"phase 10 (b): the NCCL run said {said}, logged losses {losses}")
+        if "coarse.transformer.1.ckpt" not in files or "coarse.tokens.1.txt" not in files:
+            fail(f"phase 10 (b): rank 0 wrote {files}")
+        stdout, wall = torchrun(3, "--continue_from_dir", str(res))
+        recs = [json.loads(line) for line in (res / "coarse.log.jsonl").read_text().splitlines()]
+        steps = [r["step"] for r in recs if "train_loss" in r]
+        print(f"  resumed under torchrun: {wall:.1f} s, {[ln for ln in stdout.splitlines() if 'resuming' in ln]}, "
+              f"logged steps {steps}", flush=True)
+        if steps != [0, 1, 2] or "resuming" not in stdout:
+            fail(f"phase 10 (b): the resume logged steps {steps}")
+        out["torchrun_nccl_s"] = wall
+
+        # two gloo ranks on the one card against one process on the whole batch
+        folder = tmp / "gloo"
+        folder.mkdir()
+        cmd = [[sys.executable, str(ROOT / "chip_smoke.py"), "--dp_rank", str(r), "2", str(folder / "store"),
+                str(folder), dev.type, str(model_config)] for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmd]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            fail(f"phase 10 (b): gloo ranks exited {[p.returncode for p in procs]}: {logs[0][-2000:]} "
+                 f"{logs[1][-2000:]}")
+        ranks = [torch.load(folder / f"rank{r}.pt", weights_only=False) for r in range(2)]  # written just above
+        model, hp, batches = dp_setup(torch, omt_config, dev, model_config)
+        trainer = StageTrainer(model=model, results_folder=str(folder / "one"), **hp)
+        state = trainer.init_state()
+        state.optimizer.eps = DP_EPS
+        gen = torch.Generator(device=dev).manual_seed(53)
+        losses = []
+        t1 = time.perf_counter()
+        for b in batches:
+            state, loss = trainer.train_step(state, b, gen)
+            losses.append(loss.item())
+        one_s = time.perf_counter() - t1
+        # the rel-pos MLP's output bias shifts a whole score row, which the
+        # softmax ignores: its gradient is rounding noise and its values stay
+        # near 0, so it is scaled by the output weight (as phase 6 does)
+        sd, worst = {k: v.detach().cpu() for k, v in model.state_dict().items()}, (0.0, "")
+        shift = "transformer.rel_pos_bias.out_layer.bias"
+        for name, p in sd.items():
+            scale = sd["transformer.rel_pos_bias.out_layer.weight"] if name == shift else p
+            for r in ranks:
+                worst = max(worst, ((r["params"][name] - p).abs().max().item()
+                                    / max(scale.abs().max().item(), 1e-30), name))
+        print(f"  2 gloo ranks on one card, musiclm_small coarse f32 b{DP_BATCH} x accum {DP_ACCUM} (b2 a rank), "
+              f"{DP_STEPS} steps: {wall:.1f} s for both processes; losses rank 0 {ranks[0]['losses']}, one process "
+              f"{losses} ({one_s:.2f} s); parameters: worst {worst[0]:.2e} x max|p| ({worst[1]}), limit {DP_TOL:.0e} "
+              f"[{card}]", flush=True)
+        if worst[0] > DP_TOL:
+            fail(f"phase 10 (b): two gloo ranks differ from one process: {worst}")
+        # clip_loss gathered over the two ranks against one process on all 8 rows:
+        # each rank's loss, and its rows' gradient over the world size
+        from open_musiclm_torch.train.clip_loss import clip_loss
+
+        one = [f.to(dev).requires_grad_(True) for f in clip_features(torch)]
+        loss = clip_loss(*one, torch.tensor(CLIP_SCALE, device=dev))
+        grads = [x.cpu() for x in torch.autograd.grad(loss, one)]
+        err = max(max(abs(r["clip"][0] - loss.item()),
+                      *((gr / 2 - g[4 * i: 4 * i + 4]).abs().max().item() for gr, g in zip(r["clip"][1], grads)))
+                  for i, r in enumerate(ranks))
+        print(f"  gloo all_gather of {dev.type} tensors: clip_loss over 2 x 4 rows of 512, loss and gradients "
+              f"against one process: max abs err {err:.2e} (limit 1e-6) [{card}]", flush=True)
+        if err > 1e-6:
+            fail(f"phase 10 (b): clip_loss gathered over gloo differs from one process by {err}")
+        out.update(gloo_worst=worst[0], clip_err=err)
+    return out
+
+
+def phase10(torch, omt_config, dev, card, counters, phase6_ms=None):
+    """Phase 10: (a) remat at musiclm_large's full width, (b) data parallel
+    on the one card, (c) the rooflines. Returns (a)'s launches with remat."""
+    t0 = time.perf_counter()
+    a = remat_phase(torch, omt_config, dev, card, counters)
+    torch.cuda.empty_cache()
+    mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
+    with torch.device("meta"):
+        small = omt_config.build_coarse_transformer(mc)
+    training_roofline(torch, small, omt_config.stage_example_lengths(mc, "coarse"), 2, 8, remat=False,
+                      measured_ms=phase6_ms, what="phase 6's musiclm_small coarse b2 x accum 8 bf16", card=card)
+    b = data_parallel_phase(torch, omt_config, dev, card)
+    print(json.dumps({"phase10": {"remat": {k: v for k, v in a.items() if k != "launches"}, **b},
+                      "phase10_launches": {str(k): v for k, v in a["launches"].items()}}))
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return a["launches"][True]
+
+
+def all_counters():
+    """Every kernel's launch counter: name -> (wrapper, attribute)."""
+    from open_musiclm_torch.ops import attention, decode_attention, fused_ff, fused_layer, quant
+
+    bwd = attention.shared_kv_attention_bwd
+    return {"prefill_attention": (attention.shared_kv_attention_fused, "launches"),
+            "flash_decode_step": (decode_attention.flash_decode_step, "launches"),
+            "fused_ff_apply": (fused_ff.fused_ff_apply, "launches"),
+            "int8_matmul": (quant.int8_matmul, "launches"),
+            "attention_bwd": (bwd, "launches"), "attention_dbias": (bwd, "dbias_launches"),
+            "fused_layer_decode_step": (fused_layer.fused_layer_decode_step, "launches")}
+
+
+def phase_only(n: int) -> int:
+    """Phase 1 (the build) and phase 8 or 10 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on a card", file=sys.stderr)
+        return 2
+    from open_musiclm_torch import config as omt_config
+    from open_musiclm_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    cuda_lib.lib()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    if n == 8:
+        mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
+        g = mc.global_cfg
+        windows = dict(semantic_window_seconds=int(g.semantic_audio_length_seconds),
+                       coarse_window_seconds=int(g.coarse_audio_length_seconds),
+                       fine_window_seconds=int(g.fine_audio_length_seconds))
+        launches = large_phase(torch, omt_config, dev, card, all_counters(), expect_launches, windows,
+                               Timer(torch, dev).stream_ms)
+        print(json.dumps({"phase8_launches": launches}))
+    else:
+        phase10(torch, omt_config, dev, card, all_counters())
+    return 0
+
+
 def kernel4_times(root: Path) -> int:
     """Kernel 4 alone at INT8_CASES in bf16 (device and stream ms, error
     against its plain version), from the port in ``root``: another checkout,
@@ -2537,4 +3098,8 @@ if __name__ == "__main__":
         sys.exit(kernel4_times(Path(sys.argv[2])))
     if len(sys.argv) == 2 and sys.argv[1] == "--phase9":
         sys.exit(phase9_only())
+    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10"):
+        sys.exit(phase_only(int(sys.argv[1][len("--phase"):])))
+    if len(sys.argv) == 8 and sys.argv[1] == "--dp_rank":
+        sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:]))
     sys.exit(main())

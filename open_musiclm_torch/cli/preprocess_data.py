@@ -6,10 +6,14 @@ scripts/preprocess_data.py).
 
 Reads ``data_preprocessor_cfg`` of the training config (the audio folder,
 the store's folder, the crop length, the CLAP batch). Run one process a
-rank: each writes its own shard of the store.
+rank: each writes its own shard of the store. Under torchrun (``python -m
+torch.distributed.run --nproc_per_node N -m open_musiclm_torch.cli.preprocess_data``)
+a rank and world not given as flags come from ``RANK`` and ``WORLD_SIZE``,
+and each rank tokenizes on ``cuda:LOCAL_RANK``.
 """
 
 import argparse
+import os
 
 from .common import add_model_args, add_training_args, build_musiclm
 
@@ -18,12 +22,18 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="tokenize a folder of audio into a token store")
     add_model_args(p)
     add_training_args(p)
-    p.add_argument("--rank", type=int, default=0)
-    p.add_argument("--world", type=int, default=1)
+    p.add_argument("--rank", type=int, default=None, help="default: $RANK, else 0")
+    p.add_argument("--world", type=int, default=None, help="default: $WORLD_SIZE, else 1")
     p.add_argument("--replace_existing", action="store_true")
     p.add_argument("--filter_fma", action="store_true",
                    help="drop low-engagement FMA experimental-genre tracks")
     args = p.parse_args(argv)
+    if args.rank is None:
+        args.rank = int(os.environ.get("RANK", 0))
+    if args.world is None:
+        args.world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.device == "cuda" and os.environ.get("LOCAL_RANK") is not None:
+        args.device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
 
     from ..config import load_model_config, load_training_config
     from ..data.preprocess import DataPreprocessor

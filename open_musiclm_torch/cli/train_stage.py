@@ -4,6 +4,17 @@
         [--training_config JSON] [--results_folder DIR] [--continue_from_dir DIR] \
         [--fine_tune_from CKPT] [--num_workers 4] [--wandb] [--device cpu]
 
+    # data parallel on N cards of one machine (NCCL; rank r on cuda:r)
+    python -m torch.distributed.run --nproc_per_node N \
+        -m open_musiclm_torch.cli.train_stage --stage coarse --bf16 ...
+
+Under torchrun (or the JAX package's ``COORDINATOR_ADDRESS`` /
+``NUM_PROCESSES`` / ``PROCESS_ID``) every rank joins the process group
+(``parallel.distributed``; gloo with ``--device cpu``), reads and tokenizes
+only its rows of each global batch (``batch_size`` of the trainer config is
+the global batch) and draws its dropout from its own seed; rank 0 alone
+writes the log, the trackers, the artifacts and the checkpoints.
+
 The stage trainer config (``{stage}_trainer_cfg`` of the training config)
 picks the data path: a token store (``use_preprocessed_data``) or audio
 files tokenized on the fly by the frozen CLAP, HuBERT + k-means and Encodec
@@ -21,6 +32,7 @@ import argparse
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from .common import add_model_args, add_training_args
 
@@ -36,8 +48,25 @@ def main(argv=None):
                    "absent); tensorboard (where installed) and the JSONL log stay on")
     args = p.parse_args(argv)
 
+    from ..config import target_device
+    from ..parallel.distributed import initialize_distributed
+    from ..parallel.mesh import make_mesh
+
+    device = target_device(args.device, "train_stage")
+    owns_group = not dist.is_initialized()
+    if initialize_distributed(device.type) and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+        args.device = str(device)  # the towers of the audio path, on this rank's card
+    try:
+        return _train(args, device, make_mesh())
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh):
     from ..checkpoint import find_latest_checkpoint
-    from ..config import init_stage, load_model_config, load_training_config, target_device
+    from ..config import init_stage, load_model_config, load_training_config
     from ..data.dataset import PreprocessedDataset, SoundDataset, batch_iterator, train_valid_split
     from ..data.pipeline import accumulate_token_batches, stage_ds_config, tokenizing_iterator
     from ..load import load_stage_params
@@ -46,7 +75,6 @@ def main(argv=None):
     from ..train.trainer import StageTrainer
     from .common import build_musiclm
 
-    device = target_device(args.device, "train_stage")
     mc = load_model_config(args.model_config)
     tc = load_training_config(args.training_config)
     cfg = getattr(tc, f"{args.stage}_trainer_cfg")
@@ -60,7 +88,9 @@ def main(argv=None):
         grad_accum_every=cfg.grad_accum_every, results_folder=args.results_folder,
         save_model_every=cfg.save_model_every, save_results_every=cfg.save_results_every,
         stage_name=args.stage, use_wandb=args.wandb, wandb_run_config=dataclasses.asdict(cfg),
+        mesh=mesh,
     )
+    shard = dict(rank=mesh.rank, world=mesh.world)
 
     state = trainer.init_state()
     if args.continue_from_dir:
@@ -84,8 +114,8 @@ def main(argv=None):
             acoustic_steps_per_second=mc.encodec_cfg.output_hz,
         )
         tr_idx, va_idx = train_valid_split(len(ds), cfg.valid_frac)
-        sources = [batch_iterator(ds, cfg.batch_size, indices=tr_idx, num_workers=args.num_workers),
-                   batch_iterator(ds, cfg.batch_size, indices=va_idx or tr_idx[:1], num_workers=1)]
+        sources = [batch_iterator(ds, cfg.batch_size, indices=tr_idx, num_workers=args.num_workers, **shard),
+                   batch_iterator(ds, cfg.batch_size, indices=va_idx or tr_idx[:1], num_workers=1, **shard)]
         train_iter = accumulate_token_batches(sources[0], accum)
         valid_iter = sources[1]
     else:
@@ -94,9 +124,9 @@ def main(argv=None):
             args.stage, musiclm.clap, musiclm.wav2vec, musiclm.codec, g))
         tr_idx, va_idx = train_valid_split(len(sound_ds), cfg.valid_frac)
         sources = [batch_iterator(sound_ds, cfg.batch_size, indices=tr_idx, num_workers=args.num_workers,
-                                  flatten_token_batches=False),
+                                  flatten_token_batches=False, **shard),
                    batch_iterator(sound_ds, cfg.batch_size, indices=va_idx or tr_idx[:1], num_workers=1,
-                                  flatten_token_batches=False)]
+                                  flatten_token_batches=False, **shard)]
         towers = (musiclm.clap, musiclm.wav2vec, musiclm.codec)
         train_iter = tokenizing_iterator(args.stage, sources[0], *towers,
                                          num_coarse_quantizers=g.num_coarse_quantizers, accum=accum)
@@ -106,22 +136,29 @@ def main(argv=None):
     art_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
 
     def artifact_fn(state, vb, step):
+        # every rank takes part in the gathers; rank 0 writes
         logits, labels = trainer.artifact_logits(state, vb, art_gen)
+        recon = cfg.save_reconstructed_wave and args.stage != "semantic" and musiclm is not None
+        # the ground-truth coarse codes of every rank's rows
+        cond = mesh.all_gather_rows(vb[1]) if recon and args.stage == "fine" else None
+        if not mesh.is_main:
+            return
         if cfg.save_predicted_tokens:
             save_predicted_tokens(logits, labels, args.results_folder, args.stage, step)
-        if cfg.save_reconstructed_wave and args.stage != "semantic" and musiclm is not None:
+        if recon:
             pred = logits.argmax(dim=-1)[:, :-1]  # drop the EOS position
-            cond = vb[1] if args.stage == "fine" else None  # the ground-truth coarse codes
             out = save_reconstructed_wave(args.stage, pred, cond, musiclm.codec, g.num_coarse_quantizers,
                                           g.num_fine_quantizers, args.results_folder, step)
             if out is not None:
                 trainer.log_audio(step, f"{args.stage}_recon", out[1], musiclm.codec.sample_rate)
 
     remaining = cfg.num_train_steps - state.step
-    print(f"training {args.stage} stage for {remaining} steps")
+    if mesh.is_main:
+        backend = dist.get_backend() if dist.is_initialized() else "no process group"
+        print(f"training {args.stage} stage for {remaining} steps on {mesh.world} rank(s) ({backend})")
     try:
         return trainer.train(state, train_iter, num_steps=remaining,
-                             generator=torch.Generator(device=device).manual_seed(args.seed + 1),
+                             generator=torch.Generator(device=device).manual_seed(mesh.rank_seed(args.seed + 1)),
                              valid_iter=valid_iter, artifact_fn=artifact_fn)
     finally:
         for source in sources:

@@ -105,6 +105,94 @@ def wav_info(path: str) -> Tuple[int, int, int]:
         return w.getframerate(), w.getnchannels(), w.getnframes()
 
 
+def audio_info(path: str) -> Tuple[int, int]:
+    """(frames, sample rate) that ``read_audio(path)`` gives, read without
+    decoding the samples: a WAV's header, a FLAC's STREAMINFO (decoded when
+    it leaves the count unknown), an MP3's frame headers (libmpg123's scan,
+    at the decode's own formats and gapless trim). A FLAC whose frames stop
+    before its STREAMINFO count decodes shorter than this says."""
+    p = str(path).lower()
+    if p.endswith(".mp3"):
+        return _mp3_info(path)
+    if p.endswith(".flac"):
+        frames, sr = _flac_info(path)
+        if frames > 0:
+            return frames, sr
+        data, sr = read_audio(path)
+        return data.shape[0], sr
+    sr, _, frames = wav_info(path)
+    return frames, sr
+
+
+def _flac_info(path: str) -> Tuple[int, int]:
+    """(total samples, sample rate) of a FLAC's STREAMINFO, its first
+    metadata block (the total is 0 when the encoder left it unknown)."""
+    with open(path, "rb") as f:
+        head = f.read(4 + 4 + 18)
+    if len(head) < 26 or head[:4] != b"fLaC" or head[4] & 0x7F != 0:
+        raise IOError(f"no FLAC STREAMINFO in {path}")
+    d = head[8:]
+    sr = (d[10] << 12) | (d[11] << 4) | (d[12] >> 4)
+    total = ((d[13] & 0x0F) << 32) | (d[14] << 24) | (d[15] << 16) | (d[16] << 8) | d[17]
+    if sr == 0:
+        raise IOError(f"FLAC STREAMINFO of {path} has no sample rate")
+    return total, sr
+
+
+_MP3_RATES = (8000, 11025, 12000, 16000, 22050, 24000, 32000, 44100, 48000)  # the native decoder's formats
+_mpg123 = None  # the bound libmpg123, False where it does not load
+
+
+def _mpg123_lib():
+    global _mpg123
+    if _mpg123 is None:
+        try:
+            lib = ctypes.CDLL("libmpg123.so.0")
+        except OSError:
+            _mpg123 = False
+            return _mpg123
+        lib.mpg123_new.argtypes, lib.mpg123_new.restype = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)], \
+            ctypes.c_void_p
+        for name in ("mpg123_format_none", "mpg123_scan", "mpg123_close"):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = [ctypes.c_void_p], ctypes.c_int
+        lib.mpg123_format.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_int]
+        lib.mpg123_open.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.mpg123_getformat.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_long),
+                                         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        lib.mpg123_length.argtypes, lib.mpg123_length.restype = [ctypes.c_void_p], ctypes.c_int64
+        lib.mpg123_delete.argtypes, lib.mpg123_delete.restype = [ctypes.c_void_p], None
+        lib.mpg123_init()
+        _mpg123 = lib
+    return _mpg123
+
+
+def _mp3_info(path: str) -> Tuple[int, int]:
+    """(samples a channel, rate) of an MP3 from its frame headers, opened as
+    ``aio_read_mp3`` opens it (mono or stereo float32 at its rates)."""
+    lib = _mpg123_lib()
+    if not lib:
+        raise IOError("libmpg123 is unavailable")
+    h = lib.mpg123_new(None, ctypes.byref(ctypes.c_int()))
+    if not h:
+        raise IOError("mpg123_new failed")
+    try:
+        lib.mpg123_format_none(h)
+        for rate in _MP3_RATES:
+            lib.mpg123_format(h, rate, 3, 0x200)  # mono | stereo, MPG123_ENC_FLOAT_32
+        rate, channels, enc = ctypes.c_long(), ctypes.c_int(), ctypes.c_int()
+        if lib.mpg123_open(h, str(path).encode()) != 0 or lib.mpg123_getformat(h, rate, channels, enc) != 0:
+            raise IOError(f"failed to open {path}")
+        if lib.mpg123_scan(h) != 0:
+            raise IOError(f"failed to scan {path}")
+        frames = lib.mpg123_length(h)
+        if frames < 0:
+            raise IOError(f"no length for {path}")
+        return int(frames), int(rate.value)
+    finally:
+        lib.mpg123_close(h)
+        lib.mpg123_delete(h)
+
+
 def read_audio(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, int]:
     """WAV / MP3 / FLAC -> (mono float32 samples, their rate), resampled to
     ``target_sr`` when given."""

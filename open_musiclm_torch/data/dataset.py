@@ -1,10 +1,14 @@
-"""Preprocessed-token crops and a threaded batch iterator (port of the
-token half of open_musiclm_tpu/data/dataset.py).
+"""Audio crops, preprocessed-token crops and a threaded batch iterator
+(port of open_musiclm_tpu/data/dataset.py).
 
+``SoundDataset`` cuts nested multi-rate random crops of audio files.
 ``PreprocessedDataset`` cuts aligned whole-second windows from the token
 store: an outer (CLAP + semantic) window and, for the coarse and fine
-stages, an inner acoustic window inside it, with the same draws as the JAX
-package for the same seed. ``SoundDataset`` and audio I/O are not ported.
+stages, an inner acoustic window inside it. Both draw their crops from one
+``random.Random(seed)`` in the JAX package's order, and both can ``skip``
+an item: draw its crops from its length alone, so that a data-parallel
+rank keeps the one-process draws while it reads only its own rows
+(``batch_iterator``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .audio_io import read_audio, resample_np
+from .audio_io import audio_info, read_audio, resample_np
 from .tokenstore import ShardedTokenStore
 
 AUDIO_EXTS = ("wav", "flac", "mp3")
@@ -84,6 +88,34 @@ class SoundDataset:
             raise
         return self.process_audio(data, sr, pad_to_target_length=True)
 
+    def skip(self, idx: int) -> None:
+        """The crop draws of ``self[idx]``, from the file's length alone
+        (``audio_info``: headers, no samples decoded)."""
+        try:
+            frames, sr = audio_info(str(self.files[idx]))
+        except Exception:
+            if self.ignore_load_errors:
+                return self.skip(self._rng.randrange(len(self)))
+            raise
+        self._crop_plan(frames, sr, pad_to_target_length=True)
+
+    def _crop_plan(self, audio_len: int, sample_hz: int, pad_to_target_length: bool):
+        """Per view, longest first: (view index, ("crop", start, length) or
+        ("pad", samples) or None), drawing the crop starts."""
+        plan = []
+        order = sorted(enumerate(self.max_length_seconds), key=lambda t: (t[1] is not None, t[1]))
+        for unsorted_i, max_len_s in order:
+            op = None
+            if max_len_s is not None:
+                target = int(max_len_s * sample_hz)
+                if audio_len > target:
+                    start = self._rng.randrange(audio_len - target) if self.random_crop else 0
+                    op, audio_len = ("crop", start, target), target
+                elif pad_to_target_length:
+                    op, audio_len = ("pad", target - audio_len), target
+            plan.append((unsorted_i, op))
+        return plan
+
     def process_audio(self, data: np.ndarray, sample_hz: int, pad_to_target_length: bool = True):
         """[1, T] at ``sample_hz`` -> one float32 [T_i] view per target rate
         (a bare array when there is one view). Longest view first: a view
@@ -92,19 +124,14 @@ class SoundDataset:
         temp, temp_norm = data, zero_mean_unit_var_np(data)
         n = len(self.target_sample_hz)
         views: List[Optional[np.ndarray]] = [None] * n
-        order = sorted(enumerate(self.max_length_seconds), key=lambda t: (t[1] is not None, t[1]))
-        for unsorted_i, max_len_s in order:
-            if max_len_s is not None:
-                audio_len = temp.shape[1]
-                target = int(max_len_s * sample_hz)
-                if audio_len > target:
-                    start = self._rng.randrange(audio_len - target) if self.random_crop else 0
-                    temp = temp[:, start: start + target]
-                    temp_norm = temp_norm[:, start: start + target]
-                elif pad_to_target_length:
-                    pad = target - audio_len
-                    temp = np.pad(temp, ((0, 0), (0, pad)))
-                    temp_norm = np.pad(temp_norm, ((0, 0), (0, pad)))
+        for unsorted_i, op in self._crop_plan(temp.shape[1], sample_hz, pad_to_target_length):
+            if op is not None and op[0] == "crop":
+                _, start, target = op
+                temp = temp[:, start: start + target]
+                temp_norm = temp_norm[:, start: start + target]
+            elif op is not None:
+                temp = np.pad(temp, ((0, 0), (0, op[1])))
+                temp_norm = np.pad(temp_norm, ((0, 0), (0, op[1])))
             views[unsorted_i] = temp_norm if self.normalize[unsorted_i] else temp
 
         out = []
@@ -189,17 +216,23 @@ class PreprocessedDataset:
     def _crop_acoustic(self, ids, s, e):
         return ids[:, s * self.acoustic_steps_per_second: e * self.acoustic_steps_per_second]
 
-    def __getitem__(self, i: int):
+    def _rows(self, i: int):
+        fields = {"semantic": ("clap", "semantic"), "coarse": ("clap", "semantic", "coarse"),
+                  "fine": ("clap", "coarse", "fine")}.get(self.stage)
+        if fields is None:
+            raise ValueError(self.stage)
+        return tuple(a.astype(np.int32) for a in self.store.get(i, fields))
+
+    def _windows(self, rows):
+        """The crop draws of one row: (outer start, outer end, inner start,
+        inner end) in seconds (the inner window is the outer one for the
+        semantic stage)."""
         if self.stage == "semantic":
-            clap, semantic = (a.astype(np.int32) for a in self.store.get(i, ("clap", "semantic")))
+            clap, semantic = rows
             length = self._audio_length(clap=clap, semantic=semantic)
             s = self._rng.randint(0, length - self.semantic_window_seconds)
-            e = s + self.semantic_window_seconds
-            return (clap[s][None], self._crop_semantic(semantic, s, e))
-        if self.stage not in ("coarse", "fine"):
-            raise ValueError(self.stage)
-        fields = ("clap", "semantic", "coarse") if self.stage == "coarse" else ("clap", "coarse", "fine")
-        clap, mid, last = (a.astype(np.int32) for a in self.store.get(i, fields))
+            return s, s + self.semantic_window_seconds, s, s + self.semantic_window_seconds
+        clap, mid, last = rows
         if self.stage == "coarse":
             length = self._audio_length(clap=clap, semantic=mid, coarse=last)
             window = self.coarse_window_seconds
@@ -209,9 +242,22 @@ class PreprocessedDataset:
         os_ = self._rng.randint(0, length - self.semantic_window_seconds)
         oe = os_ + self.semantic_window_seconds
         is_ = self._rng.randint(os_, oe - window)
-        ie = is_ + window
+        return os_, oe, is_, is_ + window
+
+    def __getitem__(self, i: int):
+        rows = self._rows(i)
+        os_, oe, is_, ie = self._windows(rows)
+        if self.stage == "semantic":
+            clap, semantic = rows
+            return (clap[os_][None], self._crop_semantic(semantic, os_, oe))
+        clap, mid, last = rows
         crop_mid = self._crop_semantic if self.stage == "coarse" else self._crop_acoustic
         return (clap[os_][None], crop_mid(mid, is_, ie), self._crop_acoustic(last, is_, ie))
+
+    def skip(self, i: int) -> None:
+        """The crop draws of ``self[i]`` (the row's token arrays are read for
+        their lengths; nothing is cut)."""
+        self._windows(self._rows(i))
 
 
 def pad_to_longest(batch: List[Tuple[np.ndarray, ...]]) -> Tuple[np.ndarray, ...]:
@@ -236,35 +282,55 @@ def batch_iterator(
     collate=pad_to_longest,
     indices: Optional[Sequence[int]] = None,
     flatten_token_batches: bool = True,
+    rank: int = 0,
+    world: int = 1,
 ) -> Iterator[Tuple[np.ndarray, ...]]:
-    """Infinite threaded prefetching batch iterator over (shuffled) epochs.
-    Items that come back None are dropped and replaced. With
-    ``flatten_token_batches`` the token tuples of PreprocessedDataset are
-    flattened to [B, n] per sequence; audio views stay [B, T]."""
+    """Infinite threaded prefetching batch iterator over (shuffled) epochs,
+    two batches ahead. With ``flatten_token_batches`` the token tuples of
+    PreprocessedDataset are flattened to [B, n] per sequence; audio views
+    stay [B, T].
+
+    ``batch_size`` is the global batch: every rank walks the same shuffled
+    order (the same ``seed``) and this rank gets rows ``[rank * B / world,
+    (rank + 1) * B / world)`` of each, so the ranks' batches put together
+    are the one-process batch. The other rows go through the dataset's
+    ``skip``, which draws their crops without reading their samples, so
+    that the dataset's crop draws stay in the one-process order (at one
+    worker). An item that comes back None is an error."""
+    if batch_size % world or not 0 <= rank < world:
+        raise ValueError(f"a global batch of {batch_size} does not split over {world} ranks (rank {rank})")
+    per = batch_size // world
+    mine = range(rank * per, (rank + 1) * per)
     idxs = list(indices if indices is not None else range(len(dataset)))
-    rng = random.Random(seed)
-
-    def sample_indices():
-        while True:
-            order = idxs[:]
-            if shuffle:
-                rng.shuffle(order)
-            yield from order
-
-    index_stream = sample_indices()
+    index_stream = _index_stream(idxs, shuffle, seed)
     with concurrent.futures.ThreadPoolExecutor(num_workers) as pool:
-        pending = []
+        def submit():
+            # the skips go through the pool too, so that at one worker every
+            # crop is drawn in the one-process order
+            return [pool.submit(dataset.__getitem__ if j in mine else dataset.skip, next(index_stream))
+                    for j in range(batch_size)]
+
+        pending = [submit(), submit()]
         while True:
-            while len(pending) < batch_size * 2:
-                pending.append(pool.submit(dataset.__getitem__, next(index_stream)))
-            items, pending = pending[:batch_size], pending[batch_size:]
-            results = [r for r in (f.result() for f in items) if r is not None]
-            while len(results) < batch_size:
-                results.append(dataset[next(index_stream)])
-            batch = collate(results)
+            futures = pending.pop(0)
+            pending.append(submit())
+            results = [f.result() for f in futures]
+            rows = [results[j] for j in mine]
+            if any(r is None for r in rows):
+                raise ValueError("batch_iterator needs a dataset whose items are never None")
+            batch = collate(rows)
             if flatten_token_batches:
                 batch = tuple(b.reshape(b.shape[0], -1) if b.ndim > 2 else b for b in batch)
             yield batch
+
+
+def _index_stream(idxs: List[int], shuffle: bool, seed: int) -> Iterator[int]:
+    rng = random.Random(seed)
+    while True:
+        order = idxs[:]
+        if shuffle:
+            rng.shuffle(order)
+        yield from order
 
 
 def train_valid_split(n: int, valid_frac: float, seed: int = 42):

@@ -103,19 +103,23 @@ class CLAP(nn.Module):
         pooled = self.text_branch(input_ids, attention_mask)["pooler_output"]
         return l2_normalize(self.text_projection(pooled.to(self.text_projection[0].weight.dtype)).float())
 
-    def get_audio_embedding(self, wav: torch.Tensor) -> torch.Tensor:
+    def get_audio_embedding(self, wav: torch.Tensor, *, train: bool = False,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, T] at the tower's rate -> L2-normalized [B, joint] float32; a
-        fusion CLAP always takes the four-view mel stack."""
+        fusion CLAP always takes the four-view mel stack. ``train`` runs
+        HTSAT's training forward (batch statistics; SpecAugment from
+        ``generator`` without fusion)."""
         if self.audio_branch is None:
             raise ValueError("this CLAP was built without an audio tower (audio_cfg=None)")
         wav = wav.to(self.audio_projection[0].weight.device)
         if self.audio_branch.cfg.enable_fusion:
-            return self.get_audio_embedding_fusion(*wav_to_mel_fusion(self.audio_branch.cfg, wav))
-        return self._project_audio(self.audio_branch(wav.float()))
+            return self.get_audio_embedding_fusion(*wav_to_mel_fusion(self.audio_branch.cfg, wav), train=train)
+        return self._project_audio(self.audio_branch(wav.float(), train=train, generator=generator))
 
-    def get_audio_embedding_fusion(self, mel_fusion: torch.Tensor, longer: torch.Tensor) -> torch.Tensor:
+    def get_audio_embedding_fusion(self, mel_fusion: torch.Tensor, longer: torch.Tensor, *,
+                                   train: bool = False) -> torch.Tensor:
         """mel_fusion [B, 4, frames, mel_bins], longer [B] bool -> [B, joint]."""
-        return self._project_audio(self.audio_branch(mel_fusion=mel_fusion, longer=longer))
+        return self._project_audio(self.audio_branch(mel_fusion=mel_fusion, longer=longer, train=train))
 
     def _project_audio(self, out: dict) -> torch.Tensor:
         w = self.audio_projection[0].weight

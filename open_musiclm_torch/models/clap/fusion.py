@@ -8,7 +8,8 @@ work on torch's [B, C, H, W] layout; their parameter names follow the laion
 checkpoint's ``feature_fusion.py`` (``local_att`` / ``global_att``
 Sequentials: Conv2d 1x1, BatchNorm2d, ReLU, Conv2d 1x1, BatchNorm2d, the
 global branch after an average pool). The BatchNorms normalize with their
-running statistics in ``eval()``.
+running statistics, or with ``train`` with the batch's (and update the
+running ones as flax does; ``ops.relpos.batch_norm``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...ops.relpos import conv
+from ...ops.relpos import batch_norm, conv
 
 
 def _att_branch(channels: int, r: int, global_pool: bool) -> nn.Sequential:
@@ -30,14 +31,14 @@ def _att_branch(channels: int, r: int, global_pool: bool) -> nn.Sequential:
     return nn.Sequential(*([nn.AdaptiveAvgPool2d(1)] if global_pool else []), *layers)
 
 
-def _run(branch: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+def _run(branch: nn.Sequential, x: torch.Tensor, train: bool = False) -> torch.Tensor:
     """A branch with its convs' parameters cast to x's dtype and its
     BatchNorms in float32."""
     for m in branch:
         if isinstance(m, nn.Conv2d):
             x = conv(x, m)
         elif isinstance(m, nn.BatchNorm2d):
-            x = m(x.float()).to(x.dtype)
+            x = batch_norm(x, m, train).to(x.dtype)
         else:
             x = m(x)
     return x
@@ -46,7 +47,7 @@ def _run(branch: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
 class DAF(nn.Module):
     """Direct add fuse."""
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor, train: bool = False) -> torch.Tensor:
         return x + residual
 
 
@@ -59,9 +60,9 @@ class AFF(nn.Module):
         self.local_att = _att_branch(channels, r, False)
         self.global_att = _att_branch(channels, r, True)
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor, train: bool = False) -> torch.Tensor:
         xa = x + residual
-        wei = torch.sigmoid(_run(self.local_att, xa) + _run(self.global_att, xa))
+        wei = torch.sigmoid(_run(self.local_att, xa, train) + _run(self.global_att, xa, train))
         return 2.0 * x * wei + 2.0 * residual * (1.0 - wei)
 
 
@@ -76,11 +77,11 @@ class iAFF(nn.Module):
         self.local_att2 = _att_branch(channels, r, False)
         self.global_att2 = _att_branch(channels, r, True)
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor, train: bool = False) -> torch.Tensor:
         xa = x + residual
-        wei = torch.sigmoid(_run(self.local_att, xa) + _run(self.global_att, xa))
+        wei = torch.sigmoid(_run(self.local_att, xa, train) + _run(self.global_att, xa, train))
         xi = x * wei + residual * (1.0 - wei)
-        wei2 = torch.sigmoid(_run(self.local_att2, xi) + _run(self.global_att, xi))
+        wei2 = torch.sigmoid(_run(self.local_att2, xi, train) + _run(self.global_att, xi, train))
         return x * wei2 + residual * (1.0 - wei2)
 
 
@@ -132,7 +133,7 @@ def build_mel_fusion(mel: torch.Tensor, chunk_frames: int) -> torch.Tensor:
 
 
 def fuse_patches(global_x: torch.Tensor, local: torch.Tensor, fusion: nn.Module,
-                 longer: Optional[torch.Tensor]) -> torch.Tensor:
+                 longer: Optional[torch.Tensor], train: bool = False) -> torch.Tensor:
     """global_x [B, E, H, W] from the global view, local [B, 3, E, h, w]
     from the three chunks -> fused patches [B, E, H, W]: the chunks laid
     side by side along the width (padded or cut to W) and fused in where
@@ -144,7 +145,7 @@ def fuse_patches(global_x: torch.Tensor, local: torch.Tensor, fusion: nn.Module,
         local = torch.nn.functional.pad(local, (0, W - local.shape[-1]))
     else:
         local = local[..., :W]
-    fused = fusion(global_x, local)
+    fused = fusion(global_x, local, train)
     if longer is None:
         return fused
     return torch.where(longer.to(fused.device)[:, None, None, None], fused, global_x)

@@ -1,7 +1,9 @@
 """HTSAT, the CLAP audio tower (port of open_musiclm_tpu/models/clap/htsat.py).
 
 48 kHz waveform -> log-mel [B, 1001, 64] -> BatchNorm over mel bins
-(running statistics) -> fold into a 256 x 256 "image" (freq_ratio 4;
+(running statistics; in training, ``train=True``, the batch's, which update
+the running ones as flax does, then SpecAugment when a generator is given
+and fusion is off) -> fold into a 256 x 256 "image" (freq_ratio 4;
 bicubic time resize with align_corners=True) -> patch embed (4 x 4) -> four
 Swin stages (HTSAT-tiny: embed 96, depths 2/2/6/2, heads 4/8/16/32, window
 8; shifted windows on odd blocks) -> LayerNorm -> freq-unfold pooling ->
@@ -35,9 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.relpos import conv, lecun_normal_, linear, norm
+from ...ops.relpos import batch_norm, conv, lecun_normal_, linear, norm
 from .fusion import fuse_patches, make_fusion
-from .mel import logmel
+from .mel import logmel, spec_augment
 
 
 def _cubic_weights(t: torch.Tensor, a: float = -0.75):
@@ -237,16 +239,18 @@ class PatchEmbed(nn.Module):
             self.mel_conv2d = nn.Conv2d(1, cfg.embed_dim, (p, 3 * p), stride=(s[0], 3 * s[1]))
             self.fusion_model = make_fusion("aff_2d", cfg.embed_dim)
 
-    def forward(self, img: torch.Tensor, longer: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, longer: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         """[B, H, W] image, or [B, 4, H, W] with fusion (the global view
-        first) -> [B, H'*W', E]."""
+        first) -> [B, H'*W', E]; ``train``: the fusion's BatchNorms on batch
+        statistics."""
         if img.dim() == 3:
             h = conv(img[:, None], self.proj)
         else:
             B, n, H, W = img.shape
             local = conv(img[:, 1:].reshape(B * (n - 1), 1, H, W), self.mel_conv2d)
             h = fuse_patches(conv(img[:, :1], self.proj), local.reshape(B, n - 1, *local.shape[1:]),
-                             self.fusion_model, longer)
+                             self.fusion_model, longer, train)
         return norm(h.flatten(2).transpose(1, 2), self.norm)
 
 
@@ -294,9 +298,13 @@ class HTSAT(nn.Module):
         return x.reshape(mel.shape[0], fr * target_F, target_T // fr)
 
     def forward(self, wav: Optional[torch.Tensor] = None, *, mel: Optional[torch.Tensor] = None,
-                mel_fusion: Optional[torch.Tensor] = None, longer: Optional[torch.Tensor] = None) -> dict:
+                mel_fusion: Optional[torch.Tensor] = None, longer: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None) -> dict:
         """``mel_fusion`` [B, 4, frames, mel_bins] (before bn0) and ``longer``
-        [B] bool (None: every row) take the fusion path."""
+        [B] bool (None: every row) take the fusion path. ``train``: the
+        training forward (the BatchNorms on batch statistics, updating their
+        running ones; SpecAugment drawn from ``generator`` when one is given
+        and fusion is off)."""
         cfg = self.cfg
         fusion = cfg.enable_fusion and mel_fusion is not None
         if fusion:
@@ -306,11 +314,11 @@ class HTSAT(nn.Module):
                          n_mels=cfg.mel_bins, fmin=cfg.fmin, fmax=cfg.fmax)
         shape = mel.shape
         mel = mel.reshape(-1, *shape[-2:]).float()
-        bn = self.bn0  # running statistics: the inference path of the JAX package's BatchNorm
-        mel = F.batch_norm(mel.transpose(1, 2), bn.running_mean.float(), bn.running_var.float(),
-                           bn.weight.float(), bn.bias.float(), False, 0.0, bn.eps).transpose(1, 2)
-        img = self.fold(mel.to(self.compute_dtype or bn.weight.dtype))
-        h = self.patch_embed(img.reshape(*shape[:-2], *img.shape[-2:]), longer)
+        mel = batch_norm(mel.transpose(1, 2), self.bn0, train).transpose(1, 2)
+        if train and generator is not None and not fusion:
+            mel = spec_augment(generator, mel)
+        img = self.fold(mel.to(self.compute_dtype or self.bn0.weight.dtype))
+        h = self.patch_embed(img.reshape(*shape[:-2], *img.shape[-2:]), longer, train)
         for layer in self.layers:
             h = layer(h)
         h = norm(h, self.norm)

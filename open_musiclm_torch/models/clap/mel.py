@@ -6,7 +6,8 @@ filterbank -> power_to_db (ref 1.0, amin 1e-10, no top_db), as
 torchlibrosa's Spectrogram + LogmelFilterBank. CLAP's geometry: 48 kHz,
 n_fft 1024, hop 480, 64 mels, 50 Hz to 14 kHz: 1001 frames for a 10 s clip.
 The filterbank and window are numpy constants; the STFT is ``torch.fft.rfft``
-over framed windows. SpecAugment is training and is not ported.
+over framed windows. ``spec_augment`` is the training-time SpecAugment
+HTSAT applies after bn0 (``htsat.py``, ``train=True``).
 """
 
 from __future__ import annotations
@@ -89,3 +90,42 @@ def logmel(
     if top_db is not None:
         log_spec = torch.maximum(log_spec, log_spec.max() - top_db)
     return log_spec
+
+
+def spec_augment_stripes(generator: Optional[torch.Generator], batch: int, length: int, drop_width: int,
+                         stripes_num: int, device=None):
+    """One axis's SpecAugment stripes, (starts, widths) [B, stripes_num]:
+    each of width ``randint(0, drop_width + 1)`` starting at ``randint(0,
+    max(length - width, 1))`` (torchlibrosa's DropStripes, as the JAX
+    package draws them), from ``generator`` (the JAX package's
+    ``jax.random`` draws cannot be reproduced)."""
+    widths = torch.randint(0, drop_width + 1, (batch, stripes_num), generator=generator, device=device)
+    high = torch.clamp(length - widths, min=1)
+    u = torch.rand((batch, stripes_num), generator=generator, device=device, dtype=torch.float64)
+    return (u * high).long(), widths
+
+
+def stripe_mask(starts: torch.Tensor, widths: torch.Tensor, length: int) -> torch.Tensor:
+    """[B, length] float32 keep mask: 0 on every stripe [start, start + width)."""
+    pos = torch.arange(length, device=starts.device)[None, None, :]
+    hit = (pos >= starts[..., None]) & (pos < (starts + widths)[..., None])
+    return (~hit.any(dim=1)).float()
+
+
+def spec_augment(generator: Optional[torch.Generator], mel: torch.Tensor, *, time_drop_width: int = 64,
+                 time_stripes_num: int = 2, freq_drop_width: int = 8, freq_stripes_num: int = 2) -> torch.Tensor:
+    """Training-time SpecAugment of mel [B, frames, mel_bins]: per example,
+    time and frequency stripes (``spec_augment_stripes``) drawn from
+    ``generator`` zero the spectrogram."""
+    B, T, F_ = mel.shape
+    time_mask = stripe_mask(*spec_augment_stripes(generator, B, T, time_drop_width, time_stripes_num,
+                                                  mel.device), T)
+    freq_mask = stripe_mask(*spec_augment_stripes(generator, B, F_, freq_drop_width, freq_stripes_num,
+                                                  mel.device), F_)
+    return apply_spec_augment(mel, time_mask, freq_mask)
+
+
+def apply_spec_augment(mel: torch.Tensor, time_mask: torch.Tensor, freq_mask: torch.Tensor) -> torch.Tensor:
+    """mel [B, frames, mel_bins] times the keep masks [B, frames] and
+    [B, mel_bins], in the JAX package's order."""
+    return mel * time_mask[:, :, None].to(mel.dtype) * freq_mask[:, None, :].to(mel.dtype)

@@ -11,6 +11,9 @@ training loss (``stage_training_loss``) and ``token_accuracy`` live here too.
 ``compute_dtype`` (None: the parameters' dtype) is the dtype of the stream:
 bfloat16 training on float32 master weights casts the embeddings, start
 tokens and logit heads at their use, as the JAX package's ``dtype`` does.
+``remat`` recomputes each block's activations in the backward
+(``Transformer``); like the JAX package's it is a field of the model
+(``model.transformer.remat``), which no config or CLI flag sets.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ class TokenConditionedTransformer(nn.Module):
                  non_causal_prefix_size: int = 0,
                  relative_position_bias_type: str = "continuous", ff_dropout: float = 0.0,
                  compute_dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
         self.specs = tuple(specs)
         self.compute_dtype = compute_dtype
@@ -62,7 +65,7 @@ class TokenConditionedTransformer(nn.Module):
             )
         self.transformer = Transformer(
             dim, depth, heads, dim_head, grad_shrink_alpha, non_causal_prefix_size,
-            relative_position_bias_type, ff_dropout=ff_dropout, generator=generator,
+            relative_position_bias_type, ff_dropout=ff_dropout, generator=generator, remat=remat,
         )
 
     def embed_one_sequence(self, i: int, token_ids: torch.Tensor) -> torch.Tensor:

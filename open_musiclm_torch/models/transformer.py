@@ -17,15 +17,25 @@ Parameters may be float32 master weights while the pass runs in bfloat16
 cast to the activations' dtype at its use, and LayerNorm returns the
 activations' dtype. With weights already in the activations' dtype (the
 serving path) the casts are no-ops. Attention dropout is not ported.
+
+``remat`` trades FLOPs for memory, as the JAX package's ``nn.remat`` per
+block: ``forward`` runs each attention block and each conv-FF block under
+``torch.utils.checkpoint`` (non-reentrant), which keeps a block's input and
+recomputes its activations in the backward. The rel-pos bias is computed
+once and enters every block as an argument, so its gradient still sums over
+the layers. A block's recompute draws its dropout keep mask again from the
+generator state its first forward started from, and leaves the generator
+where it was, so losses and gradients equal those without remat.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import l2norm, shared_kv_attention_train, shared_kv_decode_step
 from ..ops.relpos import init_linear_, lecun_normal_, linear, make_bias
@@ -177,15 +187,40 @@ class ConvFeedForward(nn.Module):
         return out, torch.stack([state[:, 1], u_t], dim=1)
 
 
+def remat_block(fn: Callable[..., torch.Tensor], *args,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``fn(*args)`` under a non-reentrant checkpoint. ``generator`` (FF
+    dropout; None: the default generators, which ``checkpoint`` itself saves
+    and restores) is set back for the recompute to the state the first
+    forward started from, and afterwards to where the backward found it."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    start, recompute = generator.get_state(), [False]
+
+    def run(*xs):
+        if not recompute[0]:
+            recompute[0] = True
+            return fn(*xs)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*xs)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int = 8, dim_head: int = 64,
                  grad_shrink_alpha: float = 0.1, non_causal_prefix_size: int = 0,
                  relative_position_bias_type: str = "continuous", attn_scale: float = 8.0,
                  ff_mult: int = 4, ff_dropout: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
         self.dim, self.depth, self.heads, self.dim_head = dim, depth, heads, dim_head
         self.grad_shrink_alpha = grad_shrink_alpha
+        self.remat = remat
         self.rel_pos_bias = make_bias(relative_position_bias_type, dim, heads, generator)
         self.attns = nn.ModuleList(
             Attention(dim, heads, dim_head, attn_scale, non_causal_prefix_size, generator)
@@ -209,9 +244,15 @@ class Transformer(nn.Module):
         mask, True = attend; generator: FF dropout draws in train() mode."""
         x = grad_shrink(x, self.grad_shrink_alpha)
         bias = self._bias(x.shape[1], x.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for attn, ff in zip(self.attns, self.ffs):
-            x = attn(x, attn_bias=bias, key_mask=self_attn_mask)[0] + x
-            x = ff(x, generator) + x
+            if remat:
+                x = remat_block(lambda h, b, m, attn=attn: attn(h, attn_bias=b, key_mask=m)[0],
+                                x, bias, self_attn_mask) + x
+                x = remat_block(lambda h, ff=ff: ff(h, generator), x, generator=generator) + x
+            else:
+                x = attn(x, attn_bias=bias, key_mask=self_attn_mask)[0] + x
+                x = ff(x, generator) + x
         return self.final_norm(x)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:

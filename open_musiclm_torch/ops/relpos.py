@@ -70,6 +70,27 @@ def norm(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def batch_norm(x: torch.Tensor, bn: nn.Module, train: bool = False) -> torch.Tensor:
+    """x [B, C, ...] through a BatchNorm ``bn`` in float32. Without ``train``
+    its running statistics normalize; with it the batch's (the biased
+    variance), which then move the running statistics by ``bn.momentum``
+    (torch's 0.1 is flax's momentum 0.9) with the biased variance, as the
+    JAX package's flax BatchNorm does; torch's own training update would take
+    the unbiased one."""
+    x, w, b = x.float(), bn.weight.float(), bn.bias.float()
+    if not train:
+        return F.batch_norm(x, bn.running_mean.float(), bn.running_var.float(), w, b, False, 0.0, bn.eps)
+    dims = [0] + list(range(2, x.dim()))
+    mean, var = x.mean(dim=dims), x.var(dim=dims, unbiased=False)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.to(bn.running_mean.dtype), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.to(bn.running_var.dtype), alpha=m)
+        bn.num_batches_tracked += 1
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return (x - mean.view(shape)) * (torch.rsqrt(var + bn.eps) * w).view(shape) + b.view(shape)
+
+
 def init_linear_(layer: nn.Linear, generator: Optional[torch.Generator]) -> None:
     """Dense layer init as flax does it: lecun-normal kernel, zero bias."""
     lecun_normal_(layer.weight, layer.in_features, generator)

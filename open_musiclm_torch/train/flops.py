@@ -17,18 +17,18 @@ from __future__ import annotations
 
 from typing import Sequence
 
-# Peak dense bf16 rate, TFLOP/s, from NVIDIA's H100 data sheet (SXM part,
-# dense, without sparsity; at the full 700 W power limit). A data-sheet
-# figure, not a measurement.
-_PEAK_BF16_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.0}
+# Peak dense rates, TFLOP/s, from NVIDIA's H100 data sheet (SXM part, dense,
+# without sparsity; at the full 700 W power limit): bf16 on the tensor
+# cores, float32 outside them. Data-sheet figures, not measurements.
+_PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": {"bf16": 989.0, "f32": 67.0}}
 
 
-def peak_flops(device_name: str) -> float:
-    """Peak dense bf16 FLOP/s of one card by its ``torch.cuda.get_device_name``;
-    an unknown card raises."""
-    if device_name not in _PEAK_BF16_TFLOPS:
+def peak_flops(device_name: str, dtype: str = "bf16") -> float:
+    """Peak dense FLOP/s of one card at ``dtype`` ("bf16" or "f32") by its
+    ``torch.cuda.get_device_name``; an unknown card raises."""
+    if device_name not in _PEAK_TFLOPS:
         raise KeyError(f"no peak rate on record for {device_name!r}")
-    return _PEAK_BF16_TFLOPS[device_name] * 1e12
+    return _PEAK_TFLOPS[device_name][dtype] * 1e12
 
 
 def stream_positions(token_lens: Sequence[int]) -> int:

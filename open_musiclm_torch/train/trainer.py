@@ -1,18 +1,37 @@
 """Single-stage trainer on token batches (port of open_musiclm_tpu/train/trainer.py).
 
-One device, no mesh. A step is the forward and backward of
-``stage_training_loss`` for each of ``accum`` microbatches, the mean of
-their gradients and losses, then the optimizer (global-norm clip, AdamW with
-warmup; train/optimizer.py). Evaluation gives the valid loss and the token
-accuracy of the final sequence. Metrics go to ``{stage}.log.jsonl``, and
-to TensorBoard (``tb/{stage}`` under the results folder) and wandb where
-those packages are installed (a missing package skips its sink);
-checkpoints are ``{stage}.transformer.{step}.ckpt``. At the
-``save_results_every`` cadence ``train`` hands the valid batch to an
-``artifact_fn`` (train/artifacts.py through ``artifact_logits``).
+A step is the forward and backward of ``stage_training_loss`` for each of
+``accum`` microbatches, the mean of their gradients and losses, then the
+optimizer (global-norm clip, AdamW with warmup; train/optimizer.py).
+Evaluation gives the valid loss and the token accuracy of the final
+sequence. Metrics go to ``{stage}.log.jsonl``, and to TensorBoard
+(``tb/{stage}`` under the results folder) and wandb where those packages
+are installed (a missing package skips its sink); checkpoints are
+``{stage}.transformer.{step}.ckpt``. At the ``save_results_every`` cadence
+``train`` hands the valid batch to an ``artifact_fn`` (train/artifacts.py
+through ``artifact_logits``).
+
+Data parallel over a ``parallel.mesh.Mesh`` (default: the process group
+``parallel.distributed.initialize_distributed`` joined, else one process):
+parameters are replicated (rank 0's broadcast at ``init_state``), each rank
+takes its own rows of every global batch, and after the accumulation loop
+one all-reduce sums the gradients and the loss of all ranks as one flat
+buffer a dtype; they are divided by the world size times ``accum`` before
+the clip and the step, so every rank clips and steps on the same global
+gradient, as the JAX package's psum before optax does. The mean of the
+ranks' means is the global mean because the loss averages over a fixed
+number of labels a micro-batch and every rank's micro-batch has the same
+shape (checked each step). ``torch.autograd.grad`` takes the gradients, so
+no ``DistributedDataParallel`` hook would fire: the reduction is explicit.
+The eval loss and accuracy are averaged over ranks, ``artifact_logits``
+gathers the ranks' rows, only rank 0 writes logs, trackers and checkpoints,
+every rank waits at a barrier before it reads a checkpoint, and a SIGTERM /
+SIGINT on any rank stops all of them after the same step.
 
 Randomness (FF dropout, the forgetful causal mask) comes from an explicit
-``torch.Generator`` on the model's device.
+``torch.Generator`` on the model's device; with several ranks each rank's
+should be seeded on its own (``Mesh.rank_seed``), or every rank draws the
+same masks over different rows.
 """
 
 from __future__ import annotations
@@ -34,6 +53,7 @@ from ..models.token_cond import (
     stage_training_loss,
     token_accuracy,
 )
+from ..parallel.mesh import Mesh, make_mesh
 from ..profiling import StepTimer
 from .optimizer import StageOptimizer
 
@@ -91,12 +111,18 @@ class StageTrainer:
     use_wandb: bool = False
     wandb_project: str = "open-musiclm-tpu"
     wandb_run_config: Optional[Dict[str, Any]] = None
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
+        if self.mesh is None:
+            self.mesh = make_mesh()
+        if self.mesh.group is not None and self.loss_cfg.unique_consecutive:
+            raise ValueError("data parallel training needs a fixed label count a micro-batch "
+                             "(unique_consecutive makes it data-dependent)")
         Path(self.results_folder).mkdir(parents=True, exist_ok=True)
         self._log_path = Path(self.results_folder) / f"{self.stage_name}.log.jsonl"
         self._tb = None
-        if self.use_tensorboard:
+        if self.use_tensorboard and self.mesh.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -104,7 +130,7 @@ class StageTrainer:
             except Exception:
                 self._tb = None
         self._wandb = None
-        if self.use_wandb:
+        if self.use_wandb and self.mesh.is_main:
             try:
                 import wandb
 
@@ -124,6 +150,7 @@ class StageTrainer:
             self.model.parameters(), self.lr, self.wd, warmup_steps=self.lr_warmup,
             max_grad_norm=self.max_grad_norm,
         )
+        self.mesh.broadcast_(opt.params)
         return TrainState(self.model, opt, 0)
 
     # ---- steps ----
@@ -133,9 +160,10 @@ class StageTrainer:
 
     def train_step(self, state: TrainState, batch: Sequence[torch.Tensor],
                    generator: Optional[torch.Generator] = None):
-        """batch: tuple of [accum, B, n_i]. Returns (state, mean loss as a
-        0-d tensor on the device)."""
+        """batch: tuple of [accum, B, n_i], this rank's rows. Returns (state,
+        mean loss over all ranks as a 0-d tensor on the device)."""
         batch = self._on_device(batch)
+        self.mesh.assert_same([d for b in batch for d in b.shape], "the micro-batch shape", self.device)
         model = state.model
         model.train()
         params = state.optimizer.params
@@ -153,7 +181,12 @@ class StageTrainer:
                 for g, m in zip(grads, micro):
                     g.add_(m)
                 loss_sum = loss_sum + loss.detach()
-        if accum > 1:
+        if self.mesh.group is not None:
+            loss_sum = loss_sum.reshape(1)
+            self.mesh.all_reduce_coalesced_(grads + [loss_sum])
+            grads = [g / (self.mesh.world * accum) for g in grads]
+            loss_sum = loss_sum[0] / (self.mesh.world * accum)
+        elif accum > 1:
             grads = [g / accum for g in grads]
             loss_sum = loss_sum / accum
         state.optimizer.step(grads)
@@ -172,20 +205,28 @@ class StageTrainer:
 
     def eval_step(self, state: TrainState, batch: Sequence[torch.Tensor],
                   generator: Optional[torch.Generator] = None):
-        """batch: tuple of [B, n_i]. Returns (loss, accuracy of the final
-        sequence) as 0-d tensors."""
+        """batch: tuple of [B, n_i], this rank's rows. Returns (loss, accuracy
+        of the final sequence) over all ranks as 0-d tensors."""
         loss, logits, labels = self._eval(state, batch, generator)
-        return loss, token_accuracy(logits, labels)
+        acc = token_accuracy(logits, labels)
+        if self.mesh.group is not None:
+            both = self.mesh.all_reduce_(torch.stack([loss, acc])) / self.mesh.world
+            loss, acc = both[0], both[1]
+        return loss, acc
 
     def artifact_logits(self, state: TrainState, batch: Sequence[torch.Tensor],
                         generator: Optional[torch.Generator] = None):
         """The final sequence's (logits, labels) on a valid batch, for the
-        artifact dumps."""
-        return self._eval(state, batch, generator)[1:]
+        artifact dumps: every rank's rows, in rank order."""
+        _, logits, labels = self._eval(state, batch, generator)
+        return self.mesh.all_gather_rows(logits), self.mesh.all_gather_rows(labels)
 
     # ---- logs and checkpoints ----
 
     def log(self, step: int, **metrics):
+        """Rank 0 writes; the other ranks' calls do nothing."""
+        if not self.mesh.is_main:
+            return
         rec = {"step": int(step), "time": time.time(), "stage": self.stage_name}
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(self._log_path, "a") as f:
@@ -204,7 +245,7 @@ class StageTrainer:
 
     def log_audio(self, step: int, tag: str, waves, sample_rate: int):
         """Reconstruction audio to the trackers. ``waves``: [n, T] (or [T])
-        in [-1, 1]."""
+        in [-1, 1]. Rank 0 writes."""
         if self._tb is None and self._wandb is None:
             return
         waves = torch.as_tensor(waves).detach().float().cpu().numpy()
@@ -229,6 +270,9 @@ class StageTrainer:
         return str(Path(self.results_folder) / f"{self.stage_name}.transformer.{step}.ckpt")
 
     def save(self, state: TrainState, step: int):
+        """Rank 0 writes the checkpoint; the other ranks' calls do nothing."""
+        if not self.mesh.is_main:
+            return
         save_checkpoint(self.checkpoint_path(step), {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
@@ -236,7 +280,10 @@ class StageTrainer:
         })
 
     def load(self, path: str) -> TrainState:
-        """A state with this trainer's model restored from ``path``."""
+        """A state with this trainer's model restored from ``path``, read on
+        every rank once all ranks reach this call (rank 0's last ``save``
+        has then returned)."""
+        self.mesh.barrier()
         tree = load_checkpoint(path, map_location=self.device)
         self.model.load_state_dict(tree["model"])
         state = self.init_state()
@@ -253,12 +300,13 @@ class StageTrainer:
         """The reference train loop: steps, the valid metrics every
         ``save_results_every`` steps (then ``artifact_fn(state, valid_batch,
         step)``), a checkpoint every ``save_model_every``, and on
-        SIGTERM/SIGINT a checkpoint and a clean stop."""
+        SIGTERM/SIGINT (on any rank) a checkpoint and a clean stop of every
+        rank after the same step."""
         timer = StepTimer(device=self.device)
         stop = _PreemptionGuard()
         try:
             for _ in range(num_steps):
-                if stop.triggered:
+                if self.mesh.any(stop.triggered, self.device):
                     self.save(state, state.step)
                     self.log(state.step, preempted=1.0)
                     break

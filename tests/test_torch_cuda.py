@@ -594,6 +594,22 @@ def test_attention_bwd_kernel_deterministic(dev, dtype):
             assert torch.equal(a, ref), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_prefill_attention_kernel_deterministic(dev, dtype):
+    """Kernel 1 twice on the same inputs gives the same bits, output and row
+    statistics: under remat the backward recomputes it, and kernels 5 and 6
+    read what the recompute saved."""
+    g = torch.Generator().manual_seed(19)
+    q, k, v, bias, _, key_mask = _bwd_case(g, 2, 16, 514, 514, True, dev)
+    q, k, v, bias = (t.to(dtype) for t in (q, k, v, bias))
+    first = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
+    for _ in range(3):
+        again = attention.shared_kv_attention_fused(q, k, v, bias, key_mask, return_stats=True)
+        for name, a, ref in zip(("out", "stats"), again, first):
+            assert torch.equal(a, ref), name
+
+
 # Kernel 6's bf16 route (tensor cores, one block per (head, query tile, key
 # tile) looping over the batch): with the bias in float32 or bf16, at the
 # three training shapes with a key mask and at ragged ones, against the

@@ -204,3 +204,48 @@ def test_musiclm_generate_modes_match_jax(quantized, flash_kv):
     assert codes["torch"].shape == codes["jax"].shape == (2, 45, 4)
     np.testing.assert_array_equal(codes["torch"], codes["jax"])
     _close(got, want)
+
+
+@pytest.mark.parametrize("batch,seconds,max_fine_rows", [(1, 3, 256), (2, 6, 2)])
+def test_chip_smoke_decode_steps_are_generates(monkeypatch, batch, seconds, max_fine_rows):
+    """chip_smoke.expected_decode_steps, which holds musiclm_large's kernel-7
+    launches on the card, counts the decode steps (logit-head calls) each
+    stage of the doll-house MusicLM.generate runs in "fused": semantic
+    continuations, several coarse windows, fine windows in one call or
+    split over MAX_FINE_ROWS."""
+    import chip_smoke
+
+    jm = jax_tiny_musiclm(quantized=True, flash_kv="fused")
+    stages = {name: Stage(port_model(st.model, st.params), quantized=True, flash_kv="fused")
+              for name, st in (("semantic", jm.semantic_stage), ("coarse", jm.coarse_stage),
+                               ("fine", jm.fine_stage))}
+    calls, steps = [0], {}
+    head = tqd.int8_matmul
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return head(*args, **kw)
+
+    def per_stage(name, st):
+        inner = st.generate
+
+        def run(*args, **kw):
+            before = calls[0]
+            out = inner(*args, **kw)
+            steps[name] = steps.get(name, 0) + calls[0] - before
+            return out
+
+        st.generate = run
+        return st
+
+    monkeypatch.setattr(tqd, "int8_matmul", counted)
+    monkeypatch.setattr(tmusiclm_mod, "MAX_FINE_ROWS", max_fine_rows)
+    tm = tmusiclm_mod.MusicLM(codec=port_codec(jm.codec, jm.codec_params),
+                              **{f"{n}_stage": per_stage(n, st) for n, st in stages.items()})
+    windows = {k: v for k, v in TINY_GEN_KW.items() if k.endswith("window_seconds")}
+    rates = {k: TINY_GEN_KW[k] for k in ("semantic_steps_per_second", "acoustic_steps_per_second")}
+    clap = np.random.default_rng(13).integers(0, CB, (batch, 4))
+    tm.generate(clap_token_ids=_t(clap), generator=torch.Generator().manual_seed(0), output_seconds=seconds,
+                **windows, **rates)
+    quantizers = {n: st.model.specs[-1].num_quantizers for n, st in stages.items()}
+    assert steps == chip_smoke.expected_decode_steps(seconds, windows, quantizers, *rates.values(), batch)
