@@ -126,6 +126,24 @@ Phases, each of which fails the run:
      with whether gloo's all_gather takes CUDA tensors; (c) the roofline
      (train/roofline.py, the H100's data sheet) of (a)'s steps and phase 6's
      beside their measured ms.
+ 11. tensor parallelism and the serving layouts, on two gloo ranks (their
+     own processes) sharing the card: (a) musiclm_large's coarse stage at
+     tp=2 (24 layers, 8 of its 16 heads a rank, n 2,766): one float32 step
+     (b2 x accum 1, remat, ff_dropout 0.1) against one process from the same
+     weights and generator seed (the loss and every gathered gradient within
+     1e-5 x max|g| a tensor), then two steps at the shipped coarse trainer
+     config (b2 x accum 8, bf16, remat): ms and peak memory a rank, kernel 1
+     2 x 24 x accum and kernels 5 and 6 24 x accum times a step on each
+     rank; (b) 24 teacher-forced fp decode steps of each stage of
+     musiclm_large_small_context at tp=2 against one process's float32
+     logits (phase 3's 1e-4 x max|logit|); (c) MusicLM.generate over
+     make_mesh(dp=2) with per-row keys at musiclm_small, b8 x 4 s (b4 a
+     rank) in "int8" and "fused", against one process's b8 run: the codes
+     bit-equal, the waves (a float32 Encodec) within 1e-5, phase 4's kernels
+     exactly on each rank; (d) MusicLM.to_pipelined on the one card (one
+     entry, and two entries naming it, which copies the coarse stage and
+     the codec): waves bit-equal to the unpipelined run. gloo over one card
+     shows the function on the card's kernels, not tensor-parallel speed.
 Phase 8 also builds musiclm_large itself (30 s semantic, 10 s coarse, 3 s
 fine windows, the fusion CLAP) and runs generate(text=1 prompt) in "fused"
 at b1 x 10 s, one whole coarse window (kernel 7 24 times a decode step).
@@ -150,7 +168,7 @@ times kernel 4 alone at its phase-2 shapes from the port in the checkout
 ROOT (another commit's, for a comparison within one call) and prints a JSON
 line of its device ms.
 
-    python3 chip_smoke.py --phase8      # or --phase9, --phase10
+    python3 chip_smoke.py --phase8      # or --phase9, --phase10, --phase11
 
 builds the kernels and runs that phase alone.
 """
@@ -158,6 +176,7 @@ builds the kernels and runs that phase alone.
 from __future__ import annotations
 
 import copy
+import gc
 import inspect
 import json
 import math
@@ -1064,6 +1083,10 @@ def main() -> int:
 
     # ---- 10. remat at musiclm_large's width, data parallel, the rooflines ----
     phase10(torch, omt_config, dev, card, counters, phase6_ms)
+    torch.cuda.empty_cache()
+
+    # ---- 11. tensor parallelism and the serving layouts ----
+    print(json.dumps({"phase11": tp_phase(torch, omt_config, dev, card, all_counters())}))
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
@@ -2990,6 +3013,496 @@ def phase10(torch, omt_config, dev, card, counters, phase6_ms=None):
     return a["launches"][True]
 
 
+# phase 11: tensor parallelism and the multi-card serving layouts on one card
+TP_TOL = 1e-5  # (a) the loss and each gathered gradient, x max|g| a tensor
+TP_STEPS = 2  # (a) bf16 steps at the shipped coarse trainer config
+LOGIT_TOL = 1e-4  # (b) phase 3's limit, x max|logit|
+WAVE_TOL = 1e-5  # (c) the waves, absolute
+
+
+def reset_counts(counters):
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(counters):
+    return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+
+
+def heads_reversed(torch, model):
+    """A copy of ``model`` with its attention heads in reverse order (to_q's
+    rows, to_out's columns and the rel-pos MLP's outputs by head): the same
+    function, its sums over heads in another order. Returns it and a map of
+    (parameter name, its gradient) back to the original head order."""
+    h, d = model.heads, model.dim_head
+    perm = torch.arange(h - 1, -1, -1)
+    idx = (perm[:, None] * d + torch.arange(d)).reshape(-1)
+    flipped = copy.deepcopy(model)
+    rows = {"to_q.weight": (0, idx), "to_out.weight": (1, idx), "out_layer.weight": (0, perm),
+            "out_layer.bias": (0, perm)}
+    with torch.no_grad():
+        for name, p in flipped.named_parameters():
+            rule = next((r for k, r in rows.items() if name.endswith(k)), None)
+            if rule is not None:
+                p.copy_(p.index_select(rule[0], rule[1].to(p.device)))
+
+    def unflip(name, t):
+        rule = next((r for k, r in rows.items() if name.endswith(k)), None)
+        return t if rule is None else t.index_select(rule[0], rule[1].to(t.device))  # reversal is its own inverse
+
+    return flipped, unflip
+
+
+def tp_training(torch, omt_config, dev, mesh, large_config: str, counters) -> dict:
+    """Phase 11 (a), on each rank of a tp=2 mesh: musiclm_large's coarse
+    stage (its 10 s window). First one float32 step at b2 x accum 1 with
+    remat, ff_dropout 0.1 and the forgetful mask, from the same weights and
+    generator seed as one process on the whole model, which the main rank
+    runs first: the loss and every gathered gradient (read at the
+    optimizer). Then TP_STEPS steps at the shipped coarse trainer config
+    (bf16 compute on float32 masters, remat): ms, peak memory and launches a
+    step."""
+    from open_musiclm_torch.models.token_cond import StageLossConfig
+    from open_musiclm_torch.parallel.mesh import Mesh
+    from open_musiclm_torch.parallel.sharding import gather_param_tensors, load_whole_state_dict
+    from open_musiclm_torch.train.trainer import StageTrainer
+
+    on_card = dev.type == "cuda"
+    mc = omt_config.load_model_config(large_config)
+    tcfg = omt_config.load_training_config(
+        str(ROOT / "configs" / "training" / "train_musiclm_fma.json")).coarse_trainer_cfg
+    b, accum = tcfg.batch_size, tcfg.grad_accum_every
+    t0 = time.perf_counter()
+    model = omt_config.init_stage(mc, "coarse", 111, device=dev).model
+    for ff in model.transformer.ffs:
+        ff.dropout = 0.1
+    model.transformer.remat = True
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    lens = omt_config.stage_example_lengths(mc, "coarse")
+    g = torch.Generator().manual_seed(112)
+    parity = tuple(torch.randint(0, s.codebook_size, (1, b, n), generator=g) for s, n in zip(model.specs, lens))
+    batches = [tuple(torch.randint(0, s.codebook_size, (accum, b, n), generator=g)
+                     for s, n in zip(model.specs, lens)) for _ in range(TP_STEPS)]
+    hp = dict(loss_cfg=StageLossConfig(tuple(tcfg.cross_entropy_loss_weights)), lr=tcfg.lr, wd=tcfg.wd,
+              lr_warmup=tcfg.lr_warmup, max_grad_norm=tcfg.max_grad_norm, stage_name="coarse",
+              use_tensorboard=False, save_model_every=0)
+    # the stream: each sequence with its EOS (the last one's is label only) and its start token
+    out = {"shape": (model.depth, model.heads, model.dim, sum(lens) + 2 * len(lens) - 1, b, accum),
+           "built_s": time.perf_counter() - t0}
+
+    def first_step(m, mesh_, folder):
+        """(loss, whole gradients) of one float32 step of ``m`` on ``mesh_``."""
+        trainer = StageTrainer(model=m, mesh=mesh_, grad_accum_every=1, results_folder=folder, **hp)
+        state = trainer.init_state()
+        grads, step = [], state.optimizer.step
+
+        def capture(gs):
+            grads.extend(x.cpu() for x in gather_param_tensors(m, [x.detach() for x in gs]))
+            step(gs)
+
+        state.optimizer.step = capture
+        gen = torch.Generator(device=dev).manual_seed(mesh_.rank_seed(113))
+        _, loss = trainer.train_step(state, parity, gen)
+        return loss.item(), grads
+
+    def rel_err(got, ref):
+        """Each tensor's max |got - ref| over its max |ref|; the rel-pos MLP's
+        output bias shifts a whole score row (true gradient 0), so it is
+        scaled by its output weight's, as phase 6 does."""
+        out_w = ref["transformer.rel_pos_bias.out_layer.weight"]
+        return {n: (got[n] - r).abs().max().item() / max((out_w if n.endswith("out_layer.bias") else r)
+                                                         .abs().max().item(), 1e-30) for n, r in ref.items()}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        names = [n for n, _ in model.named_parameters()]
+        if mesh.is_main:
+            # one process on the whole model, the same weights and generator
+            # seed; and its rounding floor: the same function with the heads
+            # in reverse order (a reordering of the sums, as tp=2's is)
+            one = copy.deepcopy(model)
+            out["one_loss"], one_grads = first_step(one, Mesh(), tmp)
+            ref = dict(zip(names, one_grads))
+            del one, one_grads
+            flipped, unflip = heads_reversed(torch, model)
+            out["flipped_loss"], flipped_grads = first_step(flipped, Mesh(), tmp)
+            floor = rel_err({n: unflip(n, x) for n, x in zip(names, flipped_grads)}, ref)
+            del flipped, flipped_grads
+        out["tp_loss"], grads = first_step(model, mesh, tmp)
+        if mesh.is_main:
+            errs = rel_err(dict(zip(names, grads)), ref)
+            # each tensor within TP_TOL, or within 3x its rounding floor where
+            # one process's reordered sums alone move it further. The rel-pos
+            # MLP's gradients all come from one [2n-1, h] table gradient, a
+            # sum of bias gradients whose rows sum to 0 (the softmax): they
+            # share the largest floor among them
+            rel_pos = [n for n in names if ".rel_pos_bias." in n]
+            floor.update(dict.fromkeys(rel_pos, max(floor[n] for n in rel_pos)))
+            limit = {n: max(TP_TOL, 3 * floor[n]) for n in names}
+            out["worst_grad"] = max((errs[n] / limit[n], errs[n], n) for n in names)
+            out["n_grads"] = len(names)
+            out["within_tol"] = sum(errs[n] <= TP_TOL for n in names)
+            out["largest"] = sorted(((errs[n], floor[n], n) for n in names if errs[n] > TP_TOL), reverse=True)[:5]
+            del ref
+        del grads
+        gc.collect()  # the capturing optimizers' cycles hold the reference models
+        if on_card:
+            torch.cuda.empty_cache()
+        # the shipped config: bf16 compute on the whole weights again
+        load_whole_state_dict(model, init)
+        del init
+        model.compute_dtype = torch.bfloat16
+        trainer = StageTrainer(model=model, mesh=mesh, grad_accum_every=accum, results_folder=tmp, **hp)
+        state = trainer.init_state()
+        gen = torch.Generator(device=dev).manual_seed(mesh.rank_seed(114))
+        steps = []
+        for batch in batches:
+            reset_counts(counters)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            state, loss = trainer.train_step(state, batch, gen)
+            loss = loss.item()
+            steps.append((loss, (time.perf_counter() - t1) * 1e3,
+                          torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan"),
+                          read_counts(counters)))
+        out["steps"] = steps
+    return out
+
+
+def tp_decode(torch, omt_config, dev, mesh, config: str, counters) -> dict:
+    """Phase 11 (b), on each rank of a tp=2 mesh: 24 teacher-forced fp decode
+    steps of each stage of musiclm_large_small_context (float32) on the
+    rank's shard; the main rank first runs them on the whole stage. Returns
+    the main rank's errors and each rank's launches."""
+    from open_musiclm_torch.models import token_cond
+    from open_musiclm_torch.parallel.sharding import shard_module
+
+    mc = omt_config.load_model_config(config)
+    g = torch.Generator().manual_seed(121)
+    out = {}
+    for name, seed in (("semantic", 122), ("coarse", 123), ("fine", 124)):
+        model = omt_config.init_stage(mc, name, seed, device=dev).model
+        specs = model.specs
+        prefix = {"semantic": (12,), "coarse": (12, 20), "fine": (12, 30)}[name]
+        cond = [torch.randint(0, s.codebook_size, (2, n), generator=g).to(dev) for s, n in zip(specs, prefix)]
+        q_last = specs[-1].num_quantizers
+        T = -(-24 // q_last)
+        teacher = torch.randint(0, specs[-1].codebook_size, (2, T, q_last), generator=g).to(dev)
+        kw = dict(max_time_steps=T, temperature=0.0, teacher_ids=teacher, return_logits=True)
+        want = token_cond.generate(model, cond, **kw)[1].cpu() if mesh.is_main else None
+        shard_module(model, mesh)
+        reset_counts(counters)
+        tokens, got = token_cond.generate(model, cond, **kw)
+        launches = read_counts(counters)
+        got = got.cpu()
+        rec = {"launches": launches, "steps": got.shape[1], "heads": model.transformer.attns[0].heads,
+               "depth": model.depth}
+        if want is not None:
+            live = want[..., :-1]  # the EOS column is -1e9 on both
+            rec["err"] = (got[..., :-1] - live).abs().max().item()
+            rec["tol"] = LOGIT_TOL * max(1.0, live.abs().max().item())
+        out[name] = rec
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def serving_musiclm(torch, omt_config, mc, dev):
+    """Phase 4's musiclm_small stages (bf16, seeds 1-3) with a float32
+    Encodec (seed 4), so that a wave's rows can be held within WAVE_TOL."""
+    from open_musiclm_torch.models.musiclm import MusicLM
+
+    stages = {f"{name}_stage": omt_config.init_stage(mc, name, seed, device=dev, dtype=torch.bfloat16,
+                                                     quantized=True, flash_kv="int8")
+              for name, seed in (("semantic", 1), ("coarse", 2), ("fine", 3))}
+    codec = omt_config.build_encodec(mc, generator=torch.Generator().manual_seed(4), device=dev)
+    return MusicLM(codec=codec, **stages)
+
+
+def serving_runs(torch, omt_config, dev, mesh, small_config: str, counters, batch: int = 8,
+                 parts=((0, 8),)) -> dict:
+    """Phase 11 (c): MusicLM.generate(serving_mesh=mesh, per_row_keys) at
+    musiclm_small, ``batch`` x 4 s, in "int8" and "fused" (``mesh`` None: one
+    process, one call for each row range of ``parts``, put together).
+    Returns each mode's codes reaching Encodec, waves, wall and launches, and
+    the MusicLM."""
+    import dataclasses
+
+    from open_musiclm_torch.core.sampling import seed_keys
+    from open_musiclm_torch.models.stages import Stage
+
+    mc = omt_config.load_model_config(small_config)
+    musiclm = serving_musiclm(torch, omt_config, mc, dev)
+    windows = dict(semantic_window_seconds=int(mc.global_cfg.semantic_audio_length_seconds),
+                   coarse_window_seconds=int(mc.global_cfg.coarse_audio_length_seconds),
+                   fine_window_seconds=int(mc.global_cfg.fine_audio_length_seconds))
+    g = torch.Generator().manual_seed(131)
+    clap = torch.randint(0, mc.clap_rvq_cfg.codebook_size, (batch, mc.clap_rvq_cfg.rq_num_quantizers, 1),
+                         generator=g).to(dev)
+    keys = seed_keys(range(131, 131 + batch), device=dev)
+    out = {"musiclm": musiclm, "windows": windows}
+    for mode in ("int8", "fused"):
+        m = dataclasses.replace(musiclm, serving_mesh=mesh, **{
+            k: Stage(getattr(musiclm, k).model, name=k, quantized=True, flash_kv=mode)
+            for k in ("semantic_stage", "coarse_stage", "fine_stage")})
+        codes, decode = [], m._decode
+
+        def capture(c, codes=codes, decode=decode):
+            codes.append(c)
+            return decode(c)
+
+        m._decode = capture
+        reset_counts(counters)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves = [m.generate(clap_token_ids=clap[lo:hi], per_row_keys=keys[lo:hi], output_seconds=4.0, **windows)
+                 for lo, hi in parts]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[mode] = {"codes": torch.cat(codes).cpu(), "wave": torch.cat(waves).float().cpu(),
+                     "wall": time.perf_counter() - t0, "launches": read_counts(counters),
+                     "depth": len(musiclm.semantic_stage.model.transformer.attns)}
+    return out
+
+
+def batch_size_probe(torch, musiclm, dev, card) -> dict:
+    """Whether a row's bits with b rows equal its bits with 2b in the pieces
+    of a decode, b 4 (the semantic and coarse calls' rows a rank) and 8 (the
+    fine call's, two windows): the prefill's bf16 product (cuBLAS, [b x 216,
+    1024] x [1024, 2730]), kernel 1 (8 heads over 216 keys), kernel 4 (the
+    logit head) and kernel 3 (one conv-FF layer), kernel 2's split of a
+    1280-row cache at pos 1279 (its wrapper picks the splits from b); then
+    the semantic stage's prefill and 3 teacher-forced decode steps in
+    "int8" and "fused" at 4 of 8 rows."""
+    from open_musiclm_torch.models.stages import Stage
+    from open_musiclm_torch.ops import attention, decode_attention, fused_ff, quant
+    from open_musiclm_torch.ops.fused_ff import pack_ff_weights
+
+    g = torch.Generator().manual_seed(151)
+    model = musiclm.semantic_stage.model
+    ff = model.transformer.ffs[0]
+    w = ff.proj_in.weight[: ff.inner_dim]
+    wq, sc = quant.quantize_weight(model.logit_heads[-1][0].detach().float().t())
+    packed = pack_ff_weights(ff)
+    out = {}
+    for b in (4, 8):
+        def rand(*shape):
+            return torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+
+        x = rand(2 * b * 216, model.dim).to(w.dtype)
+        out[f"prefill product {b}/{2 * b}"] = torch.equal(torch.nn.functional.linear(x, w)[: b * 216],
+                                                          torch.nn.functional.linear(x[: b * 216], w))
+        q, k, v = rand(2 * b, 8, 216, 64), rand(2 * b, 216, 64), rand(2 * b, 216, 64)
+        bias = rand(8, 216, 216)
+        out[f"kernel 1 {b}/{2 * b}"] = torch.equal(
+            attention.shared_kv_attention_fused(q, k, v, bias)[:b],
+            attention.shared_kv_attention_fused(q[:b].contiguous(), k[:b].contiguous(), v[:b].contiguous(), bias))
+        h = rand(2 * b, model.dim)
+        out[f"kernel 4 {b}/{2 * b}"] = torch.equal(quant.int8_matmul(h, wq, sc)[:b], quant.int8_matmul(h[:b], wq, sc))
+        state = rand(2 * b, 2, 2 * ff.inner_dim)
+        full = fused_ff.fused_ff_apply(h, packed, state.clone())
+        part = fused_ff.fused_ff_apply(h[:b].contiguous(), packed, state[:b].clone())
+        out[f"kernel 3 {b}/{2 * b}"] = torch.equal(full[0][:b], part[0]) and torch.equal(full[1][:b], part[1])
+        out[f"kernel 2 splits {b}/{2 * b}"] = (decode_attention.decode_splits(b, 1279, 1280)[0],
+                                               decode_attention.decode_splits(2 * b, 1279, 1280)[0])
+    # the whole semantic stage: its prefill, then 3 teacher-forced decode steps
+    clap = torch.randint(0, model.specs[0].codebook_size, (8, 12), generator=g).to(dev)
+    teacher = torch.randint(0, model.specs[-1].codebook_size, (8, 3, 1), generator=g).to(dev)
+    stream = model.assemble_stream([clap])
+    with torch.no_grad():
+        h8 = model.transformer.prefill(stream, model.transformer.init_cache(8, stream.shape[1]))[0]
+        h4 = model.transformer.prefill(stream[:4], model.transformer.init_cache(4, stream.shape[1]))[0]
+    out["semantic prefill 4/8"] = torch.equal(h8[:4], h4)
+    for mode in ("int8", "fused"):
+        st = Stage(model, quantized=True, flash_kv=mode)
+        kw = dict(max_time_steps=3, temperature=0.0, return_logits=True)
+        full = st.generate([clap], teacher_forced_ids=teacher, **kw)[1]
+        part = st.generate([clap[:4]], teacher_forced_ids=teacher[:4], **kw)[1]
+        out[f"semantic {mode} decode logits 4/8"] = [torch.equal(full[:4, i], part[:, i]) for i in range(3)]
+    return out
+
+
+def tp_rank_main(rank: int, world: int, init_file: str, folder: str, device: str) -> int:
+    """One gloo rank of phase 11 (every rank on cuda:0; ``device`` cpu in a
+    rehearsal): (a) and (b) on make_mesh(tp=2), (c) on make_mesh(dp=2).
+    Writes its results to ``folder``/tp_rank{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from open_musiclm_torch import config as omt_config
+    from open_musiclm_torch.parallel.distributed import initialize_distributed
+    from open_musiclm_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    spec = json.loads((Path(folder) / "spec.json").read_text())
+    initialize_distributed(dev.type, init_method=f"file://{init_file}", rank=rank, world_size=world,
+                           local_rank=0, backend="gloo")
+    counters = all_counters()
+    tp = make_mesh(tp=world)
+    out = {"a": tp_training(torch, omt_config, dev, tp, spec["large"], counters)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["b"] = tp_decode(torch, omt_config, dev, tp, spec["large_small_context"], counters)
+    c = serving_runs(torch, omt_config, dev, make_mesh(dp=world), spec["small"], counters)
+    out["c"] = {mode: c[mode] for mode in ("int8", "fused")}
+    torch.save(out, Path(folder) / f"tp_rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
+             large_small_context_config: Path = None, small_config: Path = None) -> dict:
+    """Phase 11: tensor parallelism and the serving layouts on the one card.
+    Two gloo ranks (their own processes, a file:// store, both on the card)
+    run (a) musiclm_large's coarse stage at tp=2 (8 heads a rank over n
+    2,766), (b) the fp decode of musiclm_large_small_context's stages at
+    tp=2 and (c) MusicLM.generate over make_mesh(dp=2) at musiclm_small (b4
+    a rank), while this process runs (c)'s one-process b8 runs and (d)
+    to_pipelined on the card. gloo over one card shows that the sharded
+    path computes one process's function on the card's kernels; it does not
+    measure tensor-parallel speed (every collective crosses the host). The
+    configs let a rehearsal run it on the CPU at small widths."""
+    root_cfg = ROOT / "configs" / "model"
+    spec = {"large": str(large_config or root_cfg / "musiclm_large.json"),
+            "large_small_context": str(large_small_context_config or root_cfg / "musiclm_large_small_context.json"),
+            "small": str(small_config or root_cfg / "musiclm_small.json")}
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "spec.json").write_text(json.dumps(spec))
+        cmd = [[sys.executable, str(ROOT / "chip_smoke.py"), "--tp_rank", str(r), "2", str(tmp / "store"),
+                str(tmp), dev.type] for r in range(2)]
+        procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmd]
+        try:
+            # (c) one process on each rank's rows (b4 a call) and on the whole
+            # batch (b8), and (d), while the ranks run
+            one = serving_runs(torch, omt_config, dev, None, spec["small"], counters, parts=((0, 4), (4, 8)))
+            whole = serving_runs(torch, omt_config, dev, None, spec["small"], counters)
+            probe = batch_size_probe(torch, whole["musiclm"], dev, card)
+            musiclm, windows = whole["musiclm"], whole["windows"]
+            del one["musiclm"]
+            gen_kw = dict(clap_token_ids=torch.randint(0, 1024, (2, 12, 1), generator=torch.Generator()
+                                                       .manual_seed(141)).to(dev), output_seconds=4.0, **windows)
+            want = musiclm.generate(generator=torch.Generator(device=dev).manual_seed(142), **gen_kw)
+            # the one card as cuda:0, and as cuda:0 and cuda (another name for
+            # it, so the coarse stage and the codec are copied)
+            first = torch.device("cuda", 0) if on_card else dev
+            other = torch.device("cuda") if on_card else torch.device("cpu", 0)
+            pipelined = {}
+            for what, devices in (("one device", [first]), ("two entries naming the one card (copies)",
+                                                            [first, other])):
+                pl = musiclm.to_pipelined(devices)
+                got = pl.generate(generator=torch.Generator(device=dev).manual_seed(142), **gen_kw)
+                copied = sum(getattr(pl, k) is not getattr(musiclm, k) for k in ("coarse_stage", "codec"))
+                pipelined[what] = (torch.equal(got, want), copied, [str(d) for d in pl.stage_devices])
+                print(f"phase 11 (d): to_pipelined({[str(d) for d in devices]}): stage devices "
+                      f"{[str(d) for d in pl.stage_devices]}, {copied} of the coarse stage and codec copied, "
+                      f"int8 b2 x 4 s waves {'bit-equal' if torch.equal(got, want) else 'DIFFER'} to the "
+                      f"unpipelined run [{card}]", flush=True)
+                del pl
+            del musiclm
+            logs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            fail(f"phase 11: tp ranks exited {[p.returncode for p in procs]}: {logs[0][-3000:]} {logs[1][-3000:]}")
+        ranks = [torch.load(tmp / f"tp_rank{r}.pt", weights_only=False) for r in range(2)]  # written just above
+    if not all(ok for ok, _, _ in pipelined.values()) or pipelined["two entries naming the one card (copies)"][1] == 0:
+        fail(f"phase 11 (d): to_pipelined: {pipelined}")
+    out["pipelined_bit_equal"] = True
+
+    # (a) training at tp=2
+    a = [r["a"] for r in ranks]
+    depth, heads, dim, n, b, accum = a[0]["shape"]
+    share, worst, name = a[0]["worst_grad"]
+    print(f"phase 11 (a): musiclm_large coarse stage at tp=2 on two gloo ranks of one card, {depth} layers x "
+          f"{heads} heads ({heads // 2} a rank) x dim {dim}, n {n}; float32 b{b} x accum 1, remat, ff_dropout 0.1: "
+          f"loss tp {a[0]['tp_loss']!r} / one process {a[0]['one_loss']!r} (heads reversed "
+          f"{a[0]['flipped_loss']!r}); gathered gradients of {a[0]['n_grads']} tensors: the worst at "
+          f"{share:.3f} of its limit ({name}: {worst:.2e} x max|g|); limit {TP_TOL:.0e} x max|g|, or 3x a "
+          f"tensor's own rounding floor (one process with the heads reversed) where that is larger; "
+          f"{a[0]['within_tol']} tensors within {TP_TOL:.0e}, the largest others (tp err, floor, name): "
+          f"{a[0]['largest']} [{card}]", flush=True)
+    if share > 1.0 or abs(a[0]["tp_loss"] - a[0]["one_loss"]) > TP_TOL * abs(a[0]["one_loss"]):
+        fail(f"phase 11 (a): tp=2 differs from one process: loss {a[0]['tp_loss']} / {a[0]['one_loss']}, "
+             f"gradient {name} {worst}")
+    want_launches = {"prefill_attention": 2 * depth * accum, "attention_bwd": depth * accum,
+                     "attention_dbias": depth * accum}
+    for r, rank in enumerate(a):
+        for i, (loss, ms, peak, launches) in enumerate(rank["steps"]):
+            got = {k: launches[k] for k in want_launches}
+            others = {k: c for k, c in launches.items() if k not in want_launches and c}
+            print(f"  rank {r} bf16 step {i + 1} (b{b} x accum {accum}, remat): loss {loss:.6f}, {ms:.1f} ms, peak "
+                  f"{peak:.2f} GiB (phase 10 (a), one process, 16 heads: 11.06 GiB), launches {launches} "
+                  f"[{card}]", flush=True)
+            if not math.isfinite(loss) or (on_card and (got != want_launches or others)):
+                fail(f"phase 11 (a) rank {r} step {i + 1}: loss {loss}, launches {launches}, want {want_launches}")
+    out["a"] = {"worst_grad": worst, "ms": [[s[1] for s in rank["steps"]] for rank in a],
+                "peak_gib": [[s[2] for s in rank["steps"]] for rank in a], "launches": want_launches}
+
+    # (b) the fp decode at tp=2
+    for name, rec in ranks[0]["b"].items():
+        print(f"phase 11 (b): musiclm_large_small_context {name} stage ({rec['depth']} layers, {rec['heads']} heads "
+              f"a rank) f32 b2, {rec['steps']} teacher-forced fp decode steps at tp=2 against one process: "
+              f"max_abs_err {rec['err']:.3e} tol {rec['tol']:.3e}; launches rank 0 {rec['launches']}, rank 1 "
+              f"{ranks[1]['b'][name]['launches']} [{card}]", flush=True)
+        if not rec["err"] <= rec["tol"]:
+            fail(f"phase 11 (b): {name} logits differ at tp=2: {rec['err']} > {rec['tol']}")
+        for rank in ranks:
+            expect_launches(f"phase 11 (b) {name}", rank["b"][name]["launches"] if on_card else
+                            {k: 0 for k in counters}, {"prefill_attention"} if on_card else set())
+    # (c) prompt-parallel serving over dp=2: held to one process on each
+    # rank's rows (the same batch a call); beside it the one-process b8 run
+    paths = {"int8": {"prefill_attention", "flash_decode_step", "fused_ff_apply", "int8_matmul"},
+             "fused": {"prefill_attention", "int8_matmul", "fused_layer_decode_step"}}
+    for mode in ("int8", "fused"):
+        want, b8 = one[mode], whole[mode]
+        rows_b8 = [torch.equal(a, w) for a, w in zip(want["codes"], b8["codes"])]
+        n_coarse = 3
+        coarse_b8 = sum(torch.equal(a[:, :n_coarse], w[:, :n_coarse]) for a, w in zip(want["codes"], b8["codes"]))
+        print(f"phase 11 (c): one process, {mode} b8 x 4 s as two b4 calls ({want['wall']:.2f} s) against one b8 "
+              f"call ({b8['wall']:.2f} s): rows with equal codes {sum(rows_b8)} of {len(rows_b8)} (equal coarse "
+              f"codes {coarse_b8}), waves max abs "
+              f"diff {(want['wave'] - b8['wave']).abs().max().item():.2e}; a row's bits at b4 equal its bits at b8 "
+              f"in: {probe} [{card}]", flush=True)
+        for r, rank in enumerate(ranks):
+            got = rank["c"][mode]
+            same = torch.equal(got["codes"], want["codes"])
+            err = (got["wave"] - want["wave"]).abs().max().item() if got["wave"].shape == want["wave"].shape else math.inf
+            print(f"phase 11 (c): MusicLM.generate(serving_mesh=dp2, per_row_keys) {mode} b{want['codes'].shape[0]} "
+                  f"x 4 s, rank {r} (b{want['codes'].shape[0] // 2} a rank): {got['wall']:.2f} s; against one process "
+                  f"on each rank's rows: codes {'bit-equal' if same else 'DIFFER'}, waves max abs err {err:.2e} "
+                  f"(limit {WAVE_TOL:.0e}); rows with codes equal to the b8 call's "
+                  f"{sum(torch.equal(a, w) for a, w in zip(got['codes'], b8['codes']))} of {len(rows_b8)}; "
+                  f"launches {got['launches']} [{card}]", flush=True)
+            if not same or not err <= WAVE_TOL:
+                fail(f"phase 11 (c) {mode} rank {r}: codes equal {same}, waves {err}")
+            if on_card:
+                expect_launches(f"phase 11 (c) {mode} rank {r}", got["launches"], paths[mode])
+                steps = got["launches"]["int8_matmul"]
+                if mode == "fused" and got["launches"]["fused_layer_decode_step"] != got["depth"] * steps:
+                    fail(f"phase 11 (c) fused rank {r}: kernel 7 launched {got['launches']} times, "
+                         f"want {got['depth']} x {steps}")
+    out["c"] = {mode: {"rank_s": [r["c"][mode]["wall"] for r in ranks], "one_b4_s": one[mode]["wall"],
+                       "one_b8_s": whole[mode]["wall"],
+                       "rows_equal_b8": sum(torch.equal(a, w) for a, w in zip(one[mode]["codes"], whole[mode]["codes"]))}
+                for mode in ("int8", "fused")}
+    out["c"]["probe"] = probe
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
 def all_counters():
     """Every kernel's launch counter: name -> (wrapper, attribute)."""
     from open_musiclm_torch.ops import attention, decode_attention, fused_ff, fused_layer, quant
@@ -3004,7 +3517,7 @@ def all_counters():
 
 
 def phase_only(n: int) -> int:
-    """Phase 1 (the build) and phase 8 or 10 alone."""
+    """Phase 1 (the build) and phase 8, 10 or 11 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3022,7 +3535,9 @@ def phase_only(n: int) -> int:
     cuda_lib.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
-    if n == 8:
+    if n == 11:
+        print(json.dumps({"phase11": tp_phase(torch, omt_config, dev, card, all_counters())}))
+    elif n == 8:
         mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
         g = mc.global_cfg
         windows = dict(semantic_window_seconds=int(g.semantic_audio_length_seconds),
@@ -3098,8 +3613,10 @@ if __name__ == "__main__":
         sys.exit(kernel4_times(Path(sys.argv[2])))
     if len(sys.argv) == 2 and sys.argv[1] == "--phase9":
         sys.exit(phase9_only())
-    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10"):
+    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10", "--phase11"):
         sys.exit(phase_only(int(sys.argv[1][len("--phase"):])))
     if len(sys.argv) == 8 and sys.argv[1] == "--dp_rank":
         sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:]))
+    if len(sys.argv) == 7 and sys.argv[1] == "--tp_rank":
+        sys.exit(tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:]))
     sys.exit(main())

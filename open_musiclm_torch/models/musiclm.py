@@ -12,18 +12,29 @@ Audio-prompt continuation: a prime wave's HuBERT + k-means semantic ids and
 Encodec codes seed the first window of each stage; the outputs' fronts are
 trimmed and the prime's codes prepended. ``generate_top_match`` reranks
 ``num_samples`` generations a prompt by CLAP audio-text similarity.
-Multi-device pipelining is not ported.
+
+Multi-card layouts: ``serving_mesh`` (a ``parallel.mesh.Mesh``) serves the
+prompts in parallel over its ``dp`` axis: every stage call decodes each
+rank's rows and gathers them (``Stage.generate(mesh=)``), and each rank
+decodes its own rows through Encodec and gathers the waves. It needs
+``per_row_keys``, and every rank calls ``generate`` with the same arguments
+(SPMD). ``to_pipelined(devices)`` puts the semantic, coarse and fine stages
+and the codec each on its own device; the segments move between them at
+the JAX package's ``_put`` call sites.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from ..core.sampling import fold_in_rows
 from ..ops.audio import int16_round_trip, prepare_audio, resample
+from ..parallel.mesh import Mesh, shard_batch
 from .clap.clap import ClapQuantized
 from .encodec import EncodecModel
 from .hubert import HubertWithKmeans
@@ -51,12 +62,28 @@ def _gather_span(segments: Sequence[torch.Tensor], start: int, length: int) -> t
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+def _put(x: Optional[torch.Tensor], device: Optional[torch.device]) -> Optional[torch.Tensor]:
+    """``x`` on a stage's device when the stages are placed; as it is
+    otherwise or for None."""
+    return x if x is None or device is None else x.to(device)
+
+
+def _module_on(module: nn.Module, device: torch.device) -> nn.Module:
+    """``module`` itself when it lies on ``device``, else a copy there."""
+    tensors = list(module.parameters()) + list(module.buffers())
+    if all(t.device == device for t in tensors):
+        return module
+    return copy.deepcopy(module).to(device)
+
+
 @dataclasses.dataclass
 class MusicLM:
     """``clap`` and ``tokenizer`` (any callable giving numpy ``input_ids``
     and ``attention_mask`` for a list of texts) serve text prompts; without
     them ``generate`` takes precomputed CLAP tokens only. ``wav2vec``
-    (HuBERT + k-means) serves audio prompts."""
+    (HuBERT + k-means) serves audio prompts. ``stage_devices`` (semantic,
+    coarse, fine, codec) is set by ``to_pipelined``; ``serving_mesh`` shards
+    every stage's prompts over its ``dp`` axis (the module docstring)."""
 
     codec: EncodecModel
     semantic_stage: Stage
@@ -65,6 +92,24 @@ class MusicLM:
     clap: Optional[ClapQuantized] = None
     tokenizer: Any = None
     wav2vec: Optional[HubertWithKmeans] = None
+    stage_devices: Optional[Tuple[torch.device, torch.device, torch.device, torch.device]] = None
+    serving_mesh: Optional[Mesh] = None
+
+    def to_pipelined(self, devices: Sequence[Any]) -> "MusicLM":
+        """A copy with the semantic, coarse and fine stages and the codec on
+        ``devices[i % len(devices)]`` (i = 0..3), each stage's module copied
+        there; one device gives the unpipelined layout. Values equal the
+        unpipelined path's: only the placement changes."""
+        devs = tuple(torch.device(devices[i % len(devices)]) for i in range(4))
+
+        def stage_on(stage: Stage, dev: torch.device) -> Stage:
+            model = _module_on(stage.model, dev)
+            return stage if model is stage.model else dataclasses.replace(stage, model=model)
+
+        return dataclasses.replace(
+            self, semantic_stage=stage_on(self.semantic_stage, devs[0]),
+            coarse_stage=stage_on(self.coarse_stage, devs[1]), fine_stage=stage_on(self.fine_stage, devs[2]),
+            codec=_module_on(self.codec, devs[3]), stage_devices=devs)
 
     def clap_tokens_from_text(self, text: List[str]) -> torch.Tensor:
         """Texts -> [b, Q, 1] CLAP tokens on the CLAP's device."""
@@ -76,6 +121,15 @@ class MusicLM:
 
     @torch.no_grad()
     def _decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """Encodec decode; with a ``serving_mesh`` each ``dp`` rank decodes
+        its rows and the waves are gathered."""
+        codes = codes.to(self.codec.codebooks.device)
+        mesh = self.serving_mesh
+        if mesh is None:
+            return self._decode_rows(codes)
+        return mesh.all_gather_rows(self._decode_rows(shard_batch(mesh, codes)))
+
+    def _decode_rows(self, codes: torch.Tensor) -> torch.Tensor:
         """Encodec decode with the batch chunked under MAX_DECODE_FRAMES."""
         b, T = codes.shape[0], codes.shape[1]
         rows = max(1, MAX_DECODE_FRAMES // max(T, 1))
@@ -145,7 +199,11 @@ class MusicLM:
         row. The returned wave starts with the prime's first
         ``semantic_window_seconds`` as Encodec codes. With
         ``return_coarse_generated_wave`` the coarse windows are decoded
-        alone, untrimmed."""
+        alone, untrimmed.
+
+        With a ``serving_mesh`` every rank of the mesh makes this call with
+        the same arguments, ``per_row_keys`` among them, and gets every row's
+        wave."""
         if output_seconds < coarse_window_seconds:
             raise ValueError(
                 f"output_seconds={output_seconds} is shorter than the coarse "
@@ -161,6 +219,9 @@ class MusicLM:
         def row_keys(stage: int, window: int) -> Optional[torch.Tensor]:
             return None if per_row_keys is None else fold_in_rows(per_row_keys, stage, window)
 
+        dev_sem, dev_coarse, dev_fine, _ = self.stage_devices or (None,) * 4
+        mesh = self.serving_mesh
+
         # audio-prompt continuation: the prime's tokens seed each stage's
         # first window, and the front trims drop what the prime covers
         cond_semantic = cond_coarse = cond_fine = prime_codes = None
@@ -175,9 +236,9 @@ class MusicLM:
                                * (1 - coarse_sliding_window_step_percent))
             fine_carry = int(acoustic_steps_per_second * fine_window_seconds
                              * (1 - fine_sliding_window_step_percent))
-            cond_semantic = sem_ids[:, -sem_carry:] if sem_ids.shape[1] >= sem_carry else sem_ids
-            cond_coarse = prime_codes[:, -coarse_carry:, :n_coarse]
-            cond_fine = prime_codes[:, -fine_carry:, n_coarse:] if fine_carry > 0 else None
+            cond_semantic = _put(sem_ids[:, -sem_carry:] if sem_ids.shape[1] >= sem_carry else sem_ids, dev_sem)
+            cond_coarse = _put(prime_codes[:, -coarse_carry:, :n_coarse], dev_coarse)
+            cond_fine = _put(prime_codes[:, -fine_carry:, n_coarse:] if fine_carry > 0 else None, dev_fine)
             semantic_adj = sem_carry - int(semantic_steps_per_second * coarse_window_seconds
                                            * (1 - coarse_sliding_window_step_percent))
             coarse_adj = coarse_carry - int(acoustic_steps_per_second * fine_window_seconds
@@ -188,11 +249,13 @@ class MusicLM:
             """Where a trimmed output starts: ``x[:, adj:]`` for either sign."""
             return adj if adj >= 0 else max(total + adj, 0)
 
+        clap_sem, clap_coarse, clap_fine = _put(clap, dev_sem), _put(clap, dev_coarse), _put(clap, dev_fine)
+
         # ---- semantic stage: sliding-window AR ----
         first_T = int(min(output_seconds, semantic_window_seconds) * semantic_steps_per_second)
-        sem_kw = dict(temperature=semantic_temperature, filter_thres=semantic_filter_thres)
+        sem_kw = dict(temperature=semantic_temperature, filter_thres=semantic_filter_thres, mesh=mesh)
         sem_segments = [
-            self.semantic_stage.generate([clap], generator, max_time_steps=first_T,
+            self.semantic_stage.generate([clap_sem], generator, max_time_steps=first_T,
                                          init_pred_ids=cond_semantic,
                                          per_row_keys=row_keys(0, 0), **sem_kw)
         ]
@@ -202,7 +265,7 @@ class MusicLM:
                        * (1 - semantic_sliding_window_step_percent))
         while sem_total < target_sem:
             cont = self.semantic_stage.generate(
-                [clap], generator,
+                [clap_sem], generator,
                 max_time_steps=int(semantic_window_seconds * semantic_steps_per_second),
                 init_pred_ids=_gather_span(sem_segments, sem_total - cond_len, cond_len),
                 per_row_keys=row_keys(0, len(sem_segments)), **sem_kw,
@@ -225,14 +288,14 @@ class MusicLM:
             if prev_pred is not None:
                 init = prev_pred[:, -coarse_cond_len:] if coarse_cond_len > 0 else None
             prev_pred = self.coarse_stage.generate(
-                [clap, _gather_span(sem_segments, sem_start + wi * step, window)], generator,
-                max_time_steps=coarse_T, init_pred_ids=init, per_row_keys=row_keys(1, wi),
-                temperature=coarse_temperature, filter_thres=coarse_filter_thres,
+                [clap_coarse, _put(_gather_span(sem_segments, sem_start + wi * step, window), dev_coarse)],
+                generator, max_time_steps=coarse_T, init_pred_ids=init, per_row_keys=row_keys(1, wi),
+                temperature=coarse_temperature, filter_thres=coarse_filter_thres, mesh=mesh,
             )  # [b, coarse_T, n_coarse]
             coarse_segments.append(prev_pred if wi == 0 else prev_pred[:, coarse_cond_len:])
         coarse_total = sum(s.shape[1] for s in coarse_segments)
         if return_coarse_generated_wave:
-            return self._decode(torch.cat(coarse_segments, dim=1).to(self.codec.codebooks.device))
+            return self._decode(torch.cat(coarse_segments, dim=1))
         coarse_start = front(coarse_total, coarse_adj)
         coarse_len = coarse_total - coarse_start
 
@@ -242,7 +305,7 @@ class MusicLM:
         n_windows = (coarse_len - fine_window) // fine_step + 1
         fine_cond_len = int(fine_window * (1 - fine_sliding_window_step_percent))
         fine_kw = dict(max_time_steps=fine_window, temperature=fine_temperature,
-                       filter_thres=fine_filter_thres)
+                       filter_thres=fine_filter_thres, mesh=mesh)
 
         def coarse_win(wj: int) -> torch.Tensor:
             return _gather_span(coarse_segments, coarse_start + wj * fine_step, fine_window)
@@ -258,7 +321,7 @@ class MusicLM:
                 keys = None if per_row_keys is None else torch.cat(
                     [row_keys(2, w) for w in range(g0, g1)])
                 pred = self.fine_stage.generate(
-                    [clap.repeat(nw, 1), torch.cat([coarse_win(w) for w in range(g0, g1)], dim=0)],
+                    [clap_fine.repeat(nw, 1), _put(torch.cat([coarse_win(w) for w in range(g0, g1)], dim=0), dev_fine)],
                     generator, per_row_keys=keys, **fine_kw,
                 )  # [nw * b, T, q]
                 chunks.append(pred.reshape(nw, b, fine_window, pred.shape[-1]))
@@ -272,21 +335,22 @@ class MusicLM:
                 if prev_fine is not None:
                     init = prev_fine[:, -fine_cond_len:] if fine_cond_len > 0 else None
                 prev_fine = self.fine_stage.generate(
-                    [clap, coarse_win(wi)], generator, init_pred_ids=init,
+                    [clap_fine, _put(coarse_win(wi), dev_fine)], generator, init_pred_ids=init,
                     per_row_keys=row_keys(2, wi), **fine_kw
                 )
                 fine = prev_fine if fine is None else torch.cat(
                     [fine, prev_fine[:, fine_cond_len:]], dim=1)
 
-        fine = fine[:, fine_adj:]
-        coarse = _gather_span(coarse_segments, coarse_start, coarse_len).to(fine.device)
+        codec_dev = self.codec.codebooks.device
+        fine = fine[:, fine_adj:].to(codec_dev)
+        coarse = _gather_span(coarse_segments, coarse_start, coarse_len).to(codec_dev)
         if prime_codes is not None:  # the prime's own codes come first
             n_coarse = coarse.shape[-1]
-            fine = torch.cat([prime_codes[..., n_coarse:].to(fine.device), fine], dim=1)
-            coarse = torch.cat([prime_codes[..., :n_coarse].to(fine.device), coarse], dim=1)
+            fine = torch.cat([prime_codes[..., n_coarse:].to(codec_dev), fine], dim=1)
+            coarse = torch.cat([prime_codes[..., :n_coarse].to(codec_dev), coarse], dim=1)
         T = min(coarse.shape[1], fine.shape[1])  # unfold may drop a partial window
         acoustic = torch.cat([coarse[:, :T], fine[:, :T]], dim=-1)
-        return self._decode(acoustic.to(self.codec.codebooks.device))
+        return self._decode(acoustic)
 
     @torch.no_grad()
     def generate_top_match(

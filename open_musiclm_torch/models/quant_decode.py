@@ -43,7 +43,12 @@ def quantize_stage_params(model: TokenConditionedTransformer, fused: bool = Fals
     projections with kernel 3's pack (``ff_{l}``: proj_in, proj_out,
     packed), each an (int8 [in, out], scale [out]) pair; with ``fused`` also
     kernel 7's pack (``layer_{l}``). The final sequence's logit heads are
-    per-head int8 [d, C] with per-column scales ([Q, d, C] and [Q, C])."""
+    per-head int8 [d, C] with per-column scales ([Q, d, C] and [Q, C]).
+    The int8 decodes take the whole model: over a mesh's ``tp`` axis they run
+    replicated, as the JAX package's shard_map does."""
+    if model.tp_mesh is not None:
+        raise ValueError("the int8 decodes take the whole model, not a tensor-parallel shard: "
+                         "quantize the unsharded model (it runs replicated over tp)")
     q: Dict[str, Any] = {}
     for l, (attn, ff) in enumerate(zip(model.transformer.attns, model.transformer.ffs)):
         q[f"attn_{l}"] = {

@@ -4,17 +4,22 @@ The three stage factories, and ``Stage``: a TokenConditionedTransformer
 with its decode mode, the JAX package's full mode matrix: the fp decode
 (``quantized=False``) or the int8 serving decode (``quantized=True``) with
 ``flash_kv`` None, "bf16", "f32", "int8" or "fused", with a generator or
-per-row sampling keys. The mesh-sharded decode is not ported yet.
+per-row sampling keys, in one process or prompt-parallel over a mesh's
+``dp`` axis (``generate(mesh=)``). A stage whose model was split over
+``tp`` (``parallel/sharding.py:shard_module``) runs the fp decode on its
+shard; the int8 decodes take the whole model and run replicated over ``tp``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional, Sequence
 
 import torch
 
 from ..core.sequence import TokenSequenceSpec
+from ..parallel.mesh import Mesh, shard_batch
 from .quant_decode import generate_quantized, quantize_stage_params
 from .token_cond import TokenConditionedTransformer, generate
 
@@ -92,10 +97,20 @@ class Stage:
         teacher_forced_ids: Optional[torch.Tensor] = None,
         return_logits: bool = False,
         per_row_keys: Optional[torch.Tensor] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """``per_row_keys``: optional [b] keys (``core.sampling``) making row
         i's sampling a function of its own key only; ``generator`` is then
-        ignored."""
+        ignored.
+
+        ``mesh``: prompt-parallel serving over its ``dp`` axis, as the JAX
+        package's shard_map over ``dp``: each ``dp`` rank decodes its rows of
+        the prompts (conditioning, prefix, teacher and keys) on this stage's
+        path, then every rank gathers all rows (tokens, and logits with
+        ``return_logits``). The call is SPMD: every rank of the mesh makes
+        it with the same arguments. It needs ``per_row_keys`` (a row's draws
+        must not depend on the shard layout) and a batch that divides by
+        ``dp``."""
         if self.flash_kv and not self.quantized:
             # the flash-KV cache lives in the quantized decode; ignoring it
             # would silently run another path than the one asked for
@@ -103,6 +118,18 @@ class Stage:
                 f"flash_kv={self.flash_kv!r} requires quantized=True: the flash "
                 "decode kernel is part of the int8 serving decode."
             )
+        cond = list(conditioning_token_ids)
+        if mesh is not None:
+            if per_row_keys is None:
+                raise ValueError("mesh-sharded generate requires per_row_keys (row i's sampling must "
+                                 "not depend on the shard layout)")
+            batch = cond[0].shape[0]
+            if batch % mesh.world:
+                raise ValueError(f"a batch of {batch} prompts does not split over dp={mesh.world}")
+            cond = shard_batch(mesh, cond)
+            init_pred_ids, teacher_forced_ids, per_row_keys = (
+                None if x is None else shard_batch(mesh, x)
+                for x in (init_pred_ids, teacher_forced_ids, per_row_keys))
         kw = dict(
             max_time_steps=int(max_time_steps), init_pred_ids=init_pred_ids,
             filter_thres=filter_thres, temperature=temperature,
@@ -110,8 +137,16 @@ class Stage:
             teacher_ids=teacher_forced_ids, return_logits=return_logits,
             per_row_keys=per_row_keys,
         )
-        if not self.quantized:
-            return generate(self.model, list(conditioning_token_ids), generator, **kw)
-        return generate_quantized(
-            self.model, self.qparams(), list(conditioning_token_ids), generator,
-            flash_kv=self.flash_kv, **kw)
+        # the kernels launch on the current device: make it the stage's own
+        # (a stage placed by MusicLM.to_pipelined on another card)
+        device = self.model.start_tokens.device
+        with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+            if not self.quantized:
+                out = generate(self.model, cond, generator, **kw)
+            else:
+                out = generate_quantized(self.model, self.qparams(), cond, generator, flash_kv=self.flash_kv, **kw)
+        if mesh is None:
+            return out
+        if return_logits:
+            return tuple(mesh.all_gather_rows(x) for x in out)
+        return mesh.all_gather_rows(out)

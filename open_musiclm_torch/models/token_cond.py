@@ -14,6 +14,15 @@ tokens and logit heads at their use, as the JAX package's ``dtype`` does.
 ``remat`` recomputes each block's activations in the backward
 (``Transformer``); like the JAX package's it is a field of the model
 (``model.transformer.remat``), which no config or CLI flag sets.
+
+``parallel/sharding.py:shard_module`` splits a model over a mesh's ``tp``
+axis: the layers as ``Transformer`` says, an embedding table whose rows
+divide by ``tp`` by rows (``embed_rows`` masks the ids outside the rank's
+rows and sums over ``tp``), a logit head whose codes divide by ``tp`` by
+codes (the logits are gathered along C). ``generate`` then runs the fp
+decode on the shard: every rank keeps the whole K/V cache (one head), its
+own channels of the conv-FF state and its heads of the bias table, and
+samples the same token from the same gathered logits and keys.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from ..core.sampling import (
     split_row_keys,
 )
 from ..core.sequence import SequenceLayout, TokenSequenceSpec, quantizer_offsets
+from ..parallel.sharding import copy_to_tp, gather_from_tp, reduce_from_tp
 from .transformer import Transformer
 
 PAD_ID = -1
@@ -67,6 +77,32 @@ class TokenConditionedTransformer(nn.Module):
             dim, depth, heads, dim_head, grad_shrink_alpha, non_causal_prefix_size,
             relative_position_bias_type, ff_dropout=ff_dropout, generator=generator, remat=remat,
         )
+        # set by shard_module: the mesh, which tables split by rows (codes),
+        # the split parameters and the replicated ones with partial gradients
+        self.tp_mesh = None
+        self.embed_split = self.logit_split = (False,) * len(self.specs)
+        self.tp_splits, self.tp_partial = {}, frozenset()
+
+    def embed_rows(self, i: int, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` (offset, no pad) of sequence i's embedding table, in
+        the table's dtype; of a table split by rows, each rank's rows summed
+        over ``tp``."""
+        w = self.embeds[i].weight
+        if not self.embed_split[i]:
+            return F.embedding(ids, w)
+        local = ids - self.tp_mesh.tp_rank * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)), w)
+        return reduce_from_tp(rows.masked_fill(~inside[..., None], 0.0), self.tp_mesh)
+
+    def head_logits(self, i: int, h: torch.Tensor, q: int) -> torch.Tensor:
+        """``h @ head_q^T`` of sequence i's logit head q; a split head's
+        codes are gathered along C (h's gradient, a share a rank, is summed
+        over ``tp``)."""
+        if not self.logit_split[i]:
+            return h @ self.logit_heads[i][q].to(h.dtype).t()
+        h = copy_to_tp(h, self.tp_mesh)
+        return gather_from_tp(h @ self.logit_heads[i][q].to(h.dtype).t(), self.tp_mesh)
 
     def embed_one_sequence(self, i: int, token_ids: torch.Tensor) -> torch.Tensor:
         """[b, n] flat ids (pad = -1) -> [b, n, dim] with quantizer offsets
@@ -77,7 +113,7 @@ class TokenConditionedTransformer(nn.Module):
         ids = torch.where(pad, torch.zeros_like(token_ids), token_ids)
         if spec.num_quantizers > 1:
             ids = ids + torch.as_tensor(quantizer_offsets(spec, n), device=ids.device)[None, :]
-        emb = self.embeds[i](ids).to(self.compute_dtype or self.embeds[i].weight.dtype)
+        emb = self.embed_rows(i, ids).to(self.compute_dtype or self.embeds[i].weight.dtype)
         return emb.masked_fill(pad[..., None], 0.0)
 
     def assemble_stream(self, all_token_ids: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -93,15 +129,16 @@ class TokenConditionedTransformer(nn.Module):
     def sequence_logits(self, i: int, h: torch.Tensor) -> torch.Tensor:
         """Logits [b, n, C] for sequence i's prediction window: position t
         uses head t % Q."""
-        w = self.logit_heads[i].to(h.dtype)  # [Q, C, d]
-        out = h.new_empty(h.shape[:2] + (w.shape[1],))
-        for q in range(w.shape[0]):
-            out[:, q::w.shape[0]] = h[:, q::w.shape[0]] @ w[q].t()
+        spec = self.specs[i]
+        q_num = spec.num_quantizers
+        out = h.new_empty(h.shape[:2] + (spec.vocab_with_eos,))
+        for q in range(q_num):
+            out[:, q::q_num] = self.head_logits(i, h[:, q::q_num], q)
         return out
 
     def step_logits(self, h_t: torch.Tensor, q_idx: int) -> torch.Tensor:
         """Decode-step logits [b, C] of the final sequence's head ``q_idx``."""
-        return h_t @ self.logit_heads[-1][q_idx].to(h_t.dtype).t()
+        return self.head_logits(len(self.specs) - 1, h_t, q_idx)
 
     def forward(self, all_token_ids: Sequence[torch.Tensor], *,
                 self_attn_mask: Optional[torch.Tensor] = None,
@@ -199,8 +236,8 @@ def decode_loop(
     batch, n_init = h_last.shape[0], prompt.n_init
     sampled = torch.full((batch, prompt.total_steps), eos_id, dtype=torch.long, device=h_last.device)
     sampled[:, :n_init] = prompt.init_flat
-    emb_table = model.embeds[-1].weight
-    emb_dtype = model.compute_dtype or emb_table.dtype
+    last = len(model.specs) - 1
+    emb_dtype = model.compute_dtype or model.embeds[-1].weight.dtype
     teacher_flat = teacher_ids.reshape(batch, -1).to(h_last.device, torch.long) if teacher_ids is not None else None
     if per_row_keys is not None:
         if per_row_keys.shape != (batch,):
@@ -221,7 +258,7 @@ def decode_loop(
         sampled[:, flat_idx] = tok
         fed = teacher_flat[:, flat_idx] if teacher_flat is not None else tok
         offset = q_idx * spec.codebook_size if q_num > 1 else 0
-        h_last = step_fn(emb_table[fed + offset].to(emb_dtype), prompt.prefill_len + s)
+        h_last = step_fn(model.embed_rows(last, fed + offset).to(emb_dtype), prompt.prefill_len + s)
         if return_logits:
             step_logits.append(logits.float())
     sampled = mask_out_after_eos_id(sampled, eos_id, mask_value=PAD_ID, keep_eos=include_eos_in_output)

@@ -26,6 +26,17 @@ once and enters every block as an argument, so its gradient still sums over
 the layers. A block's recompute draws its dropout keep mask again from the
 generator state its first forward started from, and leaves the generator
 where it was, so losses and gradients equal those without remat.
+
+Tensor parallelism (``parallel/sharding.py:shard_module``): a split
+attention block holds ``heads / tp`` query heads (``to_q`` columns,
+``to_out`` rows, its heads' columns of the rel-pos bias) over the whole
+K/V head, a split conv-FF ``inner / tp`` channels (its slice of GEGLU's
+value and gate halves, of ``conv_w`` and of ``norm_mid``). A split block's
+input passes ``copy_to_tp`` and its output ``reduce_from_tp``; ``norm_mid``
+sums its statistics over ``tp`` (``dist_layer_norm``); FF dropout draws the
+whole [b, n, inner] mask on every rank of a ``tp`` group and keeps its own
+channels, so the ranks of a group, drawing from one generator state, drop
+what one process drops.
 """
 
 from __future__ import annotations
@@ -39,25 +50,43 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import l2norm, shared_kv_attention_train, shared_kv_decode_step
 from ..ops.relpos import init_linear_, lecun_normal_, linear, make_bias
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import copy_to_tp, reduce_from_tp, sum_over_tp
+
+
+def _aligned_float(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 with its rows laid out 16-byte aligned (copied into a
+    buffer whose rows are padded to a multiple of 4). A CUDA reduction sums a
+    row that starts off a 16-byte boundary in another order, so the conv-FF's
+    2730-wide rows (1365-wide a rank at tp 2), which alternate, would round a
+    row's statistics by its index, b * n + t, and with an odd n by the batch
+    slot the row lies in."""
+    d = x.shape[-1]
+    if d % 4 == 0:
+        return x.float()
+    xf = x.new_empty(x.shape[:-1] + (d - d % 4 + 4,), dtype=torch.float32)[..., :d]
+    xf.copy_(x)
+    return xf
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Bias-free LayerNorm in float32, returned in x's dtype.
-
-    The float32 rows are laid out 16-byte aligned (copied into a buffer
-    whose rows are padded to a multiple of 4). A CUDA reduction sums a row
-    that starts off a 16-byte boundary in another order, so the conv-FF's
-    2730-wide rows, which alternate, would round a row's statistics by its
-    index, b * n + t, and with an odd n by the batch slot the row lies in."""
-    d = x.shape[-1]
-    if d % 4 == 0:
-        xf = x.float()
-    else:
-        xf = x.new_empty(x.shape[:-1] + (d - d % 4 + 4,), dtype=torch.float32)[..., :d]
-        xf.copy_(x)
+    """Bias-free LayerNorm in float32 on aligned rows, returned in x's dtype."""
+    xf = _aligned_float(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def dist_layer_norm(x: torch.Tensor, gamma: torch.Tensor, mesh: Mesh, width: int,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """``layer_norm`` of rows split over ``tp``: x and gamma hold this rank's
+    channels of rows ``width`` wide; the mean and the variance are sums over
+    every rank's channels, in float32 on aligned rows."""
+    xf = _aligned_float(x)
+    mean = sum_over_tp(xf.sum(dim=-1, keepdim=True), mesh) / width
+    centred = xf - mean
+    var = sum_over_tp((centred * centred).sum(dim=-1, keepdim=True), mesh) / width
+    return (centred * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -76,12 +105,17 @@ def grad_shrink(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
     return x * alpha + x.detach() * (1.0 - alpha)
 
 
-def dropout(u: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(u: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            channels: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
     """Inverted dropout as the JAX package writes it, ``where(keep, u / keep_prob, 0)``,
     with the keep mask drawn from ``generator`` (None: the default generator
-    of u's device)."""
+    of u's device). ``channels`` (width, slice): u holds that slice of
+    rows ``width`` wide; the whole rows' mask is drawn and the slice kept."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(u.shape, generator=generator, device=u.device) < keep_prob
+    shape = u.shape if channels is None else u.shape[:-1] + (channels[0],)
+    keep = torch.rand(shape, generator=generator, device=u.device) < keep_prob
+    if channels is not None:
+        keep = keep[..., channels[1]]
     return torch.where(keep, u / keep_prob, torch.zeros((), dtype=u.dtype, device=u.device))
 
 
@@ -103,6 +137,7 @@ class Attention(nn.Module):
         self.q_scale = nn.Parameter(torch.ones(dim_head))
         self.k_scale = nn.Parameter(torch.ones(dim_head))
         self.to_out = _linear(heads * dim_head, dim, generator)
+        self.tp: Optional[Mesh] = None  # set with heads / tp heads by shard_module
 
     def qkv(self, h: torch.Tensor, x_raw: torch.Tensor):
         """h: normed [b, n, dim]; x_raw: the UN-normed input (K/V project from
@@ -116,13 +151,21 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, attn_bias: Optional[torch.Tensor] = None,
                 key_mask: Optional[torch.Tensor] = None):
-        """key_mask: [b, n] bool, True = attend. Returns (output [b, n, dim], (k, v))."""
+        """key_mask: [b, n] bool, True = attend; attn_bias: this block's
+        heads' [h, n, n]. Returns (output [b, n, dim], (k, v))."""
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
         q, k, v = self.qkv(self.norm(x), x)
         out = shared_kv_attention_train(
             q, k, v, attn_bias, key_mask, scale=self.scale, causal=True,
             non_causal_prefix=self.non_causal_prefix,
         )
-        return linear(out, self.to_out), (k, v)
+        return self.project_out(out), (k, v)
+
+    def project_out(self, out: torch.Tensor) -> torch.Tensor:
+        """``to_out`` of the heads' outputs, summed over ``tp`` when split."""
+        y = linear(out, self.to_out)
+        return y if self.tp is None else reduce_from_tp(y, self.tp)
 
     def decode_qkv(self, x_t: torch.Tensor):
         """One-token projections of x_t [b, dim]: (q [b, heads, d], k_t [b, d],
@@ -148,6 +191,21 @@ class ConvFeedForward(nn.Module):
         lecun_normal_(self.conv_w, 3, generator)  # flax fan_in of a [3, c] kernel
         self.norm_mid = LayerNorm(inner)
         self.proj_out = _linear(inner, dim, generator)
+        # set by shard_module: the tp group, and inner_dim becomes inner / tp
+        self.tp: Optional[Mesh] = None
+        self.inner_full = inner
+
+    def mid(self, u: torch.Tensor) -> torch.Tensor:
+        """GEGLU then ``norm_mid`` of the conv's output (statistics summed
+        over ``tp`` when split)."""
+        h = self.geglu(u)
+        if self.tp is None:
+            return self.norm_mid(h)
+        return dist_layer_norm(h, self.norm_mid.gamma, self.tp, self.inner_full, self.norm_mid.eps)
+
+    def project_out(self, h: torch.Tensor) -> torch.Tensor:
+        y = linear(h, self.proj_out)
+        return y if self.tp is None else reduce_from_tp(y, self.tp)
 
     def dsconv_full(self, u: torch.Tensor) -> torch.Tensor:
         """Causal depthwise conv over [b, n, c] with left pad 2."""
@@ -166,13 +224,17 @@ class ConvFeedForward(nn.Module):
         """Full-sequence FF plus the last two pre-conv rows [b, 2, 2*inner]
         that seed the decode conv state (zero-padded for n < 2). In train()
         mode the mid activations get dropout drawn from ``generator``."""
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
         u = linear(self.norm_in(x), self.proj_in)
         n = u.shape[1]
         tail = u[:, -2:] if n >= 2 else F.pad(u, (0, 0, 2 - n, 0))
-        h = self.norm_mid(self.geglu(self.dsconv_full(u)))
+        h = self.mid(self.dsconv_full(u))
         if self.training and self.dropout > 0.0:
-            h = dropout(h, self.dropout, generator)
-        return linear(h, self.proj_out), tail
+            t = None if self.tp is None else self.tp.tp_rank
+            mine = None if t is None else (self.inner_full, slice(t * self.inner_dim, (t + 1) * self.inner_dim))
+            h = dropout(h, self.dropout, generator, mine)
+        return self.project_out(h), tail
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.forward_with_state(x, generator)[0]
@@ -183,7 +245,7 @@ class ConvFeedForward(nn.Module):
         u_t = linear(self.norm_in(x_t), self.proj_in)
         w = self.conv_w.to(u_t.dtype)
         conv = state[:, 0] * w[0] + state[:, 1] * w[1] + u_t * w[2]
-        out = linear(self.norm_mid(self.geglu(conv)), self.proj_out)
+        out = self.project_out(self.mid(conv))
         return out, torch.stack([state[:, 1], u_t], dim=1)
 
 
@@ -230,13 +292,19 @@ class Transformer(nn.Module):
             ConvFeedForward(dim, ff_mult, generator, dropout=ff_dropout) for _ in range(depth)
         )
         self.final_norm = LayerNorm(dim)
+        # set by shard_module when the attention splits: this rank's heads
+        # of the rel-pos bias
+        self.head_slice: Optional[slice] = None
 
     @property
     def ff_state_dim(self) -> int:
         return 2 * self.ffs[0].inner_dim
 
     def _bias(self, n: int, dtype: torch.dtype) -> Optional[torch.Tensor]:
-        return self.rel_pos_bias(n, dtype) if self.rel_pos_bias is not None else None
+        """This rank's heads of the rel-pos bias [h, n, n]."""
+        if self.rel_pos_bias is None:
+            return None
+        return self.rel_pos_bias(n, dtype, heads=self.head_slice)
 
     def forward(self, x: torch.Tensor, *, self_attn_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -274,6 +342,8 @@ class Transformer(nn.Module):
         if self.rel_pos_bias is None:
             return None
         table = self.rel_pos_bias.distance_table(max_len)  # [N, h]
+        if self.head_slice is not None:
+            table = table[:, self.head_slice]
         pad = table[:1].expand(max_len - 1, table.shape[1])
         return torch.cat([table.flip(0), pad], dim=0)
 
@@ -305,7 +375,7 @@ class Transformer(nn.Module):
             cache["v"][i, :, pos] = v_t
             out = shared_kv_decode_step(
                 q, cache["k"][i], cache["v"][i], pos, scale=attn.scale, bias_table=bias_table)
-            x = linear(out, attn.to_out) + x
+            x = attn.project_out(out) + x
             u, cache["ff"][i] = ff.decode(x, cache["ff"][i])
             x = u + x
         return self.final_norm(x)

@@ -119,13 +119,18 @@ class ContinuousPositionBias(nn.Module):
             h = F.silu(linear(h, layer))
         return linear(h, self.out_layer)
 
-    def forward(self, n: int, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def forward(self, n: int, dtype: Optional[torch.dtype] = None,
+                heads: Optional[slice] = None) -> torch.Tensor:
         """Full bias matrix [heads, n, n] for training and prefill, computed
         in ``dtype`` (default: the parameters'), distances included, as the
-        JAX package computes it. Differentiable through the gather."""
+        JAX package computes it. Differentiable through the gather.
+        ``heads``: only those heads' matrices (a tensor-parallel rank's)."""
         w = self.in_layer.weight
         dist = torch.arange(-n + 1, n, dtype=dtype or w.dtype, device=w.device)[:, None]
-        return toeplitz_from_table(self.mlp(dist), n).permute(2, 0, 1)
+        table = self.mlp(dist)
+        if heads is not None:
+            table = table[:, heads]
+        return toeplitz_from_table(table, n).permute(2, 0, 1)
 
     def distance_table(self, max_len: int) -> torch.Tensor:
         """Causal distance table [max_len, heads]; row d = bias at distance d."""

@@ -20,7 +20,7 @@ Updates happen in place on the parameters (float32 master weights).
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -44,8 +44,13 @@ class StageOptimizer:
     b1, b2, eps = 0.9, 0.99, 1e-8
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float = 3e-4, wd: float = 1e-2, *,
-                 warmup_steps: int = 0, max_grad_norm: Optional[float] = 0.5):
+                 warmup_steps: int = 0, max_grad_norm: Optional[float] = 0.5,
+                 sum_squares: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None):
+        """``sum_squares``: the global sum of the gradients' per-tensor sums
+        of squares (default: their sum); a tensor-parallel trainer counts a
+        split parameter's over all of its parts."""
         self.params: List[torch.Tensor] = list(params)
+        self.sum_squares = sum_squares
         self.lr, self.wd, self.warmup_steps = lr, wd, warmup_steps
         self.max_grad_norm = max_grad_norm
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -56,7 +61,8 @@ class StageOptimizer:
     def step(self, grads: List[torch.Tensor]) -> None:
         """One update from ``grads`` (one per parameter, same order)."""
         if self.max_grad_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            squares = [torch.sum(g * g) for g in grads]
+            norm = torch.sqrt(sum(squares) if self.sum_squares is None else self.sum_squares(squares))
             clip = norm >= self.max_grad_norm
             grads = [torch.where(clip, g / norm * self.max_grad_norm, g) for g in grads]
         b1, b2 = self.b1, self.b2

@@ -28,10 +28,22 @@ gathers the ranks' rows, only rank 0 writes logs, trackers and checkpoints,
 every rank waits at a barrier before it reads a checkpoint, and a SIGTERM /
 SIGINT on any rank stops all of them after the same step.
 
+Tensor parallel over the mesh's ``tp`` axis (``make_mesh(dp, tp)``):
+``init_state`` gives every rank global rank 0's whole weights, then shards
+the model (``parallel/sharding.py:shard_module``). After the accumulation
+loop one all-reduce over ``tp`` makes whole the gradients that each rank
+holds a share of (the replicated parameters of split blocks, as a flat
+buffer), then the gradients and the loss are summed over ``dp`` as above;
+the clip counts a split parameter's squares over all its parts once and a
+replicated one's once. The ranks at d 0 gather the whole weights and
+moments for a checkpoint, which keeps the unsharded layout and which rank
+(d 0, t 0) writes; ``load`` reads the whole checkpoint and shards it.
+
 Randomness (FF dropout, the forgetful causal mask) comes from an explicit
-``torch.Generator`` on the model's device; with several ranks each rank's
-should be seeded on its own (``Mesh.rank_seed``), or every rank draws the
-same masks over different rows.
+``torch.Generator`` on the model's device; with several ``dp`` ranks each
+rank's should be seeded on its own (``Mesh.rank_seed``), or every rank draws
+the same masks over different rows. The ranks of a ``tp`` group must draw
+from the same generator state (``rank_seed`` gives them one).
 """
 
 from __future__ import annotations
@@ -54,6 +66,13 @@ from ..models.token_cond import (
     token_accuracy,
 )
 from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.sharding import (
+    gather_param_tensors,
+    gather_state_dict,
+    load_whole_state_dict,
+    shard_module,
+    shard_param_tensors,
+)
 from ..profiling import StepTimer
 from .optimizer import StageOptimizer
 
@@ -146,12 +165,27 @@ class StageTrainer:
     # ---- state ----
 
     def init_state(self) -> TrainState:
+        """A fresh optimizer over the model: an unsharded model first takes
+        global rank 0's weights on every rank, then this mesh's ``tp`` split."""
+        if self.model.tp_mesh is None:
+            self.mesh.broadcast_(list(self.model.parameters()))
+            shard_module(self.model, self.mesh)
+        elif self.model.tp_mesh != self.mesh:
+            raise ValueError("the model is sharded over another mesh than the trainer's")
+        split = [n in self.model.tp_splits for n, _ in self.model.named_parameters()]
         opt = StageOptimizer(
             self.model.parameters(), self.lr, self.wd, warmup_steps=self.lr_warmup,
             max_grad_norm=self.max_grad_norm,
+            sum_squares=(lambda sq: self._sum_squares(sq, split)) if any(split) else None,
         )
-        self.mesh.broadcast_(opt.params)
         return TrainState(self.model, opt, 0)
+
+    def _sum_squares(self, squares, split):
+        """The global sum of squares: the split parameters' parts summed over
+        ``tp``, plus the replicated ones (each counted once)."""
+        parts = torch.stack([s for s, k in zip(squares, split) if k]).sum().reshape(1)
+        self.mesh.tp_all_reduce_coalesced_([parts])
+        return parts[0] + sum(s for s, k in zip(squares, split) if not k)
 
     # ---- steps ----
 
@@ -181,6 +215,9 @@ class StageTrainer:
                 for g, m in zip(grads, micro):
                     g.add_(m)
                 loss_sum = loss_sum + loss.detach()
+        if model.tp_partial:  # replicated parameters of split blocks: a share a rank
+            names = [n for n, _ in model.named_parameters()]
+            self.mesh.tp_all_reduce_coalesced_([g for g, n in zip(grads, names) if n in model.tp_partial])
         if self.mesh.group is not None:
             loss_sum = loss_sum.reshape(1)
             self.mesh.all_reduce_coalesced_(grads + [loss_sum])
@@ -270,24 +307,27 @@ class StageTrainer:
         return str(Path(self.results_folder) / f"{self.stage_name}.transformer.{step}.ckpt")
 
     def save(self, state: TrainState, step: int):
-        """Rank 0 writes the checkpoint; the other ranks' calls do nothing."""
-        if not self.mesh.is_main:
+        """Rank (d 0, t 0) writes the checkpoint, whole (the ranks at d 0
+        gather a sharded model's parts); the other ranks' calls do nothing."""
+        if self.mesh.rank != 0:
             return
-        save_checkpoint(self.checkpoint_path(step), {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
-        })
+        opt = state.optimizer.state_dict()
+        opt["mu"], opt["nu"] = (gather_param_tensors(state.model, opt[k]) for k in ("mu", "nu"))
+        tree = {"model": gather_state_dict(state.model), "optimizer": opt, "step": int(state.step)}
+        if self.mesh.is_main:
+            save_checkpoint(self.checkpoint_path(step), tree)
 
     def load(self, path: str) -> TrainState:
         """A state with this trainer's model restored from ``path``, read on
         every rank once all ranks reach this call (rank 0's last ``save``
-        has then returned)."""
+        has then returned); a ``tp`` mesh takes each rank's part."""
         self.mesh.barrier()
         tree = load_checkpoint(path, map_location=self.device)
-        self.model.load_state_dict(tree["model"])
+        load_whole_state_dict(self.model, tree["model"])
         state = self.init_state()
-        state.optimizer.load_state_dict(tree["optimizer"])
+        opt = dict(tree["optimizer"])
+        opt["mu"], opt["nu"] = (shard_param_tensors(self.model, opt[k]) for k in ("mu", "nu"))
+        state.optimizer.load_state_dict(opt)
         state.step = int(tree["step"])
         return state
 

@@ -94,10 +94,13 @@ def test_initialize_distributed_on_cuda_without_a_card_raises(no_dist_env, monke
 
 
 def test_make_mesh_refuses_tp_and_a_dp_without_ranks(no_dist_env):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A tp (or a dp) axis needs a process group of dp x tp ranks."""
+    with pytest.raises(ValueError, match="tp=2"):
         make_mesh(tp=2)
     with pytest.raises(ValueError, match="dp=2"):
         make_mesh(dp=2)
+    with pytest.raises(ValueError, match="at least one rank"):
+        make_mesh(tp=0)
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])

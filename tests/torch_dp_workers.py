@@ -1,5 +1,6 @@
-"""Rank processes of tests/test_torch_parallel.py and
-tests/test_torch_clip_train.py: each joins a gloo group through a
+"""Rank processes of tests/test_torch_parallel.py,
+tests/test_torch_clip_train.py, tests/test_torch_tp.py and
+tests/test_torch_serving_mesh.py: each joins a gloo group through a
 ``file://`` store (so concurrent test workers never race for a port), runs
 its share and writes its results for the parent to compare. This module
 imports no JAX: the ranks are spawned processes that import it afresh.
@@ -130,4 +131,122 @@ def clip_rank(rank: int, world: int, init_file: str, folder: str) -> None:
     loss = clip_loss_mlp(*mine, scale_a, scale_t, group=mesh.group)
     out["mlp"] = (loss.item(), [g for g in torch.autograd.grad(loss, mine)])
     torch.save(out, folder / f"clip{rank}.pt")
+    dist.destroy_process_group()
+
+
+def tp_stage(specs, dim: int, depth: int, heads: int, dim_head: int, dropout: float = 0.0):
+    """A TokenConditionedTransformer of tests/test_torch_tp.py's geometry
+    (its weights are loaded from the parent's state dict)."""
+    from open_musiclm_torch.models.token_cond import TokenConditionedTransformer
+
+    return TokenConditionedTransformer(specs, dim, depth, heads=heads, dim_head=dim_head, ff_dropout=dropout)
+
+
+def tp_train(inputs, mesh, folder: Path, *, remat: bool, dropout: float, batches, seed=None, save=False):
+    """StageTrainer steps on ``mesh`` from the parent's weights: (losses,
+    the whole parameters, the trainer, its state). ``seed``: a generator
+    seeded with ``mesh.rank_seed(seed)`` draws dropout and the forgetful
+    mask."""
+    from open_musiclm_torch.parallel.mesh import shard_batch
+    from open_musiclm_torch.parallel.sharding import gather_state_dict
+    from open_musiclm_torch.train.trainer import StageTrainer
+
+    model = tp_stage(dropout=dropout, **inputs["geometry"])
+    model.load_state_dict(inputs["state_dict"])
+    model.transformer.remat = remat
+    hp = dict(inputs["hp"], loss_cfg=inputs["dropout_loss_cfg"] if dropout else inputs["hp"]["loss_cfg"])
+    trainer = StageTrainer(model=model, mesh=mesh, results_folder=str(folder), stage_name="tp",
+                           use_tensorboard=False, save_model_every=0, **hp)
+    state = trainer.init_state()
+    state.optimizer.eps = inputs["eps"]
+    gen = None if seed is None else torch.Generator().manual_seed(mesh.rank_seed(seed))
+    losses = []
+    for b in batches:
+        state, loss = trainer.train_step(state, shard_batch(mesh, b, batch_axis=1), gen)
+        losses.append(loss.item())
+    if save:
+        trainer.save(state, state.step)
+    return losses, gather_state_dict(model), trainer, state
+
+
+def tp_rank(rank: int, world: int, init_file: str, folder: str) -> None:
+    """tests/test_torch_tp.py's ranks on ``make_mesh(dp=world // tp, tp)``:
+    the trainer with and without remat (and with dropout and the forgetful
+    mask on, under remat), a checkpoint written whole and read back into a
+    new shard, and (tp 2 alone) the fp decode on the shard: greedy tokens
+    and teacher-forced logits."""
+    import torch.distributed as dist
+
+    from open_musiclm_torch.models.token_cond import generate
+    from open_musiclm_torch.parallel.mesh import make_mesh
+    from open_musiclm_torch.parallel.sharding import gather_state_dict, shard_module
+
+    _join(rank, world, init_file)
+    folder = Path(folder)
+    inputs = torch.load(folder / "inputs.pt", weights_only=False)  # the parent test wrote it
+    mesh = make_mesh(tp=inputs["tp"])
+    out = {"place": (mesh.rank, mesh.world, mesh.tp_rank, mesh.tp, mesh.is_main)}
+    if inputs["tp"] == world:
+        for remat in (False, True):
+            losses, params, trainer, state = tp_train(inputs, mesh, folder / f"run{int(remat)}", remat=remat,
+                                                      dropout=0.0, batches=inputs["batches"], save=not remat)
+            out[f"remat{int(remat)}"] = (losses, params)
+            if not remat:
+                other = tp_train(inputs, mesh, folder / "run0", remat=False, dropout=0.0, batches=[])[2]
+                restored = other.load(str(folder / "run0" / f"tp.transformer.{state.step}.ckpt"))
+                out["restored"] = (restored.step, gather_state_dict(other.model),
+                                   [m.clone() for m in restored.optimizer.mu], [m.clone() for m in state.optimizer.mu])
+        losses, params, _, _ = tp_train(inputs, mesh, folder / "drop", remat=True, dropout=0.1,
+                                        batches=inputs["dropout_batches"], seed=inputs["dropout_seed"])
+        out["dropout"] = (losses, params)
+        model = tp_stage(**inputs["geometry"])
+        model.load_state_dict(inputs["state_dict"])
+        shard_module(model.eval(), mesh)
+        kw = dict(max_time_steps=inputs["decode_steps"], temperature=0.0)
+        out["tokens"] = generate(model, [inputs["cond"]], **kw)
+        out["logits"] = generate(model, [inputs["cond"]], teacher_ids=inputs["teacher"], return_logits=True, **kw)[1]
+        out["shapes"] = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    else:
+        out["step"] = tp_train(inputs, mesh, folder / "dp_tp", remat=False, dropout=0.0,
+                               batches=inputs["batches"][:1])[:2]
+    torch.save(out, folder / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def serving_rank(rank: int, world: int, init_file: str, folder: str) -> None:
+    """tests/test_torch_serving_mesh.py's ranks on ``make_mesh(dp=world)``:
+    Stage.generate(mesh=) in every decode mode (tokens, and logits of a
+    teacher-forced call), and MusicLM(serving_mesh=) with per-row keys
+    (waves) and greedy (the codes reaching Encodec)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from open_musiclm_torch.parallel.mesh import make_mesh
+
+    _join(rank, world, init_file)
+    folder = Path(folder)
+    inputs = torch.load(folder / "inputs.pt", weights_only=False)  # the parent test wrote it
+    mesh = make_mesh()
+    musiclm, keys, clap = inputs["musiclm"], inputs["keys"], inputs["clap"]
+    out = {"stage": {}}
+    for quantized, flash_kv in inputs["modes"]:
+        st = dataclasses.replace(musiclm.coarse_stage, quantized=quantized, flash_kv=flash_kv)
+        out["stage"][(quantized, flash_kv)] = st.generate(
+            inputs["stage_cond"], per_row_keys=keys, mesh=mesh, teacher_forced_ids=inputs["teacher"],
+            return_logits=True, **inputs["stage_kw"])
+    sharded = dataclasses.replace(musiclm, serving_mesh=mesh)
+    codes = []
+
+    def capture(decode):
+        def wrapped(c):
+            codes.append(c)
+            return decode(c)
+        return wrapped
+
+    sharded._decode = capture(sharded._decode)
+    out["waves"] = sharded.generate(clap_token_ids=clap, per_row_keys=keys, **inputs["gen_kw"])
+    out["greedy"] = sharded.generate(clap_token_ids=clap, per_row_keys=keys, **dict(inputs["gen_kw"], **inputs["greedy"]))
+    out["codes"] = codes
+    torch.save(out, folder / f"rank{rank}.pt")
     dist.destroy_process_group()
