@@ -20,7 +20,7 @@ Phases, each of which fails the run:
      kernel's bound (the least time the card could take: bytes over the
      memory rate or FLOPs over the peak rate, whichever is larger); kernel 3
      at b 8 and 16 also as GB/s and a share of 3.35 TB/s, kernel 4 at the
-     logit head's b 8, 14, 16, 64 and 256 (both routes from b 14) and the
+     logit head's b 8, 14, 16, 64 and 256 (one route, the stream) and the
      five projections of the fused_ff=False step, kernel 5 (bf16) at each
      training shape as TFLOP/s beside SDPA's backward, kernel 6 (bf16, the
      bias in bf16 and in float32) there beside its bound, and kernels 5 + 6
@@ -29,7 +29,12 @@ Phases, each of which fails the run:
      the CPU through the plain versions: per-step teacher-forced logits of
      the full-width semantic stage in float32, flash_kv "bf16", "int8",
      "f32", "fused" and None (with fused_ff True and False), and the fp
-     decode;
+     decode; (b) the same for the semantic stage with the T5 bucketed
+     relative position bias and a bidirectional prefix (12 steps, each mode
+     exactly its kernels), then its loss and every gradient (kernels 1, 5,
+     6, the bucket table's among them) in float32 against the CPU in
+     float64 within 3x the CPU float32 path's distance, and one bf16 step
+     against the CPU float32 gradients within 3x the CPU bf16 step's;
   4. the serving path: MusicLM.generate on musiclm_small at full width
      (random weights from a seed, bf16): quantized=True, flash_kv="int8" at
      batch 8 x 4 s and batch 2 x 12 s (kernels 1-4), flash_kv="fused" at
@@ -38,7 +43,9 @@ Phases, each of which fails the run:
      at batch 2 x 4 s, each checking waveform shapes, finiteness and that
      exactly its kernels launched; then each mode's decode step on the
      semantic stage at batch 8: ms a step, CUDA launches a step and device
-     busy time (torch.profiler);
+     busy time (torch.profiler); (b) one row alone and in batches of 4 and
+     8: 3 teacher-forced steps of each stage in "int8", flash_kv=None and
+     the fp decode, logits bit-equal (phase 11 holds MusicLM.generate);
   5. text to waveforms: the tokenizer on a byte-level demo vocabulary (8
      prompts, one truncated at 77 tokens); the full-width text tower
      (RoBERTa-base, the CLAP projection, a 12 x 1024 x 512 RVQ, seeded) on
@@ -52,7 +59,8 @@ Phases, each of which fails the run:
      the GenerationServer in "fused" mode (batch 8, buckets [1, 8], 2
      workers): 8 concurrent text requests, then a lone one at bucket 1, and
      one (text, seed) request bit-equal in two batch-8 batches with other
-     companions and slots, each request's latency printed;
+     companions and slots and alone at bucket 1 (codes bit-equal, wave
+     within 1e-6), each request's latency printed;
   6. the training path: the full-width coarse stage's loss and every
      parameter gradient on the card (kernels 1, 5, 6) against the plain path
      on the CPU in float64, within 3x the CPU float32 path's own distance
@@ -71,15 +79,15 @@ Phases, each of which fails the run:
      (features, latent and embeddings within TOWER_REL / TOWER_ABS; semantic
      ids and Encodec codes equal off near ties, the near ties counted) and
      timed beside its bound; MusicLM.generate(prime_wave=the 10 s prime at
-     48 kHz, output_seconds=12) in "int8" at b1 (the wave's length, exactly
-     kernels 1-4), once more with return_coarse_generated_wave; and
+     48 kHz, output_seconds=12) in "fused" at b1 (the wave's length, exactly
+     kernels 1, 4 and 7), once more with return_coarse_generated_wave; and
      generate_top_match(2 prompts x 4 samples, 4 s) in "fused" (sims in
      [-1, 1], exactly kernels 7, 1 and 4; its wall and HTSAT's share).
   8. musiclm_large: musiclm_large_small_context (24 layers x 16 heads x
      dim 1024, random weights from a seed) built through
      load.create_musiclm_from_config on the card in float32; its semantic
      stage written as a reference-layout .pt and read back equal through
-     load.load_stage_params; 24 teacher-forced decode steps of each stage
+     load.load_stage_params; 8 teacher-forced decode steps of each stage
      in the fp decode (kernel 1), "int8" (kernels 1-4) and "fused" (kernels
      1, 4, 7) against the CPU plain path (phase 3's limits); generate(text=1
      prompt) in "fused" at b1 x 4 s (exactly kernels 1, 4 and 7, kernel 7
@@ -106,12 +114,13 @@ Phases, each of which fails the run:
      counted); one step each of the semantic (b4 x accum 8) and fine stages;
      preprocess_data over the folder (a row a track; track 0's stored tokens
      against the CPU off near ties) and one fine step on that store;
-     train_clap_rvq, 2 steps at the shipped b64 x accumulate 32 (finite
+     train_clap_rvq, 2 steps at the shipped b64 x accumulate 16 (finite
      rvq_mse, clap.rvq.*.ckpt read back equal by load.load_rvq) and
      train_hubert_kmeans, 4 feature steps of 32 clips and 1024 clusters
      (kmeans.ckpt with a finite inertia, read back by load.load_kmeans).
- 10. the rest of training: (a) musiclm_large's coarse stage (24 x 16 heads x
-     1024, its 10 s window) at the shipped coarse trainer config (b2 x accum
+ 10. the rest of training: (a) musiclm_large's coarse stage (cut to 8 of
+     its 24 layers, 16 heads x 1024, its 10 s window) at the shipped coarse
+     trainer config (b2 x accum
      8, bf16 on float32 masters, ff_dropout 0.1), two StageTrainer steps
      without remat and two with it from the same weights and generator
      state: the first step's loss and gradients equal (bit-equal, or within
@@ -128,22 +137,31 @@ Phases, each of which fails the run:
      beside their measured ms.
  11. tensor parallelism and the serving layouts, on two gloo ranks (their
      own processes) sharing the card: (a) musiclm_large's coarse stage at
-     tp=2 (24 layers, 8 of its 16 heads a rank, n 2,766): one float32 step
+     tp=2 (cut to 8 layers, 8 of its 16 heads a rank, n 2,766): one float32 step
      (b2 x accum 1, remat, ff_dropout 0.1) against one process from the same
      weights and generator seed (the loss and every gathered gradient within
      1e-5 x max|g| a tensor), then two steps at the shipped coarse trainer
      config (b2 x accum 8, bf16, remat): ms and peak memory a rank, kernel 1
-     2 x 24 x accum and kernels 5 and 6 24 x accum times a step on each
-     rank; (b) 24 teacher-forced fp decode steps of each stage of
-     musiclm_large_small_context at tp=2 against one process's float32
+     2 x depth x accum and kernels 5 and 6 depth x accum times a step on each
+     rank; (b) 8 teacher-forced fp decode steps of each stage of
+     musiclm_large_small_context (cut to 8 layers) at tp=2 against one process's float32
      logits (phase 3's 1e-4 x max|logit|); (c) MusicLM.generate over
      make_mesh(dp=2) with per-row keys at musiclm_small, b8 x 4 s (b4 a
-     rank) in "int8" and "fused", against one process's b8 run: the codes
-     bit-equal, the waves (a float32 Encodec) within 1e-5, phase 4's kernels
-     exactly on each rank; (d) MusicLM.to_pipelined on the one card (one
-     entry, and two entries naming it, which copies the coarse stage and
-     the codec): waves bit-equal to the unpipelined run. gloo over one card
-     shows the function on the card's kernels, not tensor-parallel speed.
+     rank) in "int8" and "fused", against one process's calls at the
+     rank's batch: the codes bit-equal, the waves (a float32 Encodec) within
+     1e-5, phase 4's kernels exactly on each rank; and one process's b8 call
+     against two b4 calls, and ("fused") against row 2 alone (b1): every
+     row's codes equal, waves within 1e-6; a
+     row alone against b 2, 4, 8, 16 in the prefill's and a step's row
+     tiles, kernels 1-4 and 7, and the semantic stage's prefill and
+     teacher-forced logits in "int8" and "fused", bit-equal; (d)
+     MusicLM.to_pipelined on the one card (one entry, and two entries
+     naming it, which copies the coarse stage and the codec): waves
+     bit-equal to the unpipelined run; (e) GenerationServer over the dp=2
+     mesh ("fused", the full-width text tower, buckets [2, 4], one worker):
+     4 text requests, each one's codes bit-equal and wave within 1e-6 to
+     one process's server, and both ranks stop. gloo over one card shows
+     the function on the card's kernels, not tensor-parallel speed.
 Phase 8 also builds musiclm_large itself (30 s semantic, 10 s coarse, 3 s
 fine windows, the fusion CLAP) and runs generate(text=1 prompt) in "fused"
 at b1 x 10 s, one whole coarse window (kernel 7 24 times a decode step).
@@ -171,6 +189,19 @@ line of its device ms.
     python3 chip_smoke.py --phase8      # or --phase9, --phase10, --phase11
 
 builds the kernels and runs that phase alone.
+
+    python3 chip_smoke.py --probe
+
+builds the kernels and prints which pieces of the serving path give a row
+other bits at other batch sizes (cuBLAS products, reductions, cuDNN, the
+kernels, each stage end to end), then all of it as one JSON line.
+
+    python3 chip_smoke.py --cost ROOT
+
+times, from the port in the checkout ROOT, kernels 2, 7 and 4 at the
+batch sizes where a grid or route changed with the batch, Encodec's decode
+at b8, the semantic decode step in each mode and two prefills (a JSON
+line), for a comparison of two commits within one call.
 """
 
 from __future__ import annotations
@@ -640,9 +671,8 @@ def main() -> int:
                       f"{rate / 1e9:.1f} GB/s = {100 * rate / HBM_BYTES_PER_S:.1f} % of "
                       f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s [{card}]", flush=True)
     # 4. int8 matmul at INT8_CASES, each beside its bound and
-    #    torch._weight_int8pack_mm; the logit head from b 14 on also through
-    #    the route ops/quant.py:int8_route does not choose, to show which of
-    #    the two is faster there
+    #    torch._weight_int8pack_mm, on the weight stream (kernel 4's one
+    #    route, at every row count)
     def int8pack_library(x, wq, s, out):
         """(stream, device) ms of torch._weight_int8pack_mm (x @ int8
         W[out, in]^T * scales in x's dtype), the one PyTorch call computing
@@ -664,14 +694,13 @@ def main() -> int:
         wq, s = quant.quantize_weight(torch.randn(K, M, generator=g))
         wq, s = wq.to(dev), s.to(dev)
         ins = dict(x=rand(b, K))
-        route = quant.int8_route(b)
 
         def summary(low, out, b=b, K=K, M=M, wq=wq, s=s):
             return nbytes(low["x"], wq, s, out), 2 * b * K * M, int8pack_library(low["x"], wq, s, out)
 
         for dt in (torch.bfloat16, torch.float32):
             main_case = (name, b, dt) == ("head", 8, torch.bfloat16)
-            ms = check("int8_matmul", f"{name} b{b} {K}x{M} ({route})", dt,
+            ms = check("int8_matmul", f"{name} b{b} {K}x{M}", dt,
                        lambda x, wq=wq, s=s: quant.int8_matmul(x, wq, s),
                        lambda x, wq=wq, s=s: quant.int8_matmul_plain(x, wq, s), ins,
                        summary=summary if main_case else None)
@@ -682,14 +711,9 @@ def main() -> int:
             n_bytes, flops, lib = summary(dict(x=x), out)
             b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
             lib_txt = f"{lib[1]:.4f} ms, kernel/library {ms[1] / lib[1]:.2f}x device" if lib else "none"
-            print(f"    -> kernel 4 {name} b{b} {K}x{M} bf16 ({route}): device {ms[1]:.4f} ms, bound "
+            print(f"    -> kernel 4 {name} b{b} {K}x{M} bf16: device {ms[1]:.4f} ms, bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}), {ms[1] / b_ms:.1f}x bound; library device {lib_txt} [{card}]",
                   flush=True)
-            if name == "head" and b >= 14:
-                other = "tiled" if route == "stream" else "stream"
-                ms_other = both_ms(lambda: quant.int8_matmul(x, wq, s, route=other))
-                print(f"    -> kernel 4 head b{b} bf16 routes: {route} (chosen) device {ms[1]:.4f} ms, "
-                      f"{other} device {ms_other[1]:.4f} ms [{card}]", flush=True)
         del wq, s
     # 7. one whole decode layer: a full-width layer (seeded weights, LayerNorm
     #    gains and q/k scales drawn around 1) over the coarse / fine cache
@@ -940,6 +964,10 @@ def main() -> int:
             fail(f"{name} b{b} logits differ: {err} > {tol}")
     del model_gpu, qp_gpu, stage, inputs
 
+    # ---- 3 (b). the T5 bias: every decode mode and the training step ----
+    t5_launches = t5_phase(torch, omt_config, mc, dev, card, all_counters())
+    print(json.dumps({"phase3b_t5_launches": t5_launches}))
+
     # ---- 4. the serving path in every decode mode: MusicLM.generate at full width ----
     bf16 = torch.bfloat16
     stages = {
@@ -1031,6 +1059,9 @@ def main() -> int:
         fail(f"flash_kv=None: kernel 3 launched {launches['fused_ff_apply']} times, "
              f"want {depth} x {launches['int8_matmul']}")
 
+    # (b) one row alone and in batches of 4 and 8: flash_kv=None and fp
+    rows_across_batches(torch, stages, dev, card)
+
     # per-step cost of each mode: the semantic stage at batch 8, 16 and 48
     # decode steps; the difference divided by 32 removes the prefill
     sem = stages["semantic_stage"].model
@@ -1098,6 +1129,154 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
+
+
+def t5_phase(torch, omt_config, mc, dev, card, counters) -> dict:
+    """Phase 3 (b): musiclm_small's semantic stage at full width with the T5
+    bucketed bias (``relative_position_bias_type="t5"``) and a bidirectional
+    prefix over the start token and the 12 CLAP tokens (which makes the
+    prefill read the table beyond bucket 0, where the JAX package puts every
+    causal distance), float32, seed 13. (a) 12 teacher-forced steps at b2
+    in every decode mode on the card against the CPU plain path (phase 3's
+    limits), each with exactly its kernels; (b) the loss and every gradient
+    on the card in float32 against the CPU in float64, within 3x the CPU
+    float32 path's own distance (phase 6's gate), the bucket table's
+    gradient among them (kernel 6's dbias through the Toeplitz and bucket
+    scatter-adds); then one bfloat16 step (bf16 compute on the float32
+    weights, kernels 1, 5 and 6 in bf16) against the CPU float32 gradients,
+    within 3x the distance of the same bf16 step on the CPU. Returns each
+    run's kernel launches."""
+    import dataclasses
+
+    from open_musiclm_torch.models import token_cond
+    from open_musiclm_torch.models.quant_decode import generate_quantized, quantize_stage_params
+    from open_musiclm_torch.models.token_cond import StageLossConfig, stage_training_loss
+
+    t0 = time.perf_counter()
+    mc_t5 = dataclasses.replace(mc, semantic_cfg=dataclasses.replace(
+        mc.semantic_cfg, relative_position_bias_type="t5", non_causal_prefix_size=13, ff_dropout=0.0))
+    cpu = omt_config.init_stage(mc_t5, "semantic", 13, device="cpu").model
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(14)
+    cond, teacher = torch.randint(0, 1024, (2, 12), generator=g), torch.randint(0, 1024, (2, 12, 1), generator=g)
+    qp_cpu = quantize_stage_params(cpu, fused=True)
+    qp_gpu = to_device(qp_cpu, dev)
+    paths = {"fp": {"prefill_attention"}, None: {"prefill_attention", "fused_ff_apply", "int8_matmul"},
+             "fused": {"prefill_attention", "int8_matmul", "fused_layer_decode_step"}}
+    flash = {"prefill_attention", "flash_decode_step", "fused_ff_apply", "int8_matmul"}
+    out = {}
+    for mode, fused_ff_on, rel in (("bf16", True, 1e-4), ("int8", True, 1e-2), ("f32", True, 1e-4),
+                                   ("fused", True, 1e-2), (None, True, 1e-4), (None, False, 1e-4),
+                                   ("fp", True, 1e-4)):
+        kw = dict(max_time_steps=12, temperature=0.0, teacher_ids=teacher, return_logits=True)
+        reset_counts(counters)
+        if mode == "fp":
+            _, want = token_cond.generate(cpu, [cond], **kw)
+            _, got = token_cond.generate(gpu, [cond.to(dev)], **kw)
+        else:
+            kw.update(flash_kv=mode, fused_ff=fused_ff_on)
+            _, want = generate_quantized(cpu, qp_cpu, [cond], **kw)
+            _, got = generate_quantized(gpu, qp_gpu, [cond.to(dev)], **kw)
+        launches = read_counts(counters)
+        got, want = got.cpu()[..., :-1], want[..., :-1]
+        err = (got - want).abs().max().item()
+        tol = rel * max(1.0, want.abs().max().item())
+        name = f"flash_kv={mode}" + ("" if fused_ff_on else ", fused_ff=False")
+        print(f"phase 3 (b): T5 bias, semantic stage f32 b2, 12 teacher-forced steps, {name}: CUDA vs CPU plain "
+              f"logits max_abs_err {err:.3e} tol {tol:.3e}; launches {launches} [{card}]", flush=True)
+        if not err <= tol:
+            fail(f"phase 3 (b): T5 {name} logits differ: {err} > {tol}")
+        path = paths.get(mode, flash) if fused_ff_on else {"prefill_attention", "int8_matmul"}
+        expect_launches(f"phase 3 (b) T5 {name}", launches, path)
+        out[name] = launches
+    del qp_cpu, qp_gpu
+
+    # (b) gradients: float32 on the card against float64 on the CPU, then bf16
+    lens = omt_config.stage_example_lengths(mc, "semantic")
+    ids = [torch.randint(0, s.codebook_size, (2, n), generator=g) for s, n in zip(cpu.specs, lens)]
+    ids[0][0, -1] = -1
+    cfg = StageLossConfig((0.5, 1.0), mask_prob=0.0)
+
+    def loss_and_grads(model, device):
+        model.zero_grad()
+        loss, _ = stage_training_loss(model.train(), [t.to(device) for t in ids], cfg, train=True)
+        loss.backward()
+        return loss.item(), {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+
+    def worst(grads, want):
+        """(max over tensors of max abs err / max|want|, the tensor)."""
+        return max(((grads[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-30), n)
+                   for n, w in want.items())
+
+    reset_counts(counters)
+    gpu_loss, gpu_grads = loss_and_grads(gpu, dev)
+    f32_launches = read_counts(counters)
+    cpu_loss, cpu_grads = loss_and_grads(cpu, "cpu")
+    _, f64_grads = loss_and_grads(copy.deepcopy(cpu).double(), "cpu")
+    table = "transformer.rel_pos_bias.embedding"
+    card_err, cpu_err = worst(gpu_grads, f64_grads), worst(cpu_grads, f64_grads)
+    table_err = worst({table: gpu_grads[table]}, {table: f64_grads[table]})[0]
+    limit = 3 * cpu_err[0]
+    print(f"phase 3 (b): T5 semantic stage f32 b2, loss card {gpu_loss:.6f} CPU {cpu_loss:.6f}; gradients against "
+          f"CPU f64: card worst {card_err[0]:.2e} ({card_err[1]}), bucket table {table_err:.2e}, limit {limit:.2e} "
+          f"(3 x CPU f32 worst {cpu_err[0]:.2e}); launches {f32_launches} [{card}]", flush=True)
+    if not card_err[0] <= limit or abs(gpu_loss - cpu_loss) > 1e-4 * abs(cpu_loss) or not cpu_err[0] <= 3e-4:
+        fail(f"phase 3 (b): T5 gradients on the card differ: {card_err} > {limit} (CPU f32 {cpu_err})")
+    depth = len(gpu.transformer.attns)
+    want_launches = {"prefill_attention": depth, "attention_bwd": depth, "attention_dbias": depth}
+    expect_launches("phase 3 (b) T5 training f32", f32_launches, set(want_launches))
+    gpu.compute_dtype = cpu.compute_dtype = torch.bfloat16
+    reset_counts(counters)
+    bf16_loss, bf16_grads = loss_and_grads(gpu, dev)
+    bf16_launches = read_counts(counters)
+    _, cpu_bf16_grads = loss_and_grads(cpu, "cpu")
+    card_err, cpu_err = worst(bf16_grads, cpu_grads), worst(cpu_bf16_grads, cpu_grads)
+    table_err = worst({table: bf16_grads[table]}, {table: cpu_grads[table]})[0]
+    print(f"phase 3 (b): T5 semantic stage bf16 step b2, loss {bf16_loss:.6f}; gradients against CPU f32: card "
+          f"worst {card_err[0]:.2e} ({card_err[1]}), bucket table {table_err:.2e}, limit {3 * cpu_err[0]:.2e} "
+          f"(3 x the CPU bf16 step's worst {cpu_err[0]:.2e}); launches {bf16_launches}; phase 3 (b) "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if not card_err[0] <= 3 * cpu_err[0] or not math.isfinite(bf16_loss):
+        fail(f"phase 3 (b): T5 bf16 gradients on the card: {card_err} > 3 x {cpu_err}")
+    if dev.type == "cuda" and bf16_launches != {k: want_launches.get(k, 0) for k in bf16_launches}:
+        fail(f"phase 3 (b): T5 bf16 step launched {bf16_launches}, want {want_launches}")
+    out["training f32"], out["training bf16"] = f32_launches, bf16_launches
+    return out
+
+
+# phase 4 (b)'s teacher-forced steps a stage and mode (cut from 6 for time)
+TF_STEPS_4B = 3
+
+
+def rows_across_batches(torch, stages, dev, card) -> None:
+    """Phase 4 (b): TF_STEPS_4B teacher-forced steps of each stage in
+    "int8", flash_kv=None and the fp decode, row 2 alone (b 1) and in slot
+    2 of b 4 and b 8: its logits bit-equal. (Phase 11's one-process runs hold
+    MusicLM.generate in "int8" at b4 / b8 and in "fused" at b1 / b4 / b8.)"""
+    from open_musiclm_torch.models.stages import Stage
+
+    g = torch.Generator().manual_seed(161)
+    r = 2
+    for key, st in stages.items():
+        model = st.model
+        cond = [torch.randint(0, spec.codebook_size, (8, 12 if i == 0 else 24 * spec.num_quantizers), generator=g)
+                .to(dev) for i, spec in enumerate(model.specs[:-1])]
+        teacher = torch.randint(0, model.specs[-1].codebook_size, (8, TF_STEPS_4B, model.specs[-1].num_quantizers),
+                                generator=g).to(dev)
+        for mode in (dict(quantized=True, flash_kv="int8"), dict(quantized=True, flash_kv=None),
+                     dict(quantized=False)):
+            stage = Stage(model, name=key, **mode)
+
+            def logits(rows):
+                return stage.generate([c[rows] for c in cond], teacher_forced_ids=teacher[rows],
+                                      max_time_steps=TF_STEPS_4B, temperature=0.0, return_logits=True)[1]
+
+            alone = logits(slice(r, r + 1))[0]
+            equal = {b: torch.equal(logits(slice(0, b))[r], alone) for b in (4, 8)}
+            print(f"phase 4 (b): {key} {mode}, {TF_STEPS_4B} teacher-forced steps, row {r} alone against its slot in "
+                  f"b4 / b8: logits bit-equal {equal} [{card}]", flush=True)
+            if not all(equal.values()):
+                fail(f"phase 4 (b) {key} {mode}: row {r}'s logits depend on its batch: {equal}")
 
 
 def backward_summaries(torch, F, dev, args, key_mask, library_time, causal_float_mask,
@@ -1190,6 +1369,10 @@ PROMPTS = (
 )
 # card vs CPU float32 text embeddings (unit norm, components ~0.04; TF32 off)
 TEXT_EMB_TOL = 1e-4
+# a request's wave in two batches of other sizes (the JAX package's
+# tests/test_serve.py limit; the card decodes Encodec a row at a time, so
+# the rows' bits are equal)
+ROW_WAVE_TOL = 1e-6
 # nearest-code margins: moving x by d moves score_k - score_j (2 x.c - |c|^2)
 # by at most 2 |d|_2 |c_k - c_j| <= 2 sqrt(512) max|d| * ~32 for N(0, 1) codes
 # in 512 dims, ~1450 max|d|; a position whose CPU margin exceeds TIE_MULT x
@@ -1379,6 +1562,14 @@ def conditioning_phase(torch, omt_config, mc, dev, card, stages, codec, counters
         return generate(**kw)
 
     server_lm.generate = spy
+    codes_of_calls = []  # the codes reaching Encodec, a generate call each
+    decode = server_lm._decode
+
+    def capture(c):
+        codes_of_calls.append(c.cpu())
+        return decode(c)
+
+    server_lm._decode = capture
     gen_kw = dict(output_seconds=4.0, **windows)
 
     def serve(requests, started):
@@ -1425,24 +1616,31 @@ def conditioning_phase(torch, omt_config, mc, dev, card, stages, codec, counters
     second = [(p, 400 + i) for i, p in enumerate(PROMPTS[1:6])] + [target] + [(p, 500 + i) for i, p in enumerate(PROMPTS[6:8])]
     target_key = seed_keys([target[1]]).item()
     slots = []
-    for requests in (first, second):
+    for requests in (first, second, [target]):
         n0 = len(calls)
         waves, lat = serve(requests, started=False)
-        rows, keys_ = next((r, k) for r, k in calls[n0:] if target_key in k)
-        slots.append((rows, keys_.index(target_key), waves[requests.index(target)]))
+        i, (rows, keys_) = next((n0 + j, c) for j, c in enumerate(calls[n0:]) if target_key in c[1])
+        slot = keys_.index(target_key)
+        slots.append((rows, slot, waves[requests.index(target)], codes_of_calls[i][slot]))
         print(f"  server round of 8: batches of rows {[r for r, _ in calls[n0:]]}, latency per request "
               f"{', '.join(f'{x:.2f}' for x in lat)} s; the target at slot {slots[-1][1]} of {rows} [{card}]",
               flush=True)
-    (rows_a, slot_a, wave_a), (rows_b, slot_b, wave_b) = slots
+    (rows_a, slot_a, wave_a, codes_a), (rows_b, slot_b, wave_b, codes_b), (rows_c, _, wave_c, codes_c) = slots
     equal = bool(np.array_equal(wave_a, wave_b))
+    alone = bool(torch.equal(codes_c, codes_a)), float(np.abs(wave_c - wave_a).max())
     print(f"server: the same (text, seed) at slot {slot_a} and slot {slot_b} of two batch-8 batches with "
-          f"other companions: waves bit-equal {equal}", flush=True)
-    if rows_a != 8 or rows_b != 8 or slot_a == slot_b:
-        fail(f"server rounds: the target ran at rows {rows_a}/{rows_b}, slots {slot_a}/{slot_b}")
-    if not equal:
+          f"other companions: codes bit-equal {torch.equal(codes_a, codes_b)}, waves bit-equal {equal}; "
+          f"alone at bucket {rows_c}: codes bit-equal to bucket 8's {alone[0]}, waves max abs diff "
+          f"{alone[1]:.2e} (limit {ROW_WAVE_TOL:.0e}) [{card}]", flush=True)
+    if rows_a != 8 or rows_b != 8 or slot_a == slot_b or rows_c != 1:
+        fail(f"server rounds: the target ran at rows {rows_a}/{rows_b}/{rows_c}, slots {slot_a}/{slot_b}")
+    if not equal or not torch.equal(codes_a, codes_b):
         fail(f"server: the same request's waves differ across batches "
              f"(max abs diff {np.abs(wave_a - wave_b).max()})")
-    del server_lm.generate  # the spy refers to server_lm: a cycle would keep its CLAP on the card
+    if not alone[0] or not alone[1] <= ROW_WAVE_TOL:
+        fail(f"server: the request alone at bucket 1 differs from its row at bucket 8: codes equal {alone[0]}, "
+             f"waves {alone[1]}")
+    del server_lm.generate, server_lm._decode  # the spies refer to server_lm: a cycle would keep its CLAP on the card
 
 
 def step_launches(torch, stage, clap, gen, **kw):
@@ -1795,8 +1993,8 @@ def audio_prompt_phase(torch, omt_config, mc, dev, card, counters, expect, windo
     1024 x 768 codebook), the Encodec encoder and HTSAT-tiny (with the audio
     projection) at full width in float32 on the card against the CPU, each
     timed beside its bound; MusicLM.generate(prime_wave=10 s at 48 kHz,
-    output_seconds=12) in "int8" at b1 (exactly kernels 1-4), once more with
-    return_coarse_generated_wave; generate_top_match(2 prompts x 4 samples,
+    output_seconds=12) in "fused" at b1 (exactly kernels 1, 4, 7), once more
+    with return_coarse_generated_wave; generate_top_match(2 prompts x 4 samples,
     4 s) in "fused" (exactly kernels 7, 1, 4). Returns the two runs' launches."""
     from open_musiclm_torch.models.clap.tokenizer import load_tokenizer
     from open_musiclm_torch.models.hubert import zero_mean_unit_var
@@ -1893,42 +2091,47 @@ def audio_prompt_phase(torch, omt_config, mc, dev, card, counters, expect, windo
     print(f"HTSAT-tiny + projection b8 x 10 s (audio_embedding): {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
           f"{flops / 8e9:.1f} GFLOP a clip, {flops / 1e9 / ms:.2f} TFLOP/s) [{card}]", flush=True)
 
-    # d. continuation, "int8" b1: a 10 s prime at 48 kHz, 12 s out
+    # d. continuation, "fused" b1: a 10 s prime at 48 kHz, 12 s out
     stages = {
         f"{name}_stage": omt_config.init_stage(
             mc, name, seed, device=dev, dtype=torch.bfloat16, quantized=True, flash_kv="int8")
         for name, seed in (("semantic", 1), ("coarse", 2), ("fine", 3))
     }
-    musiclm = MusicLM(codec=codec, wav2vec=w2v_gpu, **stages)
     gen = torch.Generator(device=dev).manual_seed(7)
     clap1 = torch.randint(0, mc.clap_rvq_cfg.codebook_size, (1, mc.clap_rvq_cfg.rq_num_quantizers, 1),
                           generator=gen, device=dev)
     hop, ac_hz = codec.hop_length, mc.encodec_cfg.output_hz
     prime_frames = PRIME_SECONDS * ac_hz
     # 12 s: semantic 750 tokens, 150 trimmed; 5 coarse windows, 900 frames,
-    # 150 trimmed; 5 batched fine windows of 150; the prime's 750 frames first
-    runs = ((False, (1, (prime_frames + 750) * hop)), (True, (1, 900 * hop)))
+    # 150 trimmed; 5 batched fine windows of 150; the prime's 750 frames first.
+    # Both run in "fused" (the continuation's prompt set-up and trims are the
+    # mode's business of no stage, and phases 4, 5 and 11 run "int8"), to
+    # keep the phase short
+    fused_path = {"prefill_attention", "int8_matmul", "fused_layer_decode_step"}
+    runs = ((False, "fused", (1, (prime_frames + 750) * hop), fused_path),
+            (True, "fused", (1, 900 * hop), fused_path))
     phase_launches = {}
-    for coarse_only, want_shape in runs:
+    for coarse_only, mode, want_shape, path in runs:
+        m = MusicLM(codec=codec, wav2vec=w2v_gpu, **{k: Stage(st.model, name=st.name, quantized=True, flash_kv=mode)
+                                                     for k, st in stages.items()})
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        wave = musiclm.generate(clap_token_ids=clap1, generator=gen, prime_wave=prime_gpu,
-                                prime_wave_sample_hz=PRIME_HZ, output_seconds=12.0,
-                                return_coarse_generated_wave=coarse_only, **windows)
+        wave = m.generate(clap_token_ids=clap1, generator=gen, prime_wave=prime_gpu,
+                          prime_wave_sample_hz=PRIME_HZ, output_seconds=12.0,
+                          return_coarse_generated_wave=coarse_only, **windows)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
         tag = "return_coarse_generated_wave" if coarse_only else "the wave"
-        print(f"MusicLM.generate(prime_wave=10 s at 48 kHz, output_seconds=12) flash_kv=int8 b1, {tag}: "
+        print(f"MusicLM.generate(prime_wave=10 s at 48 kHz, output_seconds=12) flash_kv={mode} b1, {tag}: "
               f"wave {tuple(wave.shape)} {wall:.2f} s wall (HuBERT and the encoder included) [{card}]", flush=True)
         if tuple(wave.shape) != want_shape or not torch.isfinite(wave.float()).all():
             fail(f"continuation ({tag}): waveform {tuple(wave.shape)} (want {want_shape}) or non-finite samples")
-        expect(f"continuation ({tag}), flash_kv=int8", launches,
-               {"prefill_attention", "flash_decode_step", "fused_ff_apply", "int8_matmul"})
+        expect(f"continuation ({tag}), flash_kv={mode}", launches, path)
         phase_launches["continuation" + (" (coarse only)" if coarse_only else "")] = launches
-    del musiclm, w2v_gpu
+    del m, w2v_gpu
 
     # e. reranking, "fused": 2 demo-vocabulary prompts x 4 samples, 4 s
     with tempfile.TemporaryDirectory() as tmp:
@@ -2054,7 +2257,7 @@ def large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms
             prefix = {"semantic": (12,), "coarse": (12, 20), "fine": (12, 30)}[name]
             cond = [torch.randint(0, spec.codebook_size, (2, n), generator=g) for spec, n in zip(specs, prefix)]
             q_last = specs[-1].num_quantizers
-            T = -(-24 // q_last)
+            T = -(-LARGE_TF_STEPS // q_last)
             teacher = torch.randint(0, specs[-1].codebook_size, (2, T, q_last), generator=g)
             for mode, rel, path in (("fp", 1e-4, {"prefill_attention"}),
                                     ("int8", 1e-2, {"prefill_attention", "flash_decode_step", "fused_ff_apply",
@@ -2406,7 +2609,9 @@ def raw_audio_phase(torch, omt_config, dev, card, counters, model_config: Path =
             tc[f"{stage}_trainer_cfg"].update(folder=str(tracks), num_train_steps=1)
         tc["coarse_trainer_cfg"].update(num_train_steps=3, save_results_every=2, save_model_every=2)
         tc["data_preprocessor_cfg"] = dict(folder=str(tracks), results_folder=str(store))
-        tc["clap_rvq_trainer_cfg"].update(folder=str(tracks), num_train_steps=2)
+        # 1,024 embeddings a step (the shipped accumulate 32 halved): the
+        # codebook's size, the least the RVQ's k-means init takes
+        tc["clap_rvq_trainer_cfg"].update(folder=str(tracks), num_train_steps=2, accumulate_batches=16)
         tc["hubert_kmeans_trainer_cfg"].update(folder=str(tracks), feature_extraction_num_steps=4)
 
         def config(name, **stage_cfgs):
@@ -2763,8 +2968,9 @@ def kernel1_bits(torch, model, lens, batch, dev, card):
 
 
 def remat_phase(torch, omt_config, dev, card, counters, model_config: Path = None):
-    """Phase 10 (a): musiclm_large's coarse stage (24 x 16 heads x 1024, its
-    10 s coarse window) at the shipped coarse trainer config (b2 x accum 8,
+    """Phase 10 (a): musiclm_large's coarse stage (LARGE_CUT_DEPTH of its 24
+    layers, 16 heads x 1024, its 10 s coarse window) at the shipped coarse
+    trainer config (b2 x accum 8,
     bf16 compute on float32 master weights, ff_dropout 0.1, forgetful mask
     0.15): two StageTrainer steps without remat and two with it, each pair
     from the same weights and generator state. The first step's loss and
@@ -2778,7 +2984,7 @@ def remat_phase(torch, omt_config, dev, card, counters, model_config: Path = Non
     from open_musiclm_torch.models.token_cond import StageLossConfig
 
     on_card = dev.type == "cuda"
-    mc = omt_config.load_model_config(str(model_config or ROOT / "configs" / "model" / "musiclm_large.json"))
+    mc = cut_depth(omt_config.load_model_config(str(model_config or ROOT / "configs" / "model" / "musiclm_large.json")))
     tcfg = omt_config.load_training_config(
         str(ROOT / "configs" / "training" / "train_musiclm_fma.json")).coarse_trainer_cfg
     b, accum = tcfg.batch_size, tcfg.grad_accum_every
@@ -3015,6 +3221,22 @@ def phase10(torch, omt_config, dev, card, counters, phase6_ms=None):
 
 # phase 11: tensor parallelism and the multi-card serving layouts on one card
 TP_TOL = 1e-5  # (a) the loss and each gathered gradient, x max|g| a tensor
+# phase 8's teacher-forced steps a stage and mode, and the depth of
+# musiclm_large's stages in phases 10 (a) and 11 (a, b) (cut from 24 steps
+# and 24 layers at the full width, to keep the whole script in its time
+# limit on a slow host as phases were added)
+LARGE_TF_STEPS = 8
+LARGE_CUT_DEPTH = 8
+
+
+def cut_depth(mc, depth: int = LARGE_CUT_DEPTH):
+    """``mc`` with every stage at most ``depth`` layers deep (widths kept)."""
+    import dataclasses
+
+    return dataclasses.replace(mc, **{k: dataclasses.replace(getattr(mc, k), depth=min(depth, getattr(mc, k).depth))
+                                      for k in ("semantic_cfg", "coarse_cfg", "fine_cfg")})
+# (e) the mesh server's text requests: one batch of 4
+SERVER_REQUESTS = tuple((p, 700 + i) for i, p in enumerate(PROMPTS[:4]))
 TP_STEPS = 2  # (a) bf16 steps at the shipped coarse trainer config
 LOGIT_TOL = 1e-4  # (b) phase 3's limit, x max|logit|
 WAVE_TOL = 1e-5  # (c) the waves, absolute
@@ -3055,7 +3277,7 @@ def heads_reversed(torch, model):
 
 def tp_training(torch, omt_config, dev, mesh, large_config: str, counters) -> dict:
     """Phase 11 (a), on each rank of a tp=2 mesh: musiclm_large's coarse
-    stage (its 10 s window). First one float32 step at b2 x accum 1 with
+    stage (LARGE_CUT_DEPTH layers, its 10 s window). First one float32 step at b2 x accum 1 with
     remat, ff_dropout 0.1 and the forgetful mask, from the same weights and
     generator seed as one process on the whole model, which the main rank
     runs first: the loss and every gathered gradient (read at the
@@ -3068,7 +3290,7 @@ def tp_training(torch, omt_config, dev, mesh, large_config: str, counters) -> di
     from open_musiclm_torch.train.trainer import StageTrainer
 
     on_card = dev.type == "cuda"
-    mc = omt_config.load_model_config(large_config)
+    mc = cut_depth(omt_config.load_model_config(large_config))
     tcfg = omt_config.load_training_config(
         str(ROOT / "configs" / "training" / "train_musiclm_fma.json")).coarse_trainer_cfg
     b, accum = tcfg.batch_size, tcfg.grad_accum_every
@@ -3171,14 +3393,15 @@ def tp_training(torch, omt_config, dev, mesh, large_config: str, counters) -> di
 
 
 def tp_decode(torch, omt_config, dev, mesh, config: str, counters) -> dict:
-    """Phase 11 (b), on each rank of a tp=2 mesh: 24 teacher-forced fp decode
-    steps of each stage of musiclm_large_small_context (float32) on the
+    """Phase 11 (b), on each rank of a tp=2 mesh: LARGE_TF_STEPS teacher-forced
+    fp decode steps of each stage of musiclm_large_small_context (LARGE_CUT_DEPTH
+    layers, float32) on the
     rank's shard; the main rank first runs them on the whole stage. Returns
     the main rank's errors and each rank's launches."""
     from open_musiclm_torch.models import token_cond
     from open_musiclm_torch.parallel.sharding import shard_module
 
-    mc = omt_config.load_model_config(config)
+    mc = cut_depth(omt_config.load_model_config(config))
     g = torch.Generator().manual_seed(121)
     out = {}
     for name, seed in (("semantic", 122), ("coarse", 123), ("fine", 124)):
@@ -3187,7 +3410,7 @@ def tp_decode(torch, omt_config, dev, mesh, config: str, counters) -> dict:
         prefix = {"semantic": (12,), "coarse": (12, 20), "fine": (12, 30)}[name]
         cond = [torch.randint(0, s.codebook_size, (2, n), generator=g).to(dev) for s, n in zip(specs, prefix)]
         q_last = specs[-1].num_quantizers
-        T = -(-24 // q_last)
+        T = -(-LARGE_TF_STEPS // q_last)
         teacher = torch.randint(0, specs[-1].codebook_size, (2, T, q_last), generator=g).to(dev)
         kw = dict(max_time_steps=T, temperature=0.0, teacher_ids=teacher, return_logits=True)
         want = token_cond.generate(model, cond, **kw)[1].cpu() if mesh.is_main else None
@@ -3222,7 +3445,7 @@ def serving_musiclm(torch, omt_config, mc, dev):
 
 
 def serving_runs(torch, omt_config, dev, mesh, small_config: str, counters, batch: int = 8,
-                 parts=((0, 8),)) -> dict:
+                 parts=((0, 8),), modes=("int8", "fused")) -> dict:
     """Phase 11 (c): MusicLM.generate(serving_mesh=mesh, per_row_keys) at
     musiclm_small, ``batch`` x 4 s, in "int8" and "fused" (``mesh`` None: one
     process, one call for each row range of ``parts``, put together).
@@ -3243,7 +3466,7 @@ def serving_runs(torch, omt_config, dev, mesh, small_config: str, counters, batc
                          generator=g).to(dev)
     keys = seed_keys(range(131, 131 + batch), device=dev)
     out = {"musiclm": musiclm, "windows": windows}
-    for mode in ("int8", "fused"):
+    for mode in modes:
         m = dataclasses.replace(musiclm, serving_mesh=mesh, **{
             k: Stage(getattr(musiclm, k).model, name=k, quantized=True, flash_kv=mode)
             for k in ("semantic_stage", "coarse_stage", "fine_stage")})
@@ -3268,60 +3491,281 @@ def serving_runs(torch, omt_config, dev, mesh, small_config: str, counters, batc
     return out
 
 
-def batch_size_probe(torch, musiclm, dev, card) -> dict:
-    """Whether a row's bits with b rows equal its bits with 2b in the pieces
-    of a decode, b 4 (the semantic and coarse calls' rows a rank) and 8 (the
-    fine call's, two windows): the prefill's bf16 product (cuBLAS, [b x 216,
-    1024] x [1024, 2730]), kernel 1 (8 heads over 216 keys), kernel 4 (the
-    logit head) and kernel 3 (one conv-FF layer), kernel 2's split of a
-    1280-row cache at pos 1279 (its wrapper picks the splits from b); then
-    the semantic stage's prefill and 3 teacher-forced decode steps in
-    "int8" and "fused" at 4 of 8 rows."""
+def mesh_server_runs(torch, omt_config, dev, mesh, small_config: str, vocab_dir: str) -> dict:
+    """Phase 11 (e): GenerationServer in "fused" at musiclm_small (phase 4's
+    stages, a float32 Encodec) with the full-width text tower (seed 31) and
+    the demo vocabulary, buckets [2, 4], one worker, over ``mesh`` (None:
+    one process). The front takes SERVER_REQUESTS, submitted before the
+    server starts so that the batch (all 4) forms alike everywhere;
+    every rank records the codes reaching Encodec, the front the waves and
+    its wall. Another rank returns once the front's stop header came."""
+    from open_musiclm_torch.models.clap.tokenizer import load_tokenizer
+    from open_musiclm_torch.models.musiclm import MusicLM
     from open_musiclm_torch.models.stages import Stage
-    from open_musiclm_torch.ops import attention, decode_attention, fused_ff, quant
-    from open_musiclm_torch.ops.fused_ff import pack_ff_weights
+    from open_musiclm_torch.serve import GenerationServer
+
+    mc = omt_config.load_model_config(small_config)
+    base = serving_musiclm(torch, omt_config, mc, dev)
+    front = mesh is None or mesh.is_main
+    clap = omt_config.build_clap(mc, torch.Generator().manual_seed(31), device=dev) if front else None
+    musiclm = MusicLM(codec=base.codec, clap=clap, tokenizer=load_tokenizer(vocab_dir), serving_mesh=mesh, **{
+        k: Stage(getattr(base, k).model, name=k, quantized=True, flash_kv="fused")
+        for k in ("semantic_stage", "coarse_stage", "fine_stage")})
+    codes, decode = [], musiclm._decode
+
+    def capture(c):
+        codes.append(c.cpu())
+        return decode(c)
+
+    musiclm._decode = capture
+    g = mc.global_cfg
+    server = GenerationServer(musiclm, batch_size=4, batch_buckets=[2, 4], batch_timeout_s=0.5, num_workers=1,
+                              output_seconds=4.0, semantic_window_seconds=int(g.semantic_audio_length_seconds),
+                              coarse_window_seconds=int(g.coarse_audio_length_seconds),
+                              fine_window_seconds=int(g.fine_audio_length_seconds))
+    out = {"front": server.is_front}
+    if server.is_front:
+        futs = [server.submit(text, seed=seed) for text, seed in SERVER_REQUESTS]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.start()
+        out["waves"] = [f.result(timeout=600) for f in futs]
+        out["wall"] = time.perf_counter() - t0
+        server.stop()
+    else:
+        server.start().stop(timeout=600)
+    out["codes"] = codes
+    return out
+
+
+def batch_size_probe(torch, musiclm, dev, card) -> dict:
+    """Whether a row's bits alone (b 1) equal its bits at b 2, 4, 8 and 16
+    in the pieces of a decode (bf16, musiclm_small's widths): the prefill's
+    products in their row tiles (``row_linear``, [b x 216, 1024] x [1024,
+    5460] and [b x 216, 2730] x [2730, 1024]) and a decode step's ([b, 1024]
+    x [1024, 512]), kernel 1 (8 heads over 216 keys), kernel 2 over a
+    1280-row int8 cache at pos 1279, kernel 3 (one conv-FF layer), kernel 4
+    (the logit head, also at 17 and 32 rows), kernel 7 (one fused layer at
+    pos 1279); then the semantic stage's prefill and 3 teacher-forced decode
+    steps in "int8" and "fused". Each entry lists the batch sizes at which
+    row 0 differed; the caller fails unless every list is empty."""
+    from open_musiclm_torch.models.stages import Stage
+    from open_musiclm_torch.ops import attention, decode_attention, fused_ff, fused_layer, quant
+    from open_musiclm_torch.ops.rows import DECODE_TILE, PREFILL_TILE, row_linear
 
     g = torch.Generator().manual_seed(151)
     model = musiclm.semantic_stage.model
-    ff = model.transformer.ffs[0]
-    w = ff.proj_in.weight[: ff.inner_dim]
+    ff, at = model.transformer.ffs[0], model.transformer.attns[0]
     wq, sc = quant.quantize_weight(model.logit_heads[-1][0].detach().float().t())
-    packed = pack_ff_weights(ff)
-    out = {}
-    for b in (4, 8):
-        def rand(*shape):
-            return torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+    packed, layer = fused_ff.pack_ff_weights(ff), fused_layer.pack_layer_weights(at, ff)
+    sizes = (2, 4, 8, 16)
 
-        x = rand(2 * b * 216, model.dim).to(w.dtype)
-        out[f"prefill product {b}/{2 * b}"] = torch.equal(torch.nn.functional.linear(x, w)[: b * 216],
-                                                          torch.nn.functional.linear(x[: b * 216], w))
-        q, k, v = rand(2 * b, 8, 216, 64), rand(2 * b, 216, 64), rand(2 * b, 216, 64)
-        bias = rand(8, 216, 216)
-        out[f"kernel 1 {b}/{2 * b}"] = torch.equal(
-            attention.shared_kv_attention_fused(q, k, v, bias)[:b],
-            attention.shared_kv_attention_fused(q[:b].contiguous(), k[:b].contiguous(), v[:b].contiguous(), bias))
-        h = rand(2 * b, model.dim)
-        out[f"kernel 4 {b}/{2 * b}"] = torch.equal(quant.int8_matmul(h, wq, sc)[:b], quant.int8_matmul(h[:b], wq, sc))
-        state = rand(2 * b, 2, 2 * ff.inner_dim)
-        full = fused_ff.fused_ff_apply(h, packed, state.clone())
-        part = fused_ff.fused_ff_apply(h[:b].contiguous(), packed, state[:b].clone())
-        out[f"kernel 3 {b}/{2 * b}"] = torch.equal(full[0][:b], part[0]) and torch.equal(full[1][:b], part[1])
-        out[f"kernel 2 splits {b}/{2 * b}"] = (decode_attention.decode_splits(b, 1279, 1280)[0],
-                                               decode_attention.decode_splits(2 * b, 1279, 1280)[0])
-    # the whole semantic stage: its prefill, then 3 teacher-forced decode steps
-    clap = torch.randint(0, model.specs[0].codebook_size, (8, 12), generator=g).to(dev)
-    teacher = torch.randint(0, model.specs[-1].codebook_size, (8, 3, 1), generator=g).to(dev)
+    def rand(*shape):  # in the stage's dtype (bf16 in phase 11)
+        return torch.randn(*shape, generator=g).to(dev, model.start_tokens.dtype)
+
+    def differs(fn, n_max=16, counts=sizes):
+        """Batch sizes b at which fn(b)'s first rows (batch row 0's) differ
+        from fn(1)."""
+        one = fn(1)
+        return [b for b in counts if b <= n_max and not torch.equal(fn(b)[:one.shape[0]], one)]
+
+    N = 1280
+    x, h = rand(16 * 216, model.dim), rand(16, model.dim)
+    mid = rand(16 * 216, ff.inner_dim)
+    q, k, v, bias = rand(16, 8, 216, 64), rand(16, 216, 64), rand(16, 216, 64), rand(8, 216, 216)
+    state = rand(16, 2, 2 * ff.inner_dim)
+    kv = torch.randint(-127, 128, (16, N, 128), generator=g, dtype=torch.int8).to(dev)
+    kvs = (torch.rand(2, 16, N, generator=g) * 0.02).to(dev)
+    add, row, qd = torch.zeros(16, N, device=dev), torch.randn(N, 8, generator=g).to(dev), rand(16, 8, 64)
+    head_rows, row_h = rand(32, model.dim), torch.randn(N, model.heads, generator=g).to(dev)
+    out = {
+        "prefill proj_in (row tiles)": differs(lambda b: row_linear(x[:b * 216], ff.proj_in.weight, tile=PREFILL_TILE)),
+        "prefill proj_out (row tiles)": differs(
+            lambda b: row_linear(mid[:b * 216], ff.proj_out.weight, tile=PREFILL_TILE)),
+        "decode to_q (row tiles)": differs(lambda b: row_linear(h[:b], at.to_q.weight, tile=DECODE_TILE)),
+        "kernel 1": differs(lambda b: attention.shared_kv_attention_fused(q[:b], k[:b], v[:b], bias)),
+        "kernel 2": differs(lambda b: decode_attention.flash_decode_step(
+            qd[:b], kv[:b], N - 1, row, add[:b], kvs[:, :b].contiguous())),
+        "kernel 3": differs(lambda b: fused_ff.fused_ff_apply(h[:b].contiguous(), packed, state[:b].clone())[0]),
+        "kernel 4": differs(lambda b: quant.int8_matmul(head_rows[:b].contiguous(), wq, sc), 32,
+                            sizes + (17, 32)),
+        "kernel 7": differs(lambda b: fused_layer.fused_layer_decode_step(
+            h[:b].contiguous(), layer, kv[:b].clone(), kvs[:, :b].contiguous(), state[:b].clone(), N - 1, row_h,
+            add[:b], heads=model.heads)[0]),
+    }
+    clap = torch.randint(0, model.specs[0].codebook_size, (16, 12), generator=g).to(dev)
+    teacher = torch.randint(0, model.specs[-1].codebook_size, (16, 3, 1), generator=g).to(dev)
     stream = model.assemble_stream([clap])
     with torch.no_grad():
-        h8 = model.transformer.prefill(stream, model.transformer.init_cache(8, stream.shape[1]))[0]
-        h4 = model.transformer.prefill(stream[:4], model.transformer.init_cache(4, stream.shape[1]))[0]
-    out["semantic prefill 4/8"] = torch.equal(h8[:4], h4)
+        out["semantic prefill"] = differs(lambda b: model.transformer.prefill(
+            stream[:b], model.transformer.init_cache(b, stream.shape[1]))[0])
     for mode in ("int8", "fused"):
         st = Stage(model, quantized=True, flash_kv=mode)
         kw = dict(max_time_steps=3, temperature=0.0, return_logits=True)
-        full = st.generate([clap], teacher_forced_ids=teacher, **kw)[1]
-        part = st.generate([clap[:4]], teacher_forced_ids=teacher[:4], **kw)[1]
-        out[f"semantic {mode} decode logits 4/8"] = [torch.equal(full[:4, i], part[:, i]) for i in range(3)]
+        out[f"semantic {mode} teacher-forced logits"] = differs(
+            lambda b: st.generate([clap[:b]], teacher_forced_ids=teacher[:b], **kw)[1])
+    return out
+
+def invariance_probe(torch, dev, card) -> dict:
+    """Which pieces of the serving path give a row other bits when its batch
+    has other rows (``--probe``): cuBLAS products at the decode's and the
+    prefill's row counts and at fixed row tiles (the row moved within the
+    tile, and tiles as one batched call), the row reductions (the port's
+    LayerNorm, F.layer_norm, l2norm, softmax), the fp decode's attention,
+    the Encodec decoder, kernels 1-4 and 7 at b 1-16, and the semantic
+    stage's prefill and teacher-forced logits in each mode. Each entry lists
+    the row counts at which a row's bits differed from its bits alone (or
+    whether a moved row kept its bits)."""
+    import torch.nn.functional as F
+
+    from open_musiclm_torch import config as omt_config
+    from open_musiclm_torch.models.stages import Stage
+    from open_musiclm_torch.models.transformer import layer_norm
+    from open_musiclm_torch.ops import attention, decode_attention, fused_ff, fused_layer, quant
+
+    g = torch.Generator().manual_seed(161)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    def differs(fn, x, counts):
+        """Row counts m at which fn(x[:m])'s row 0 differs from fn(x[:1])."""
+        one = fn(x[:1])
+        return [m for m in counts if not torch.equal(fn(x[:m])[:1], one)]
+
+    out = {}
+    counts = (2, 3, 4, 8, 16, 17, 32, 56, 64, 112, 128, 216, 432, 1000, 3456)
+    shapes = {"to_q": (1024, 512), "to_kv": (1024, 128), "to_out": (512, 1024), "proj_in": (1024, 5460),
+              "proj_out": (2730, 1024), "head": (1024, 1025), "roberta_ff": (768, 3072)}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt).removeprefix("torch.")
+        for name, (K, N) in shapes.items():
+            w, x = rnd(N, K, dtype=dt), rnd(3456, K, dtype=dt)
+            out[f"linear {name} {tag}"] = differs(lambda a: F.linear(a, w), x, counts)
+            for T in (16, 64, 128, 256):
+                base = F.linear(x[:T], w)
+                out[f"linear {name} {tag} tile {T} row moved keeps bits"] = all(
+                    torch.equal(F.linear(x[:T].roll(s, 0), w), base.roll(s, 0)) for s in (1, 5, T // 2 + 3))
+                bad = []
+                for c in (2, 5, 13):
+                    xc = x[:c * T]
+                    single = torch.cat([F.linear(xc[i * T:(i + 1) * T], w) for i in range(c)])
+                    if not torch.equal(torch.matmul(xc.view(c, T, K), w.t()).reshape(c * T, N), single):
+                        bad.append(c)
+                out[f"linear {name} {tag} tile {T} batched tiles differing from single calls"] = bad
+        for width in (1024, 2730, 768):
+            x, gamma = rnd(3456, width, dtype=dt), rnd(width)
+            out[f"layer_norm {width} {tag}"] = differs(lambda a: layer_norm(a, gamma), x, counts)
+            out[f"F.layer_norm {width} {tag}"] = differs(
+                lambda a: F.layer_norm(a.float(), (width,), gamma).to(dt), x, counts)
+        q = rnd(3456, 8, 64, dtype=dt)
+        out[f"l2norm 8x64 {tag}"] = differs(attention.l2norm, q, counts)
+        out[f"l2norm 1x64 {tag}"] = differs(attention.l2norm, q[:, 0], counts)
+    s = rnd(1000, 8, 1280)
+    out["softmax 8x1280 float32"] = differs(lambda a: torch.softmax(a, -1), s, (2, 4, 8, 16, 17, 32, 112, 1000))
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = rnd(16, 8, 64, dtype=dt), rnd(16, 1280, 64, dtype=dt), rnd(16, 1280, 64, dtype=dt)
+        table = rnd(2 * 1280 - 1, 8)
+        out[f"fp decode attention {dt}"] = [
+            b for b in (2, 4, 8, 16)
+            if not torch.equal(attention.shared_kv_decode_step(q[:b], k[:b], v[:b], 1279, bias_table=table)[:1],
+                               attention.shared_kv_decode_step(q[:1], k[:1], v[:1], 1279, bias_table=table))]
+    mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
+    codec = omt_config.build_encodec(mc, generator=torch.Generator().manual_seed(4), device=dev)
+    codes = torch.randint(0, 1024, (16, 300, 8), generator=g).to(dev)
+    with torch.no_grad():
+        one = codec.decode(codes[:1])
+        rows = {b: codec.decode(codes[:b])[:1] for b in (2, 4, 8, 16)}
+    out["encodec decode f32 max abs diff of row 0 at b"] = {b: (r - one).abs().max().item() for b, r in rows.items()}
+
+    # the kernels
+    wq, sc = quant.quantize_weight(rnd(1024, 1025))
+    x = rnd(256, 1024, dtype=torch.bfloat16)
+    out["kernel 4"] = differs(lambda a: quant.int8_matmul(a.contiguous(), wq, sc), x, (2, 8, 9, 16, 17, 64, 200, 256))
+    base = quant.int8_matmul(x[:16], wq, sc)
+    out["kernel 4 row moved keeps bits"] = all(
+        torch.equal(quant.int8_matmul(x[:16].roll(r, 0).contiguous(), wq, sc), base.roll(r, 0)) for r in (1, 5, 11))
+    stage = omt_config.init_stage(mc, "semantic", 1, device=dev, dtype=torch.bfloat16)
+    model = stage.model
+    ff, at = model.transformer.ffs[0], model.transformer.attns[0]
+    packed = fused_ff.pack_ff_weights(ff)
+    h, state = rnd(16, 1024, dtype=torch.bfloat16), rnd(16, 2, 2 * ff.inner_dim, dtype=torch.bfloat16)
+    out["kernel 3"] = differs(lambda a: fused_ff.fused_ff_apply(
+        a.contiguous(), packed, state[:a.shape[0]].clone())[0], h, (2, 4, 8, 16))
+    qb, kb, vb = (rnd(8, 8, 216, 64, dtype=torch.bfloat16), rnd(8, 216, 64, dtype=torch.bfloat16),
+                  rnd(8, 216, 64, dtype=torch.bfloat16))
+    bias = rnd(8, 216, 216, dtype=torch.bfloat16)
+    out["kernel 1"] = [b for b in (2, 4, 8) if not torch.equal(
+        attention.shared_kv_attention_fused(qb[:b], kb[:b], vb[:b], bias)[:1],
+        attention.shared_kv_attention_fused(qb[:1], kb[:1], vb[:1], bias))]
+    N = 1280
+    kv = torch.randint(-127, 128, (16, N, 128), generator=g, dtype=torch.int8).to(dev)
+    kvs = (torch.rand(2, 16, N, generator=g) * 0.01).to(dev)
+    add = torch.zeros(16, N, device=dev)
+    row = rnd(N, 8)
+    qd = rnd(16, 8, 64, dtype=torch.bfloat16)
+    for pos in (100, 1279):
+        out[f"kernel 2 pos {pos}"] = [b for b in (2, 4, 8, 16) if not torch.equal(
+            decode_attention.flash_decode_step(qd[:b], kv[:b], pos, row, add[:b], kvs[:, :b].contiguous())[:1],
+            decode_attention.flash_decode_step(qd[:1], kv[:1], pos, row, add[:1], kvs[:, :1].contiguous()))]
+    lay = fused_layer.pack_layer_weights(at, ff)
+
+    def k7(b, pos):
+        return fused_layer.fused_layer_decode_step(
+            h[:b].contiguous(), lay, kv[:b].clone(), kvs[:, :b].contiguous(), state[:b].clone(), pos, row,
+            add[:b], heads=8)[0][:1]
+
+    for pos in (100, 1279):
+        out[f"kernel 7 pos {pos}"] = [b for b in (2, 4, 8, 16) if not torch.equal(k7(b, pos), k7(1, pos))]
+
+    # row_linear, F.layer_norm with the rows moved, the text tower
+    from open_musiclm_torch.ops.rows import DECODE_TILE, PREFILL_TILE, row_linear
+    for dt in (torch.bfloat16, torch.float32):
+        for name, (K, N) in shapes.items():
+            w, x = rnd(N, K, dtype=dt), rnd(600, K, dtype=dt)
+            for tile in (DECODE_TILE, PREFILL_TILE):
+                out[f"row_linear {name} {dt} tile {tile}"] = differs(
+                    lambda a: row_linear(a, w, tile=tile), x, (2, 3, 8, 16, 17, 64, 65, 300, 600))
+        for width in (1024, 2730):
+            x, gamma = rnd(64, width, dtype=dt), rnd(width)
+            base = layer_norm(x, gamma)
+            out[f"layer_norm {width} {dt} rows moved keep bits"] = all(
+                torch.equal(layer_norm(x.roll(r, 0), gamma), base.roll(r, 0)) for r in (1, 3, 7))
+    clap_model = omt_config.build_clap(mc, generator=torch.Generator().manual_seed(31), device=dev)
+    ids = torch.randint(4, 200, (8, 77), generator=g)
+    mask = torch.ones(8, 77, dtype=torch.long)
+    mask[:, 40:] = 0
+    toks8 = clap_model.tokenize_text(ids, mask)
+    out["text tower tokens, rows alone vs in b8"] = [
+        i for i in range(8) if not torch.equal(clap_model.tokenize_text(ids[i:i + 1], mask[i:i + 1])[0], toks8[i])]
+    del clap_model
+
+    # each stage end to end: the prefill, then teacher-forced logits in each mode
+    for name, seed in (("semantic", 1), ("coarse", 2), ("fine", 3)):
+        stage = omt_config.init_stage(mc, name, seed, device=dev, dtype=torch.bfloat16)
+        model = stage.model
+        cond = [torch.randint(0, spec.codebook_size, (16, 12 if i == 0 else 24 * spec.num_quantizers), generator=g)
+                .to(dev) for i, spec in enumerate(model.specs[:-1])]
+        q = model.specs[-1].num_quantizers
+        teacher = torch.randint(0, model.specs[-1].codebook_size, (16, 3, q), generator=g).to(dev)
+        stream = model.assemble_stream(cond + [torch.zeros((16, 0), dtype=torch.long, device=dev)])
+        with torch.no_grad():
+            h1 = model.transformer.prefill(stream[:1], model.transformer.init_cache(1, stream.shape[1]))[0]
+            out[f"{name} prefill"] = [b for b in (2, 4, 8, 16) if not torch.equal(
+                model.transformer.prefill(stream[:b], model.transformer.init_cache(b, stream.shape[1]))[0][:1], h1)]
+        for mode, quantized in (("int8", True), ("fused", True), (None, True), ("fp", False)):
+            st = Stage(model, quantized=quantized, flash_kv=mode if quantized else None)
+            kw = dict(max_time_steps=3, temperature=0.0, return_logits=True)
+            one = st.generate([c[:1] for c in cond], teacher_forced_ids=teacher[:1], **kw)[1]
+            out[f"{name} {mode} teacher-forced logits"] = [
+                b for b in (2, 4, 8, 16)
+                if not torch.equal(st.generate([c[:b] for c in cond], teacher_forced_ids=teacher[:b], **kw)[1][:1],
+                                   one)]
+        del stage, model
+    print(f"invariance probe [{card}]:", flush=True)
+    for k, v in out.items():
+        print(f"  {k}: {v}", flush=True)
     return out
 
 
@@ -3348,8 +3792,11 @@ def tp_rank_main(rank: int, world: int, init_file: str, folder: str, device: str
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out["b"] = tp_decode(torch, omt_config, dev, tp, spec["large_small_context"], counters)
-    c = serving_runs(torch, omt_config, dev, make_mesh(dp=world), spec["small"], counters)
+    dp = make_mesh(dp=world)
+    c = serving_runs(torch, omt_config, dev, dp, spec["small"], counters)
     out["c"] = {mode: c[mode] for mode in ("int8", "fused")}
+    del c
+    out["e"] = mesh_server_runs(torch, omt_config, dev, dp, spec["small"], spec["vocab"])
     torch.save(out, Path(folder) / f"tp_rank{rank}.pt")
     dist.destroy_process_group()
     return 0
@@ -3361,12 +3808,20 @@ def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
     Two gloo ranks (their own processes, a file:// store, both on the card)
     run (a) musiclm_large's coarse stage at tp=2 (8 heads a rank over n
     2,766), (b) the fp decode of musiclm_large_small_context's stages at
-    tp=2 and (c) MusicLM.generate over make_mesh(dp=2) at musiclm_small (b4
-    a rank), while this process runs (c)'s one-process b8 runs and (d)
-    to_pipelined on the card. gloo over one card shows that the sharded
+    tp=2, (c) MusicLM.generate over make_mesh(dp=2) at musiclm_small (b4
+    a rank) and (e) GenerationServer over that mesh, while this process runs
+    (c)'s one-process runs (b8, and b8 as two b4 calls, which must agree
+    code for code), the batch-size gate (``batch_size_probe``), (d)
+    to_pipelined on the card and (e)'s one-process server. gloo over one card shows that the sharded
     path computes one process's function on the card's kernels; it does not
     measure tensor-parallel speed (every collective crosses the host). The
     configs let a rehearsal run it on the CPU at small widths."""
+    import dataclasses
+
+    import numpy as np
+
+    from open_musiclm_torch.models.stages import Stage
+
     root_cfg = ROOT / "configs" / "model"
     spec = {"large": str(large_config or root_cfg / "musiclm_large.json"),
             "large_small_context": str(large_small_context_config or root_cfg / "musiclm_large_small_context.json"),
@@ -3376,6 +3831,9 @@ def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         tmp = Path(tmp)
+        (tmp / "vocab").mkdir()
+        write_demo_vocab(tmp / "vocab")
+        spec["vocab"] = str(tmp / "vocab")
         (tmp / "spec.json").write_text(json.dumps(spec))
         cmd = [[sys.executable, str(ROOT / "chip_smoke.py"), "--tp_rank", str(r), "2", str(tmp / "store"),
                 str(tmp), dev.type] for r in range(2)]
@@ -3386,11 +3844,18 @@ def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
             # batch (b8), and (d), while the ranks run
             one = serving_runs(torch, omt_config, dev, None, spec["small"], counters, parts=((0, 4), (4, 8)))
             whole = serving_runs(torch, omt_config, dev, None, spec["small"], counters)
+            alone = serving_runs(torch, omt_config, dev, None, spec["small"], counters, parts=((2, 3),),
+                                 modes=("fused",))
+            del alone["musiclm"]
             probe = batch_size_probe(torch, whole["musiclm"], dev, card)
             musiclm, windows = whole["musiclm"], whole["windows"]
             del one["musiclm"]
             gen_kw = dict(clap_token_ids=torch.randint(0, 1024, (2, 12, 1), generator=torch.Generator()
                                                        .manual_seed(141)).to(dev), output_seconds=4.0, **windows)
+            # to_pipelined's placement is the mode's business of no stage: "fused", the shortest
+            musiclm = dataclasses.replace(musiclm, **{
+                k: Stage(getattr(musiclm, k).model, name=k, quantized=True, flash_kv="fused")
+                for k in ("semantic_stage", "coarse_stage", "fine_stage")})
             want = musiclm.generate(generator=torch.Generator(device=dev).manual_seed(142), **gen_kw)
             # the one card as cuda:0, and as cuda:0 and cuda (another name for
             # it, so the coarse stage and the codec are copied)
@@ -3405,10 +3870,11 @@ def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
                 pipelined[what] = (torch.equal(got, want), copied, [str(d) for d in pl.stage_devices])
                 print(f"phase 11 (d): to_pipelined({[str(d) for d in devices]}): stage devices "
                       f"{[str(d) for d in pl.stage_devices]}, {copied} of the coarse stage and codec copied, "
-                      f"int8 b2 x 4 s waves {'bit-equal' if torch.equal(got, want) else 'DIFFER'} to the "
+                      f"fused b2 x 4 s waves {'bit-equal' if torch.equal(got, want) else 'DIFFER'} to the "
                       f"unpipelined run [{card}]", flush=True)
                 del pl
             del musiclm
+            one_server = mesh_server_runs(torch, omt_config, dev, None, spec["small"], spec["vocab"])
             logs = [p.communicate(timeout=900)[0] for p in procs]
         finally:
             for p in procs:
@@ -3444,7 +3910,7 @@ def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
             got = {k: launches[k] for k in want_launches}
             others = {k: c for k, c in launches.items() if k not in want_launches and c}
             print(f"  rank {r} bf16 step {i + 1} (b{b} x accum {accum}, remat): loss {loss:.6f}, {ms:.1f} ms, peak "
-                  f"{peak:.2f} GiB (phase 10 (a), one process, 16 heads: 11.06 GiB), launches {launches} "
+                  f"{peak:.2f} GiB (phase 10 (a) prints one process's, 16 heads), launches {launches} "
                   f"[{card}]", flush=True)
             if not math.isfinite(loss) or (on_card and (got != want_launches or others)):
                 fail(f"phase 11 (a) rank {r} step {i + 1}: loss {loss}, launches {launches}, want {want_launches}")
@@ -3471,11 +3937,26 @@ def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
         rows_b8 = [torch.equal(a, w) for a, w in zip(want["codes"], b8["codes"])]
         n_coarse = 3
         coarse_b8 = sum(torch.equal(a[:, :n_coarse], w[:, :n_coarse]) for a, w in zip(want["codes"], b8["codes"]))
+        wave_diff = (want['wave'] - b8['wave']).abs().max().item()
         print(f"phase 11 (c): one process, {mode} b8 x 4 s as two b4 calls ({want['wall']:.2f} s) against one b8 "
               f"call ({b8['wall']:.2f} s): rows with equal codes {sum(rows_b8)} of {len(rows_b8)} (equal coarse "
-              f"codes {coarse_b8}), waves max abs "
-              f"diff {(want['wave'] - b8['wave']).abs().max().item():.2e}; a row's bits at b4 equal its bits at b8 "
-              f"in: {probe} [{card}]", flush=True)
+              f"codes {coarse_b8}), waves max abs diff {wave_diff:.2e} (limit {ROW_WAVE_TOL:.0e}); batch sizes at "
+              f"which row 0's bits differ from its bits alone: {probe} [{card}]", flush=True)
+        one_row = alone.get(mode)
+        row_equal, row_diff = True, 0.0
+        if one_row is not None:
+            row_equal = torch.equal(one_row["codes"][0], b8["codes"][2])
+            row_diff = (one_row["wave"][0] - b8["wave"][2]).abs().max().item()
+            print(f"phase 11 (c): one process, {mode} x 4 s, row 2 alone (b1, {one_row['wall']:.2f} s) against its "
+                  f"slot in the b8 call: codes bit-equal {row_equal}, wave max abs diff {row_diff:.2e} [{card}]",
+                  flush=True)
+        if sum(rows_b8) != len(rows_b8) or not wave_diff <= ROW_WAVE_TOL:
+            fail(f"phase 11 (c) {mode}: b8 as two b4 calls against one b8 call: {sum(rows_b8)} of {len(rows_b8)} "
+                 f"rows with equal codes, waves {wave_diff}")
+        if not row_equal or not row_diff <= ROW_WAVE_TOL:
+            fail(f"phase 11 (c) {mode}: row 2 alone differs from its row in the b8 call: {row_equal}, {row_diff}")
+        if any(probe.values()):
+            fail(f"phase 11 (c): a row's bits depend on its batch's size: {probe}")
         for r, rank in enumerate(ranks):
             got = rank["c"][mode]
             same = torch.equal(got["codes"], want["codes"])
@@ -3499,6 +3980,20 @@ def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
                        "rows_equal_b8": sum(torch.equal(a, w) for a, w in zip(one[mode]["codes"], whole[mode]["codes"]))}
                 for mode in ("int8", "fused")}
     out["c"]["probe"] = probe
+
+    # (e) GenerationServer over the dp=2 mesh against one process's server
+    front = ranks[0]["e"]
+    same = [len(r["e"]["codes"]) == len(one_server["codes"])
+            and all(torch.equal(a, b) for a, b in zip(r["e"]["codes"], one_server["codes"])) for r in ranks]
+    errs = [float(np.abs(a - b).max()) for a, b in zip(front["waves"], one_server["waves"])]
+    print(f"phase 11 (e): GenerationServer over make_mesh(dp=2), fused, buckets [2, 4]: {len(SERVER_REQUESTS)} text "
+          f"requests in batches of rows {[c.shape[0] for c in front['codes']]}, {front['wall']:.2f} s on the "
+          f"front ({one_server['wall']:.2f} s one process); codes bit-equal to one process's server on ranks "
+          f"{same}, waves max abs err {max(errs):.2e} (limit {ROW_WAVE_TOL:.0e}); both ranks stopped [{card}]",
+          flush=True)
+    if not all(same) or not max(errs) <= ROW_WAVE_TOL or [r["e"]["front"] for r in ranks] != [True, False]:
+        fail(f"phase 11 (e): the mesh server differs from one process: codes {same}, waves {errs}")
+    out["e"] = {"front_s": front["wall"], "one_process_s": one_server["wall"], "wave_err": max(errs)}
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return out
 
@@ -3582,6 +4077,138 @@ def kernel4_times(root: Path) -> int:
     return 0
 
 
+def probe_only() -> int:
+    """Phase 1 (the build) and ``invariance_probe`` alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on a card", file=sys.stderr)
+        return 2
+    from open_musiclm_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    cuda_lib.build()
+    cuda_lib.lib()
+    print(json.dumps({"probe": invariance_probe(torch, torch.device("cuda"), card)}))
+    return 0
+
+
+def cost_times(root: Path) -> int:
+    """What batch invariance costs, from the port in the checkout ``root``
+    (another commit's, such as the parent's, timed beside this one in one
+    call), bf16 at the shipped widths: kernel 2's device and stream ms (8
+    heads over int8 rows of N 1280 at pos 1279, b 1, 8 and 16; 16 heads at
+    musiclm_large's N 2816, pos 2765, b 1), kernel 7's (musiclm_small's
+    layer at N 1280, pos 1279, b 1, 2 and 8; musiclm_large's at N 2816, pos
+    2765, b 1), kernel 4's on the logit head at 8-256 rows (the fine stage's
+    rows are batch x windows), Encodec's decode of b8 x 4 s (float32, wall
+    ms), the semantic stage's decode step at b8 in each mode (phase 4's
+    method: 48 steps less 16, over 32, unprofiled) and the prefill's ms at
+    b8 (the semantic stage's 14 positions, the coarse stage's 214 of a
+    first window) at musiclm_small's width. Prints one JSON line."""
+    sys.path.insert(0, str(root.resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on a card", file=sys.stderr)
+        return 2
+    from open_musiclm_torch import config as omt_config
+    from open_musiclm_torch.core.sequence import TokenSequenceSpec
+    from open_musiclm_torch.models.musiclm import MusicLM
+    from open_musiclm_torch.models.stages import Stage
+    from open_musiclm_torch.models.token_cond import TokenConditionedTransformer
+    from open_musiclm_torch.ops import attention, cuda_lib, decode_attention, fused_layer, quant
+
+    dev, card = torch.device("cuda"), card_line()
+    cuda_lib.build()
+    cuda_lib.lib()
+    print(f"card: {card}\ncost of the port in {decode_attention.__file__}", flush=True)
+    timer = Timer(torch, dev)
+    g = torch.Generator().manual_seed(171)
+    out = {}
+
+    def int8_cache(b, N, heads):
+        kq, ks = decode_attention.quantize_kv_row(attention.l2norm(torch.randn(b, N, 64, generator=g).to(dev)))
+        vq, vs = decode_attention.quantize_kv_row(torch.randn(b, N, 64, generator=g).to(dev))
+        return (torch.cat([kq, vq], -1).contiguous(), torch.stack([ks, vs]).contiguous(),
+                torch.randn(N, heads, generator=g).to(dev), torch.zeros(b, N, device=dev))
+
+    for b, heads, N, pos in ((1, 8, 1280, 1279), (8, 8, 1280, 1279), (16, 8, 1280, 1279), (1, 16, 2816, 2765)):
+        q = attention.l2norm(torch.randn(b, heads, 64, generator=g).to(dev, torch.bfloat16))
+        kv, kvs, row, add = int8_cache(b, N, heads)
+        ms = timer.both_ms(lambda: decode_attention.flash_decode_step(q, kv, pos, row, add, kvs))
+        out[f"kernel 2 b{b} h{heads} N{N} pos {pos}"] = {"stream_ms": ms[0], "device_ms": ms[1]}
+    for heads, cases in ((8, ((1, 1279, 1280), (2, 1279, 1280), (8, 1279, 1280))), (16, ((1, 2765, 2816),))):
+        layer = TokenConditionedTransformer((TokenSequenceSpec(1024, 1),), 1024, 1, heads=heads,
+                                            generator=torch.Generator().manual_seed(5)).to(dev).eval()
+        packed = fused_layer.pack_layer_weights(layer.transformer.attns[0], layer.transformer.ffs[0])
+        inner = layer.transformer.ffs[0].inner_dim
+        for b, pos, N in cases:
+            kv, kvs, row, add = int8_cache(b, N, heads)
+            x = torch.randn(b, 1024, generator=g).to(dev, torch.bfloat16)
+            st = torch.randn(b, 2, 2 * inner, generator=g).to(dev, torch.bfloat16)
+            ms = timer.both_ms(lambda: fused_layer.fused_layer_decode_step(x, packed, kv, kvs, st, pos, row, add,
+                                                                           heads=heads))
+            out[f"kernel 7 b{b} h{heads} N{N} pos {pos}"] = {"stream_ms": ms[0], "device_ms": ms[1]}
+        del layer, packed
+    wq, sc = quant.quantize_weight(torch.randn(1024, 1025, generator=g))
+    wq, sc = wq.to(dev), sc.to(dev)
+    for b in (8, 14, 16, 24, 32, 56, 64, 128, 256):
+        x = torch.randn(b, 1024, generator=g).to(dev, torch.bfloat16)
+        ms = timer.both_ms(lambda: quant.int8_matmul(x, wq, sc))
+        out[f"kernel 4 head b{b}"] = {"stream_ms": ms[0], "device_ms": ms[1]}
+    timer.release()
+    mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
+    decoder = MusicLM.__new__(MusicLM)  # only its Encodec decode
+    decoder.codec = omt_config.build_encodec(mc, generator=torch.Generator().manual_seed(4), device=dev)
+    codes = torch.randint(0, 1024, (8, 300, 8), generator=g).to(dev)
+    walls = []
+    with torch.no_grad():
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decoder._decode_rows(codes)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    out["encodec _decode_rows b8 x 300 frames f32 ms"] = statistics.median(walls[2:]) * 1e3
+    del decoder
+    sem = omt_config.init_stage(mc, "semantic", 1, device=dev, dtype=torch.bfloat16).model
+    coarse = omt_config.init_stage(mc, "coarse", 2, device=dev, dtype=torch.bfloat16).model
+    clap = torch.randint(0, 1024, (8, 12), generator=g).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for mode in (dict(quantized=True, flash_kv="int8"), dict(quantized=True, flash_kv="fused"),
+                 dict(quantized=True, flash_kv=None), dict(quantized=False)):
+        st = Stage(sem, name="semantic", **mode)
+        st.generate([clap], gen, max_time_steps=4)  # warm-up, qparams
+        walls = []
+        for T in (16, 48):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.generate([clap], gen, max_time_steps=T)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[f"semantic decode step b8 {mode.get('flash_kv') if mode['quantized'] else 'fp'}"] = \
+            (walls[1] - walls[0]) / 32 * 1e3
+    semantic = torch.randint(0, 1024, (8, 199), generator=g).to(dev)
+    for name, model, ids in (("semantic", sem, [clap]), ("coarse", coarse, [clap, semantic])):
+        stream = model.assemble_stream(ids + [torch.zeros((8, 0), dtype=torch.long, device=dev)])
+        walls = []
+        with torch.no_grad():
+            for _ in range(12):
+                cache = model.transformer.init_cache(8, stream.shape[1])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.transformer.prefill(stream, cache)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        out[f"{name} prefill b8 n{stream.shape[1]} ms"] = statistics.median(walls[2:]) * 1e3
+    print(json.dumps({"cost": out, "root": str(root), "card": card}), flush=True)
+    return 0
+
+
 def phase9_only() -> int:
     """Phase 1 (the build) and phase 9 alone, with the training kernels'
     counts (kernels 1, 5 and 6)."""
@@ -3611,6 +4238,10 @@ def phase9_only() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--kernel4":
         sys.exit(kernel4_times(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cost":
+        sys.exit(cost_times(Path(sys.argv[2])))
+    if len(sys.argv) == 2 and sys.argv[1] == "--probe":
+        sys.exit(probe_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--phase9":
         sys.exit(phase9_only())
     if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10", "--phase11"):

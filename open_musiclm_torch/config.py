@@ -198,21 +198,21 @@ def load_model_config(path: str) -> MusicLMModelConfig:
 
 
 def _stage_kwargs(c: StageTransformerConfig) -> dict:
-    """The config fields the port's modules take. The conv FF, no absolute
-    position embeddings, the continuous rel-pos bias and no attention
-    dropout are the only ported variants."""
-    if not c.use_conv_ff or c.use_absolute_position_embeddings:
-        raise NotImplementedError("the port has the conv-FF stages without absolute positions")
-    if c.attn_dropout > 0:
-        raise NotImplementedError("attention dropout is not ported (attn_dropout must be 0)")
+    """The config fields the port's modules take (all but
+    ``use_memory_efficient_attention``, which the JAX package accepts and
+    ignores)."""
     return dict(
         dim=c.dim,
         depth=c.depth,
         heads=c.heads,
+        attn_dropout=c.attn_dropout,
+        ff_dropout=c.ff_dropout,
+        use_conv_ff=c.use_conv_ff,
         grad_shrink_alpha=c.grad_shrink_alpha,
         non_causal_prefix_size=c.non_causal_prefix_size,
         relative_position_bias_type=c.relative_position_bias_type,
-        ff_dropout=c.ff_dropout,
+        use_absolute_position_embeddings=c.use_absolute_position_embeddings,
+        max_absolute_position_embeddings=c.max_absolute_position_embeddings,
     )
 
 

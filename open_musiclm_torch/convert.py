@@ -62,14 +62,20 @@ def _unwrap(params) -> dict:
 
 
 def stage_state_dict(params, num_specs: int, depth: int) -> StateDict:
-    """A TokenConditionedTransformer's flax params -> the port's state_dict."""
+    """A TokenConditionedTransformer's flax params -> the port's state_dict:
+    the continuous or T5 rel-pos bias, the conv or plain feed-forward, and
+    the absolute position tables where the model has them."""
     p = _unwrap(params)
     t = p["transformer"]
     sd: StateDict = {"start_tokens": _t(p["start_tokens"])}
     for i in range(num_specs):
         sd[f"embeds.{i}.weight"] = _t(p[f"embed_{i}"]["embedding"])
         sd[f"logit_heads.{i}"] = _t(p[f"logits_{i}"])
-    if "rel_pos_bias" in t:
+        if f"abs_pos_embed_{i}" in p:
+            sd[f"pos_embeds.{i}.weight"] = _t(p[f"abs_pos_embed_{i}"]["embedding"])
+    if "rel_pos_bias" in t and "embedding" in t["rel_pos_bias"]:  # the T5 bucket table
+        sd["transformer.rel_pos_bias.embedding"] = _t(t["rel_pos_bias"]["embedding"])
+    elif "rel_pos_bias" in t:
         r = t["rel_pos_bias"]
         names = ["in_layer"] + [f"mid_layers.{j}" for j in range(len(r) - 2)] + ["out_layer"]
         flax = ["in_layer"] + [f"mid_layer_{j}" for j in range(len(r) - 2)] + ["out_layer"]
@@ -86,7 +92,8 @@ def stage_state_dict(params, num_specs: int, depth: int) -> StateDict:
         sd[pa + "k_scale"] = _t(a["k_scale"])
         sd[pf + "norm_in.gamma"] = _t(f["norm_in"]["gamma"])
         sd[pf + "proj_in.weight"] = _dense(f["proj_in"]["kernel"])
-        sd[pf + "conv_w"] = _t(f["conv_w"])
+        if "conv_w" in f:  # the conv feed-forward (the plain FeedForward has none)
+            sd[pf + "conv_w"] = _t(f["conv_w"])
         sd[pf + "norm_mid.gamma"] = _t(f["norm_mid"]["gamma"])
         sd[pf + "proj_out.weight"] = _dense(f["proj_out"]["kernel"])
     sd["transformer.final_norm.gamma"] = _t(t["final_norm"]["gamma"])

@@ -158,3 +158,17 @@ def mask_out_after_eos_id(
 def append_eos_id(ids: torch.Tensor, eos_id: int) -> torch.Tensor:
     eos = torch.full(ids.shape[:-1] + (1,), eos_id, dtype=ids.dtype, device=ids.device)
     return torch.cat([ids, eos], dim=-1)
+
+
+def unique_consecutive_mask(ids: torch.Tensor) -> torch.Tensor:
+    """[..., n] -> True at the first position of each run of equal ids
+    (position 0 always): the fixed-shape stand-in for the reference's
+    ``batch_unique_consecutive``, as the JAX package writes it."""
+    prev = torch.cat([torch.full_like(ids[..., :1], -(10 ** 9)), ids[..., :-1]], dim=-1)
+    return ids != prev
+
+
+def mask_unique_consecutive(ids: torch.Tensor, pad_id: int = -1) -> torch.Tensor:
+    """Consecutive duplicates replaced by ``pad_id``: positions stay, and
+    the key mask and the loss then skip the duplicates."""
+    return torch.where(unique_consecutive_mask(ids), ids, torch.full_like(ids, pad_id))

@@ -51,7 +51,8 @@
 // summed in slice order, so every call gives the same bits. Rows beyond RT
 // take further passes over the same resident share: no weight byte is read
 // twice from device memory. The attention cuts each batch row's live cache
-// into chunks sized (in Python) so that b x chunks fill the grid once.
+// into chunks sized (in Python) from pos alone, so that 8 rows' chunks fill
+// the grid once and a row's chunks fold in one order in any batch.
 // Intermediates (q, k|v, chunk partials, the attention output, x2, g) go to
 // a float32 scratch the wrapper keeps per stream. Float32 CUDA-core FMAs
 // throughout.

@@ -86,28 +86,30 @@ def _copy(out: TorchStateDict, sd: StateDict, src: str, dst: str, names=("weight
 
 
 def import_stage_transformer(sd: StateDict, num_specs: int, depth: int) -> TorchStateDict:
-    """A reference TokenConditionedTransformer state dict -> the port's.
-
-    Only what the port builds is mapped: the conv feed-forward, the
-    continuous relative position bias and no absolute positions; the other
-    variants raise ``NotImplementedError``."""
-    if "transformer.layers.0.2.2.ds_conv.weight" not in sd:
-        raise NotImplementedError("the port has the conv-FF stages only (no ds_conv weight in this file)")
-    if "transformer.rel_pos_bias.relative_attention_bias.weight" in sd:
-        raise NotImplementedError("the T5 relative position bias is not ported")
-    if any(k.startswith("absolute_position_embeddings.") for k in sd):
-        raise NotImplementedError("absolute position embeddings are not ported")
+    """A reference TokenConditionedTransformer state dict -> the port's, as
+    the JAX package's ``import_stage_transformer`` maps it: the continuous
+    rel-pos MLP (``rel_pos_bias.net.*``) or the T5 table
+    (``rel_pos_bias.relative_attention_bias.weight``), the conv
+    feed-forward (``ds_conv`` at ``.2.2``) or the plain one (its mid norm at
+    ``.3``, its out projection at ``.5``), and the absolute position tables
+    (``absolute_position_embeddings.{i}``) where the file has them."""
     out: TorchStateDict = {"start_tokens": _t(np.stack([sd[f"start_tokens.{i}"] for i in range(num_specs)]))}
     for i in range(num_specs):
         out[f"embeds.{i}.weight"] = _t(sd[f"embeddings.{i}.weight"])
         out[f"logit_heads.{i}"] = _t(sd[f"logit_weights.{i}"])
-    # net.0 = Seq(Linear(1, d), SiLU), net.1..L-1 = Seq(Linear(d, d), SiLU), net.L = Linear(d, heads)
+        if f"absolute_position_embeddings.{i}.weight" in sd:
+            out[f"pos_embeds.{i}.weight"] = _t(sd[f"absolute_position_embeddings.{i}.weight"])
     rp = "transformer.rel_pos_bias."
-    last = max(int(k.split(".")[3]) for k in sd if k.startswith(rp + "net."))
-    _copy(out, sd, rp + "net.0.0", rp + "in_layer")
-    for j in range(1, last):
-        _copy(out, sd, f"{rp}net.{j}.0", f"{rp}mid_layers.{j - 1}")
-    _copy(out, sd, f"{rp}net.{last}", rp + "out_layer")
+    if rp + "relative_attention_bias.weight" in sd:
+        out[rp + "embedding"] = _t(sd[rp + "relative_attention_bias.weight"])
+    elif any(k.startswith(rp + "net.") for k in sd):
+        # net.0 = Seq(Linear(1, d), SiLU), net.1..L-1 = Seq(Linear(d, d), SiLU), net.L = Linear(d, heads)
+        last = max(int(k.split(".")[3]) for k in sd if k.startswith(rp + "net."))
+        _copy(out, sd, rp + "net.0.0", rp + "in_layer")
+        for j in range(1, last):
+            _copy(out, sd, f"{rp}net.{j}.0", f"{rp}mid_layers.{j - 1}")
+        _copy(out, sd, f"{rp}net.{last}", rp + "out_layer")
+    conv_ff = "transformer.layers.0.2.2.ds_conv.weight" in sd
     for l in range(depth):
         ap, pa = f"transformer.layers.{l}.0.", f"transformer.attns.{l}."
         for name in ("norm.gamma", "to_q.weight", "to_kv.weight", "q_scale", "k_scale"):
@@ -116,9 +118,13 @@ def import_stage_transformer(sd: StateDict, num_specs: int, depth: int) -> Torch
         fp, pf = f"transformer.layers.{l}.2.", f"transformer.ffs.{l}."
         out[pf + "norm_in.gamma"] = _t(sd[fp + "0.gamma"])
         out[pf + "proj_in.weight"] = _t(sd[fp + "1.weight"])
-        out[pf + "conv_w"] = _t(sd[fp + "2.ds_conv.weight"][:, 0, :].T)  # [C, 1, 3] -> [3, C]
-        out[pf + "norm_mid.gamma"] = _t(sd[fp + "4.gamma"])
-        out[pf + "proj_out.weight"] = _t(sd[fp + "6.weight"])
+        if conv_ff:
+            out[pf + "conv_w"] = _t(sd[fp + "2.ds_conv.weight"][:, 0, :].T)  # [C, 1, 3] -> [3, C]
+            out[pf + "norm_mid.gamma"] = _t(sd[fp + "4.gamma"])
+            out[pf + "proj_out.weight"] = _t(sd[fp + "6.weight"])
+        else:  # Seq(LayerNorm, Linear, GEGLU, LayerNorm, Dropout, Linear)
+            out[pf + "norm_mid.gamma"] = _t(sd[fp + "3.gamma"])
+            out[pf + "proj_out.weight"] = _t(sd[fp + "5.weight"])
     out["transformer.final_norm.gamma"] = _t(sd["transformer.norm.gamma"])
     return out
 

@@ -160,9 +160,15 @@ class ClapQuantized:
     @torch.no_grad()
     def text_embedding(self, input_ids, attention_mask) -> torch.Tensor:
         """[B, T] ids and mask (numpy or tensors) -> [B, joint] float32 on
-        the model's device."""
+        the model's device; on the card a row at a time, so that a prompt's
+        embedding (and its tokens) does not depend on the batch it comes in
+        (cuBLAS picks its products' algorithms by their row count)."""
         device = self.model.logit_scale_t.device
-        return self.model.get_text_embedding(_on(input_ids, device), _on(attention_mask, device))
+        ids, mask = _on(input_ids, device), _on(attention_mask, device)
+        if device.type == "cuda":
+            return torch.cat([self.model.get_text_embedding(ids[i:i + 1], mask[i:i + 1])
+                              for i in range(ids.shape[0])])
+        return self.model.get_text_embedding(ids, mask)
 
     @torch.no_grad()
     def audio_embedding(self, wav: torch.Tensor) -> torch.Tensor:
@@ -177,9 +183,13 @@ class ClapQuantized:
 
     @torch.no_grad()
     def quantize(self, embedding: torch.Tensor) -> torch.Tensor:
-        """[B, joint] -> [B, Q, 1] int64 token ids."""
+        """[B, joint] -> [B, Q, 1] int64 token ids (on the card a row at a
+        time, as ``text_embedding``)."""
         cbs = self.rvq.codebooks
-        return rvq_encode(self.rvq, embedding.to(cbs.device, cbs.dtype))[..., None]
+        x = embedding.to(cbs.device, cbs.dtype)
+        if x.is_cuda:
+            return torch.cat([rvq_encode(self.rvq, x[i:i + 1]) for i in range(x.shape[0])])[..., None]
+        return rvq_encode(self.rvq, x)[..., None]
 
     def tokenize_text(self, input_ids, attention_mask) -> torch.Tensor:
         return self.quantize(self.text_embedding(input_ids, attention_mask))

@@ -130,8 +130,13 @@ class MusicLM:
         return mesh.all_gather_rows(self._decode_rows(shard_batch(mesh, codes)))
 
     def _decode_rows(self, codes: torch.Tensor) -> torch.Tensor:
-        """Encodec decode with the batch chunked under MAX_DECODE_FRAMES."""
+        """Encodec decode with the batch chunked under MAX_DECODE_FRAMES; on
+        the card a row at a time: cuDNN picks its convolution and LSTM
+        algorithms by the batch's size, and a row's wave would move by ~1e-6
+        with its companions (``chip_smoke.py --probe``)."""
         b, T = codes.shape[0], codes.shape[1]
+        if codes.is_cuda and b > 1:
+            return torch.cat([self._decode_rows(codes[i:i + 1]) for i in range(b)])
         rows = max(1, MAX_DECODE_FRAMES // max(T, 1))
         if b <= rows:
             return self.codec.decode(codes)

@@ -13,9 +13,13 @@ selects the step:
   * ``"fused"``: ``fused_layer_step``, one launch of kernel 7 per layer
     (attention and conv-FF, all weights int8, int8 cache rows).
 
-The logit head is kernel 4 in every mode. The decode loop is a Python loop
-with ``pos`` a host integer; caches are updated in place. Not ported yet:
-per-row sampling keys and the mesh-sharded decode.
+The logit head is kernel 4 in every mode, on its weight stream at any row
+count. The plain products (the prefill's, and the attention projections of
+the modes that keep them in the activations' dtype) run in fixed row tiles
+(``ops/rows.py``), so a row's tokens do not depend on its batch's size. The
+decode loop is a Python loop with ``pos`` a host integer; caches are
+updated in place. The int8 modes need the conv feed-forward (the plain
+``FeedForward`` runs the fp decode), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,15 +27,15 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from ..ops.attention import l2norm, shared_kv_decode_step
 from ..ops.decode_attention import flash_decode_step, quantize_kv_row, round_up_chunk
 from ..ops.fused_ff import fused_ff_apply, pack_ff_weights
 from ..ops.fused_layer import fused_layer_decode_step, pack_layer_weights
 from ..ops.quant import int8_matmul, quantize_weight
+from ..ops.rows import row_linear
 from .token_cond import TokenConditionedTransformer, decode_loop, make_prompt
-from .transformer import layer_norm
+from .transformer import FeedForward, layer_norm
 
 FLASH_KV_MODES = (None, "bf16", "f32", "int8", "fused")
 
@@ -49,6 +53,11 @@ def quantize_stage_params(model: TokenConditionedTransformer, fused: bool = Fals
     if model.tp_mesh is not None:
         raise ValueError("the int8 decodes take the whole model, not a tensor-parallel shard: "
                          "quantize the unsharded model (it runs replicated over tp)")
+    if isinstance(model.transformer.ffs[0], FeedForward):
+        # the JAX package's quantize_stage_params packs every layer's conv_w
+        # too, and fails on the plain FeedForward (a KeyError)
+        raise ValueError("the int8 decodes pack the conv feed-forward's weights: a stage with the "
+                         "plain FeedForward (use_conv_ff=False) runs the fp decode (quantized=False)")
     q: Dict[str, Any] = {}
     for l, (attn, ff) in enumerate(zip(model.transformer.attns, model.transformer.ffs)):
         q[f"attn_{l}"] = {
@@ -92,7 +101,7 @@ def quant_decode_step(
         h = layer_norm(x, attn.norm.gamma)
         # K/V project from the UN-normed residual stream, Q from the normed one
         if fused_ff:
-            qv, kv = F.linear(h, attn.to_q.weight), F.linear(x, attn.to_kv.weight)
+            qv, kv = row_linear(h, attn.to_q.weight), row_linear(x, attn.to_kv.weight)
         else:
             qv, kv = int8_matmul(h, *qa["to_q"]), int8_matmul(x, *qa["to_kv"])
         k_t, v_t = kv.chunk(2, dim=-1)
@@ -101,7 +110,7 @@ def quant_decode_step(
         v_all[l, :, pos] = v_t
         out = shared_kv_decode_step(qh, k_all[l], v_all[l], pos, scale=attn.scale, bias_table=bias_table)
         if fused_ff:
-            x = x + F.linear(out, attn.to_out.weight)
+            x = x + row_linear(out, attn.to_out.weight)
             x, ff_all[l] = fused_ff_apply(x, qf["packed"], ff_all[l])
             continue
         x = x + int8_matmul(out, *qa["to_out"])
@@ -153,8 +162,8 @@ def flash_quant_decode_step(
     for l, attn in enumerate(tfm.attns):
         h = layer_norm(x, attn.norm.gamma)
         # K/V project from the UN-normed residual stream, Q from the normed one
-        qh = F.linear(h, attn.to_q.weight).reshape(b, heads, d)
-        k_t, v_t = F.linear(x, attn.to_kv.weight).chunk(2, dim=-1)
+        qh = row_linear(h, attn.to_q.weight).reshape(b, heads, d)
+        k_t, v_t = row_linear(x, attn.to_kv.weight).chunk(2, dim=-1)
         qh = (l2norm(qh) * attn.q_scale.to(qh.dtype)).contiguous()
         k_t = l2norm(k_t) * attn.k_scale.to(k_t.dtype)
         if int8_kv:
@@ -169,7 +178,7 @@ def flash_quant_decode_step(
             qh, kv_all[l], pos, bias_row, add_mask,
             kvs_all[l] if int8_kv else None, scale=attn.scale,
         )
-        x = x + F.linear(out, attn.to_out.weight)
+        x = x + row_linear(out, attn.to_out.weight)
         x, ff_all[l] = fused_ff_apply(x, qparams[f"ff_{l}"]["packed"], ff_all[l])
     return layer_norm(x, tfm.final_norm.gamma)
 

@@ -39,12 +39,14 @@ from ..core.sampling import (
     NEG_INF,
     append_eos_id,
     mask_out_after_eos_id,
+    mask_unique_consecutive,
     sample_top_k_gumbel,
     sample_top_k_gumbel_per_row,
     split_row_keys,
 )
 from ..core.sequence import SequenceLayout, TokenSequenceSpec, quantizer_offsets
 from ..parallel.sharding import copy_to_tp, gather_from_tp, reduce_from_tp
+from ..ops.rows import DECODE_TILE, row_linear
 from .transformer import Transformer
 
 PAD_ID = -1
@@ -56,7 +58,10 @@ class TokenConditionedTransformer(nn.Module):
                  non_causal_prefix_size: int = 0,
                  relative_position_bias_type: str = "continuous", ff_dropout: float = 0.0,
                  compute_dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None, remat: bool = False):
+                 generator: Optional[torch.Generator] = None, remat: bool = False,
+                 attn_dropout: float = 0.0, use_conv_ff: bool = True,
+                 use_absolute_position_embeddings: bool = False,
+                 max_absolute_position_embeddings: int = 262):
         super().__init__()
         self.specs = tuple(specs)
         self.compute_dtype = compute_dtype
@@ -64,18 +69,26 @@ class TokenConditionedTransformer(nn.Module):
         with torch.no_grad():
             self.embeds = nn.ModuleList()
             self.logit_heads = nn.ParameterList()
+            # absolute positions (no shipped config sets them): a table a
+            # sequence, added to its embeddings at their positions
+            self.pos_embeds = nn.ModuleList() if use_absolute_position_embeddings else None
             for spec in self.specs:
                 emb = nn.Embedding(spec.embed_vocab, dim)
                 nn.init.normal_(emb.weight, std=1.0, generator=generator)
                 self.embeds.append(emb)
                 w = torch.empty(spec.num_quantizers, spec.vocab_with_eos, dim)
                 self.logit_heads.append(nn.Parameter(nn.init.normal_(w, generator=generator)))
+                if self.pos_embeds is not None:
+                    pos = nn.Embedding(max_absolute_position_embeddings, dim)
+                    nn.init.normal_(pos.weight, std=1.0, generator=generator)
+                    self.pos_embeds.append(pos)
             self.start_tokens = nn.Parameter(
                 nn.init.normal_(torch.empty(len(self.specs), dim), generator=generator)
             )
         self.transformer = Transformer(
             dim, depth, heads, dim_head, grad_shrink_alpha, non_causal_prefix_size,
             relative_position_bias_type, ff_dropout=ff_dropout, generator=generator, remat=remat,
+            attn_dropout=attn_dropout, use_conv_ff=use_conv_ff,
         )
         # set by shard_module: the mesh, which tables split by rows (codes),
         # the split parameters and the replicated ones with partial gradients
@@ -95,11 +108,14 @@ class TokenConditionedTransformer(nn.Module):
         rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)), w)
         return reduce_from_tp(rows.masked_fill(~inside[..., None], 0.0), self.tp_mesh)
 
-    def head_logits(self, i: int, h: torch.Tensor, q: int) -> torch.Tensor:
-        """``h @ head_q^T`` of sequence i's logit head q; a split head's
-        codes are gathered along C (h's gradient, a share a rank, is summed
-        over ``tp``)."""
+    def head_logits(self, i: int, h: torch.Tensor, q: int, tile: Optional[int] = None) -> torch.Tensor:
+        """``h @ head_q^T`` of sequence i's logit head q, in ``tile``-row calls
+        on the card where given (``rows.row_linear``); a split head's codes
+        are gathered along C (h's gradient, a share a rank, is summed over
+        ``tp``)."""
         if not self.logit_split[i]:
+            if tile is not None:
+                return row_linear(h, self.logit_heads[i][q].to(h.dtype), tile=tile)
             return h @ self.logit_heads[i][q].to(h.dtype).t()
         h = copy_to_tp(h, self.tp_mesh)
         return gather_from_tp(h @ self.logit_heads[i][q].to(h.dtype).t(), self.tp_mesh)
@@ -114,7 +130,10 @@ class TokenConditionedTransformer(nn.Module):
         if spec.num_quantizers > 1:
             ids = ids + torch.as_tensor(quantizer_offsets(spec, n), device=ids.device)[None, :]
         emb = self.embed_rows(i, ids).to(self.compute_dtype or self.embeds[i].weight.dtype)
-        return emb.masked_fill(pad[..., None], 0.0)
+        emb = emb.masked_fill(pad[..., None], 0.0)
+        if self.pos_embeds is not None:
+            emb = emb + self.pos_embeds[i].weight[:n].to(emb.dtype)
+        return emb
 
     def assemble_stream(self, all_token_ids: Sequence[torch.Tensor]) -> torch.Tensor:
         """Interleave [start_i, embed(tokens_i)] into one [b, total, dim]."""
@@ -138,7 +157,18 @@ class TokenConditionedTransformer(nn.Module):
 
     def step_logits(self, h_t: torch.Tensor, q_idx: int) -> torch.Tensor:
         """Decode-step logits [b, C] of the final sequence's head ``q_idx``."""
-        return self.head_logits(len(self.specs) - 1, h_t, q_idx)
+        return self.head_logits(len(self.specs) - 1, h_t, q_idx, DECODE_TILE)
+
+    def embed_pred_token(self, ids: torch.Tensor, flat_idx: int) -> torch.Tensor:
+        """[b] ids of the final sequence's token at ``flat_idx`` (quantizer
+        offset added) -> its embedding [b, dim] in the compute dtype, plus
+        the position's absolute embedding where the model has them."""
+        last = len(self.specs) - 1
+        dtype = self.compute_dtype or self.embeds[last].weight.dtype
+        emb = self.embed_rows(last, ids).to(dtype)
+        if self.pos_embeds is not None:
+            emb = emb + self.pos_embeds[last].weight[flat_idx].to(dtype)
+        return emb
 
     def forward(self, all_token_ids: Sequence[torch.Tensor], *,
                 self_attn_mask: Optional[torch.Tensor] = None,
@@ -236,8 +266,6 @@ def decode_loop(
     batch, n_init = h_last.shape[0], prompt.n_init
     sampled = torch.full((batch, prompt.total_steps), eos_id, dtype=torch.long, device=h_last.device)
     sampled[:, :n_init] = prompt.init_flat
-    last = len(model.specs) - 1
-    emb_dtype = model.compute_dtype or model.embeds[-1].weight.dtype
     teacher_flat = teacher_ids.reshape(batch, -1).to(h_last.device, torch.long) if teacher_ids is not None else None
     if per_row_keys is not None:
         if per_row_keys.shape != (batch,):
@@ -258,7 +286,7 @@ def decode_loop(
         sampled[:, flat_idx] = tok
         fed = teacher_flat[:, flat_idx] if teacher_flat is not None else tok
         offset = q_idx * spec.codebook_size if q_num > 1 else 0
-        h_last = step_fn(model.embed_rows(last, fed + offset).to(emb_dtype), prompt.prefill_len + s)
+        h_last = step_fn(model.embed_pred_token(fed + offset, flat_idx), prompt.prefill_len + s)
         if return_logits:
             step_logits.append(logits.float())
     sampled = mask_out_after_eos_id(sampled, eos_id, mask_value=PAD_ID, keep_eos=include_eos_in_output)
@@ -319,8 +347,10 @@ class StageLossConfig:
     cross_entropy_loss_weights: Tuple[float, ...]
     mask_prob: float = 0.15
     pad_id: int = PAD_ID
-    # the JAX package's fixed-shape stand-in for batch_unique_consecutive;
-    # off in every shipped config and not ported
+    # the JAX package's fixed-shape stand-in for batch_unique_consecutive
+    # (off in every shipped config): in the sequences whose spec sets
+    # unique_consecutive, a repeat of the previous id becomes pad, hidden
+    # from attention (conditioning) and left out of the cross-entropy
     unique_consecutive: bool = False
 
 
@@ -341,13 +371,13 @@ def stage_training_loss(
     ``generator``, which also draws the FF dropout when the model is in
     train() mode). Returns (loss, {"logits": [...], "labels": [...]}).
     """
-    if cfg.unique_consecutive:
-        raise NotImplementedError("unique_consecutive is not ported (no shipped config uses it)")
     specs = model.specs
     eos_ids = [s.eos_id for s in specs]
     ids = [t.reshape(t.shape[0], -1) for t in all_token_ids]
     if not input_has_eos:
         ids = [append_eos_id(t, e) for t, e in zip(ids, eos_ids)]
+    unique = [cfg.unique_consecutive and s.unique_consecutive for s in specs]
+    ids = [mask_unique_consecutive(t, cfg.pad_id) if u else t for t, u in zip(ids, unique)]
     labels = list(ids)
     ids[-1] = ids[-1][:, :-1]  # the final token (EOS) is label only
 
@@ -363,15 +393,22 @@ def stage_training_loss(
     logits = model(ids, self_attn_mask=attn_mask, generator=generator)
 
     running_loss, total = 0.0, 0
-    for lg, lb, w in zip(logits, labels, cfg.cross_entropy_loss_weights):
+    for lg, lb, w, u in zip(logits, labels, cfg.cross_entropy_loss_weights, unique):
         if w <= 0 or lg is None:
             continue
         logp = F.log_softmax(lg.float(), dim=-1)
         safe = torch.where(lb == cfg.pad_id, torch.zeros_like(lb), lb)
         nll = -logp.gather(-1, safe[..., None])[..., 0]
-        running_loss = running_loss + nll.mean() * lb.numel() * w
-        total += lb.numel()
-    loss = running_loss / max(total, 1)
+        if u:  # the mean over the labels that are not pad (the reference's ignore_index)
+            valid = lb != cfg.pad_id
+            num = valid.sum()
+            mean_nll = torch.where(valid, nll, torch.zeros_like(nll)).sum() / num.clamp(min=1)
+        else:
+            num = lb.numel()
+            mean_nll = nll.mean()
+        running_loss = running_loss + mean_nll * num * w
+        total = total + num
+    loss = running_loss / (total.clamp(min=1) if torch.is_tensor(total) else max(total, 1))
     return loss, {"logits": logits, "labels": labels}
 
 

@@ -16,7 +16,11 @@ Parameters may be float32 master weights while the pass runs in bfloat16
 (the JAX package's ``dtype=bfloat16`` with float32 params): every weight is
 cast to the activations' dtype at its use, and LayerNorm returns the
 activations' dtype. With weights already in the activations' dtype (the
-serving path) the casts are no-ops. Attention dropout is not ported.
+serving path) the casts are no-ops.
+
+Options no shipped config sets, as the JAX package has them: the plain
+``FeedForward`` (``use_conv_ff=False``), the T5 bucketed rel-pos bias
+(``ops/relpos.py``) and attention dropout (``Attention``).
 
 ``remat`` trades FLOPs for memory, as the JAX package's ``nn.remat`` per
 block: ``forward`` runs each attention block and each conv-FF block under
@@ -48,8 +52,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import l2norm, shared_kv_attention_train, shared_kv_decode_step
+from ..ops.attention import l2norm, shared_kv_attention, shared_kv_attention_train, shared_kv_decode_step
 from ..ops.relpos import init_linear_, lecun_normal_, linear, make_bias
+from ..ops.rows import DECODE_TILE, PREFILL_TILE
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import copy_to_tp, reduce_from_tp, sum_over_tp
 
@@ -70,7 +75,15 @@ def _aligned_float(x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Bias-free LayerNorm in float32 on aligned rows, returned in x's dtype."""
+    """Bias-free LayerNorm in float32, returned in x's dtype: the JAX
+    package's formula on aligned rows. Inference on the card (no autograd)
+    takes ``F.layer_norm``, a row a block, whose bits do not depend on how
+    many rows there are: the formula's mean and variance of a float32
+    tensor's rows, as reductions, take another order at other row counts
+    there (``chip_smoke.py --probe``). Training keeps the formula, which
+    ``dist_layer_norm`` computes over split channels too."""
+    if x.is_cuda and not torch.is_grad_enabled():
+        return F.layer_norm(x.float(), x.shape[-1:], gamma.float(), None, eps).to(x.dtype)
     xf = _aligned_float(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
@@ -106,16 +119,19 @@ def grad_shrink(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
 
 
 def dropout(u: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            channels: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
+            channels: Optional[Tuple[int, slice]] = None, axis: int = -1) -> torch.Tensor:
     """Inverted dropout as the JAX package writes it, ``where(keep, u / keep_prob, 0)``,
     with the keep mask drawn from ``generator`` (None: the default generator
     of u's device). ``channels`` (width, slice): u holds that slice of
-    rows ``width`` wide; the whole rows' mask is drawn and the slice kept."""
+    ``axis``, which is ``width`` long in the whole tensor; the whole mask is
+    drawn and the slice kept."""
     keep_prob = 1.0 - rate
-    shape = u.shape if channels is None else u.shape[:-1] + (channels[0],)
+    shape = list(u.shape)
+    if channels is not None:
+        shape[axis] = channels[0]
     keep = torch.rand(shape, generator=generator, device=u.device) < keep_prob
     if channels is not None:
-        keep = keep[..., channels[1]]
+        keep = keep.narrow(axis, channels[1].start, channels[1].stop - channels[1].start)
     return torch.where(keep, u / keep_prob, torch.zeros((), dtype=u.dtype, device=u.device))
 
 
@@ -127,10 +143,12 @@ def _linear(d_in: int, d_out: int, generator: Optional[torch.Generator]) -> nn.L
 
 class Attention(nn.Module):
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, scale: float = 8.0,
-                 non_causal_prefix: int = 0, generator: Optional[torch.Generator] = None):
+                 non_causal_prefix: int = 0, generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads, self.dim_head, self.scale = heads, dim_head, scale
         self.non_causal_prefix = non_causal_prefix
+        self.dropout = dropout
         self.norm = LayerNorm(dim)
         self.to_q = _linear(dim, heads * dim_head, generator)
         self.to_kv = _linear(dim, 2 * dim_head, generator)
@@ -139,38 +157,57 @@ class Attention(nn.Module):
         self.to_out = _linear(heads * dim_head, dim, generator)
         self.tp: Optional[Mesh] = None  # set with heads / tp heads by shard_module
 
-    def qkv(self, h: torch.Tensor, x_raw: torch.Tensor):
+    def qkv(self, h: torch.Tensor, x_raw: torch.Tensor, tile: Optional[int] = None):
         """h: normed [b, n, dim]; x_raw: the UN-normed input (K/V project from
-        it, a reference quirk kept for checkpoint parity)."""
+        it, a reference quirk kept for checkpoint parity). ``tile``: the
+        products' rows in calls of that many rows on the card (inference)."""
         b, n, _ = h.shape
-        q = linear(h, self.to_q).reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
-        k, v = linear(x_raw, self.to_kv).chunk(2, dim=-1)
+        q = linear(h, self.to_q, tile).reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+        k, v = linear(x_raw, self.to_kv, tile).chunk(2, dim=-1)
         q = l2norm(q) * self.q_scale.to(q.dtype)
         k = l2norm(k) * self.k_scale.to(k.dtype)
         return q.contiguous(), k.contiguous(), v.contiguous()
 
     def forward(self, x: torch.Tensor, *, attn_bias: Optional[torch.Tensor] = None,
-                key_mask: Optional[torch.Tensor] = None):
+                key_mask: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+                tile: Optional[int] = None):
         """key_mask: [b, n] bool, True = attend; attn_bias: this block's
-        heads' [h, n, n]. Returns (output [b, n, dim], (k, v))."""
+        heads' [h, n, n]. Returns (output [b, n, dim], (k, v)).
+
+        Attention dropout (train() mode, ``dropout`` > 0) leaves kernel 1 for
+        the plain attention, as the JAX package leaves its Pallas kernel: the
+        probabilities, then the output, each through a keep mask drawn from
+        ``generator``; a split block draws every head's mask and keeps its
+        own heads'."""
         if self.tp is not None:
             x = copy_to_tp(x, self.tp)
-        q, k, v = self.qkv(self.norm(x), x)
-        out = shared_kv_attention_train(
-            q, k, v, attn_bias, key_mask, scale=self.scale, causal=True,
+        q, k, v = self.qkv(self.norm(x), x, tile)
+        if not (self.training and self.dropout > 0.0):
+            out = shared_kv_attention_train(
+                q, k, v, attn_bias, key_mask, scale=self.scale, causal=True,
+                non_causal_prefix=self.non_causal_prefix,
+            )
+            return self.project_out(out, tile), (k, v)
+        heads = None
+        if self.tp is not None:
+            t = self.tp.tp_rank
+            heads = (self.heads * self.tp.tp, slice(t * self.heads, (t + 1) * self.heads))
+        out = shared_kv_attention(
+            q, k, v, scale=self.scale, attn_bias=attn_bias, key_mask=key_mask, causal=True,
             non_causal_prefix=self.non_causal_prefix,
+            dropout=lambda p: dropout(p, self.dropout, generator, heads, axis=1),
         )
-        return self.project_out(out), (k, v)
+        return dropout(self.project_out(out), self.dropout, generator), (k, v)
 
-    def project_out(self, out: torch.Tensor) -> torch.Tensor:
+    def project_out(self, out: torch.Tensor, tile: Optional[int] = None) -> torch.Tensor:
         """``to_out`` of the heads' outputs, summed over ``tp`` when split."""
-        y = linear(out, self.to_out)
+        y = linear(out, self.to_out, tile)
         return y if self.tp is None else reduce_from_tp(y, self.tp)
 
-    def decode_qkv(self, x_t: torch.Tensor):
+    def decode_qkv(self, x_t: torch.Tensor, tile: Optional[int] = None):
         """One-token projections of x_t [b, dim]: (q [b, heads, d], k_t [b, d],
         v_t [b, d]); K/V from the un-normed input, as in ``qkv``."""
-        q, k, v = self.qkv(self.norm(x_t[:, None]), x_t[:, None])
+        q, k, v = self.qkv(self.norm(x_t[:, None]), x_t[:, None], tile)
         return q[:, :, 0], k[:, 0], v[:, 0]
 
 
@@ -195,6 +232,11 @@ class ConvFeedForward(nn.Module):
         self.tp: Optional[Mesh] = None
         self.inner_full = inner
 
+    @property
+    def state_dim(self) -> int:
+        """The width of a decode state row: the two pre-conv rows."""
+        return 2 * self.inner_dim
+
     def mid(self, u: torch.Tensor) -> torch.Tensor:
         """GEGLU then ``norm_mid`` of the conv's output (statistics summed
         over ``tp`` when split)."""
@@ -203,9 +245,18 @@ class ConvFeedForward(nn.Module):
             return self.norm_mid(h)
         return dist_layer_norm(h, self.norm_mid.gamma, self.tp, self.inner_full, self.norm_mid.eps)
 
-    def project_out(self, h: torch.Tensor) -> torch.Tensor:
-        y = linear(h, self.proj_out)
+    def project_out(self, h: torch.Tensor, tile: Optional[int] = None) -> torch.Tensor:
+        y = linear(h, self.proj_out, tile)
         return y if self.tp is None else reduce_from_tp(y, self.tp)
+
+    def drop(self, h: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """FF dropout of the mid activations in train() mode; a split block
+        draws the whole rows' mask and keeps its channels."""
+        if not (self.training and self.dropout > 0.0):
+            return h
+        t = None if self.tp is None else self.tp.tp_rank
+        mine = None if t is None else (self.inner_full, slice(t * self.inner_dim, (t + 1) * self.inner_dim))
+        return dropout(h, self.dropout, generator, mine)
 
     def dsconv_full(self, u: torch.Tensor) -> torch.Tensor:
         """Causal depthwise conv over [b, n, c] with left pad 2."""
@@ -219,34 +270,64 @@ class ConvFeedForward(nn.Module):
         return F.gelu(gate, approximate="none") * val
 
     def forward_with_state(
-        self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None, tile: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence FF plus the last two pre-conv rows [b, 2, 2*inner]
         that seed the decode conv state (zero-padded for n < 2). In train()
         mode the mid activations get dropout drawn from ``generator``."""
         if self.tp is not None:
             x = copy_to_tp(x, self.tp)
-        u = linear(self.norm_in(x), self.proj_in)
+        u = linear(self.norm_in(x), self.proj_in, tile)
         n = u.shape[1]
         tail = u[:, -2:] if n >= 2 else F.pad(u, (0, 0, 2 - n, 0))
-        h = self.mid(self.dsconv_full(u))
-        if self.training and self.dropout > 0.0:
-            t = None if self.tp is None else self.tp.tp_rank
-            mine = None if t is None else (self.inner_full, slice(t * self.inner_dim, (t + 1) * self.inner_dim))
-            h = dropout(h, self.dropout, generator, mine)
-        return self.project_out(h), tail
+        h = self.drop(self.mid(self.dsconv_full(u)), generator)
+        return self.project_out(h, tile), tail
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.forward_with_state(x, generator)[0]
 
-    def decode(self, x_t: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def decode(self, x_t: torch.Tensor, state: torch.Tensor,
+               tile: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """One token: x_t [b, dim], conv state [b, 2, 2*inner] = (u_{t-2},
         u_{t-1}). Returns (out [b, dim], new state)."""
-        u_t = linear(self.norm_in(x_t), self.proj_in)
+        u_t = linear(self.norm_in(x_t), self.proj_in, tile)
         w = self.conv_w.to(u_t.dtype)
         conv = state[:, 0] * w[0] + state[:, 1] * w[1] + u_t * w[2]
-        out = self.project_out(self.mid(conv))
+        out = self.project_out(self.mid(conv), tile)
         return out, torch.stack([state[:, 1], u_t], dim=1)
+
+
+class FeedForward(ConvFeedForward):
+    """The plain (non-conv) variant: LN -> Linear(2*inner) -> GEGLU -> LN ->
+    Linear(dim), inner = dim * mult, with no decode state: its cache entry
+    is [b, 2, 1] zeros that the decode leaves as they are, as in the JAX
+    package."""
+
+    def __init__(self, dim: int, mult: int = 4, generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
+        nn.Module.__init__(self)
+        inner = dim * mult
+        self.inner_dim = self.inner_full = inner
+        self.dropout = dropout
+        self.norm_in = LayerNorm(dim)
+        self.proj_in = _linear(dim, 2 * inner, generator)
+        self.norm_mid = LayerNorm(inner)
+        self.proj_out = _linear(inner, dim, generator)
+        self.tp: Optional[Mesh] = None
+
+    state_dim = 1
+
+    def forward_with_state(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None, tile: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
+        h = self.drop(self.mid(linear(self.norm_in(x), self.proj_in, tile)), generator)
+        return self.project_out(h, tile), x.new_zeros(x.shape[0], 2, 1)
+
+    def decode(self, x_t: torch.Tensor, state: torch.Tensor,
+               tile: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.forward_with_state(x_t, tile=tile)[0], state
 
 
 def remat_block(fn: Callable[..., torch.Tensor], *args,
@@ -278,19 +359,19 @@ class Transformer(nn.Module):
                  grad_shrink_alpha: float = 0.1, non_causal_prefix_size: int = 0,
                  relative_position_bias_type: str = "continuous", attn_scale: float = 8.0,
                  ff_mult: int = 4, ff_dropout: float = 0.0,
-                 generator: Optional[torch.Generator] = None, remat: bool = False):
+                 generator: Optional[torch.Generator] = None, remat: bool = False,
+                 attn_dropout: float = 0.0, use_conv_ff: bool = True):
         super().__init__()
         self.dim, self.depth, self.heads, self.dim_head = dim, depth, heads, dim_head
         self.grad_shrink_alpha = grad_shrink_alpha
         self.remat = remat
         self.rel_pos_bias = make_bias(relative_position_bias_type, dim, heads, generator)
         self.attns = nn.ModuleList(
-            Attention(dim, heads, dim_head, attn_scale, non_causal_prefix_size, generator)
+            Attention(dim, heads, dim_head, attn_scale, non_causal_prefix_size, generator, attn_dropout)
             for _ in range(depth)
         )
-        self.ffs = nn.ModuleList(
-            ConvFeedForward(dim, ff_mult, generator, dropout=ff_dropout) for _ in range(depth)
-        )
+        ff_cls = ConvFeedForward if use_conv_ff else FeedForward
+        self.ffs = nn.ModuleList(ff_cls(dim, ff_mult, generator, dropout=ff_dropout) for _ in range(depth))
         self.final_norm = LayerNorm(dim)
         # set by shard_module when the attention splits: this rank's heads
         # of the rel-pos bias
@@ -298,7 +379,7 @@ class Transformer(nn.Module):
 
     @property
     def ff_state_dim(self) -> int:
-        return 2 * self.ffs[0].inner_dim
+        return self.ffs[0].state_dim
 
     def _bias(self, n: int, dtype: torch.dtype) -> Optional[torch.Tensor]:
         """This rank's heads of the rel-pos bias [h, n, n]."""
@@ -315,11 +396,11 @@ class Transformer(nn.Module):
         remat = self.remat and torch.is_grad_enabled()
         for attn, ff in zip(self.attns, self.ffs):
             if remat:
-                x = remat_block(lambda h, b, m, attn=attn: attn(h, attn_bias=b, key_mask=m)[0],
-                                x, bias, self_attn_mask) + x
+                x = remat_block(lambda h, b, m, attn=attn: attn(h, attn_bias=b, key_mask=m, generator=generator)[0],
+                                x, bias, self_attn_mask, generator=generator) + x
                 x = remat_block(lambda h, ff=ff: ff(h, generator), x, generator=generator) + x
             else:
-                x = attn(x, attn_bias=bias, key_mask=self_attn_mask)[0] + x
+                x = attn(x, attn_bias=bias, key_mask=self_attn_mask, generator=generator)[0] + x
                 x = ff(x, generator) + x
         return self.final_norm(x)
 
@@ -349,14 +430,16 @@ class Transformer(nn.Module):
 
     def prefill(self, x: torch.Tensor, cache: Dict[str, torch.Tensor]):
         """Causal forward over the prompt that fills cache[:, :, :n] in place.
-        Returns (normed outputs [b, n, dim], cache)."""
+        Returns (normed outputs [b, n, dim], cache). Its products run in
+        ``PREFILL_TILE``-row calls on the card, so that a row's bits do not
+        depend on its batch."""
         n = x.shape[1]
         x = grad_shrink(x, self.grad_shrink_alpha)
         bias = self._bias(n, x.dtype)
         for i, (attn, ff) in enumerate(zip(self.attns, self.ffs)):
-            out, (k, v) = attn(x, attn_bias=bias)
+            out, (k, v) = attn(x, attn_bias=bias, tile=PREFILL_TILE)
             x = out + x
-            u, tail = ff.forward_with_state(x)
+            u, tail = ff.forward_with_state(x, tile=PREFILL_TILE)
             x = u + x
             cache["k"][i, :, :n] = k
             cache["v"][i, :, :n] = v
@@ -367,15 +450,16 @@ class Transformer(nn.Module):
                     bias_table: Optional[torch.Tensor]) -> torch.Tensor:
         """One fp decode step for the token at ``pos`` (embedding x_t [b, dim]):
         writes each layer's cache row ``pos`` and conv state in place and
-        returns the normed output [b, dim]."""
+        returns the normed output [b, dim]. Its products run in
+        ``DECODE_TILE``-row calls on the card."""
         x = grad_shrink(x_t, self.grad_shrink_alpha)
         for i, (attn, ff) in enumerate(zip(self.attns, self.ffs)):
-            q, k_t, v_t = attn.decode_qkv(x)
+            q, k_t, v_t = attn.decode_qkv(x, DECODE_TILE)
             cache["k"][i, :, pos] = k_t
             cache["v"][i, :, pos] = v_t
             out = shared_kv_decode_step(
                 q, cache["k"][i], cache["v"][i], pos, scale=attn.scale, bias_table=bias_table)
-            x = attn.project_out(out) + x
-            u, cache["ff"][i] = ff.decode(x, cache["ff"][i])
+            x = attn.project_out(out, DECODE_TILE) + x
+            u, cache["ff"][i] = ff.decode(x, cache["ff"][i], DECODE_TILE)
             x = u + x
         return self.final_norm(x)

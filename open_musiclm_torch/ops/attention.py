@@ -30,7 +30,7 @@ kernels 5 and 6 (on the CPU, the plain forward and backward).
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -61,13 +61,18 @@ def shared_kv_attention(
     causal: bool = False,
     non_causal_prefix: int = 0,
     return_stats: bool = False,
+    dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Plain full-sequence attention. Returns [b, n, h*d]; with
     ``return_stats`` also each row's softmax max and denominator
-    [b, h, n, 2] float32, as kernel 1 writes them."""
+    [b, h, n, 2] float32, as kernel 1 writes them. ``dropout`` maps the
+    probabilities [b, h, n, m] to their dropped-out values (attention
+    dropout, the JAX package's ``dropout_rate``)."""
     b, h, n, d = q.shape
     sim = _masked_scores(q, k, scale, attn_bias, key_mask, causal, non_causal_prefix)
     attn = torch.softmax(sim, dim=-1)
+    if dropout is not None:
+        attn = dropout(attn)
     out = torch.einsum("bhnm,bmd->bhnd", attn, v)
     out = out.transpose(1, 2).reshape(b, n, h * d)
     if not return_stats:
@@ -91,10 +96,17 @@ def shared_kv_decode_step(
 
     Scores and softmax are float32. The step's bias row is the slice
     ``[N-1-pos, 2N-1-pos)`` of the decode-layout table
-    (``Transformer.bias_table``); keys ``j > pos`` are masked."""
+    (``Transformer.bias_table``); keys ``j > pos`` are masked. On the card
+    both products are sums over the last axis of elementwise products:
+    cuBLAS's batched products pick their algorithm by the batch's size, so a
+    row's bits would change with its companions (``chip_smoke.py --probe``,
+    float32)."""
     b, h, d = q_t.shape
     N = k_cache.shape[1]
-    sim = torch.einsum("bhd,bnd->bhn", q_t.float(), k_cache.float()) * scale
+    if q_t.is_cuda:
+        sim = (q_t.float()[:, :, None] * k_cache.float()[:, None]).sum(-1) * scale
+    else:
+        sim = torch.einsum("bhd,bnd->bhn", q_t.float(), k_cache.float()) * scale
     if bias_table is not None:
         sim = sim + bias_table[N - 1 - pos: 2 * N - 1 - pos].t()[None].float()
     j = torch.arange(N, device=q_t.device)
@@ -102,7 +114,10 @@ def shared_kv_decode_step(
     if key_mask is not None:
         sim = sim.masked_fill(~key_mask[:, None, :], NEG_INF)
     attn = torch.softmax(sim, dim=-1)
-    out = torch.einsum("bhn,bnd->bhd", attn, v_cache.float())
+    if q_t.is_cuda:
+        out = (attn[:, :, None] * v_cache.float().transpose(1, 2)[:, None]).sum(-1)
+    else:
+        out = torch.einsum("bhn,bnd->bhd", attn, v_cache.float())
     return out.reshape(b, h * d).to(q_t.dtype)
 
 

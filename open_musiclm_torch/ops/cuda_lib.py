@@ -37,7 +37,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w (aligned base), w_off, scale, out, part, tickets, B, K, N, cols, col_blocks, splits,
     # per, route, x_vec, dtype, stream
-    "omt_int8_matmul": (_P, _P, _I, _P, _P, _P, _P) + (_I,) * 10 + (_P,),
+    "omt_int8_matmul": (_P, _P, _I, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     # q, kv, scales, bias_row, add_mask, out, part, ticket, b, heads, N, pos, splits, per,
     # scale, dtype, kv_dtype, stream
     "omt_flash_decode": (_P,) * 8 + (_I,) * 6 + (_F, _I, _I, _P),

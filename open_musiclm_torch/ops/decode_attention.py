@@ -26,7 +26,10 @@ NEG_INF = -1e9
 CHUNK = 256  # cache buffers are padded to a multiple of this many rows
 KV_INT8 = 2  # kernel 2's row-dtype code for int8 rows (0 and 1: cuda_lib.dtype_code)
 SPLIT_ROWS = 64  # cache rows a chunk of kernel 2 (csrc/flash_decode.cu: CH)
-TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+# splits of the live cache at most: what fills two blocks on each of the
+# H100's 132 SMs at b 8 (264 / 8); a function of the cache alone, so that a
+# row's partials fold in one order whatever the batch's size
+MAX_SPLITS = 33
 PART_WIDTH = 2 + 64  # a split's record per head: max, denominator, 64 accumulators
 
 
@@ -70,18 +73,17 @@ def flash_decode_step_plain(
     return out.reshape(b, h * d).to(q_t.dtype)
 
 
-def decode_splits(b: int, pos: int, N: int) -> Tuple[int, int]:
+def decode_splits(pos: int, N: int) -> Tuple[int, int]:
     """(splits, chunks per split) of kernel 2's grid for a decode step at
     ``pos``: the live rows 0..pos form ``pos // 64 + 1`` chunks of 64, and
-    split s covers chunks [s * per, min((s + 1) * per, chunks)). Enough
-    splits that b x splits reaches ``TARGET_BLOCKS`` where the cache allows,
-    one chunk a split at the least, so that no split is empty and a step
-    with pos < 64 is one block a batch row."""
+    split s covers chunks [s * per, min((s + 1) * per, chunks)). A chunk a
+    split up to ``MAX_SPLITS`` splits, so that no split is empty and a step
+    with pos < 64 is one block a batch row. The batch's size does not enter:
+    a row's result is the same in any batch."""
     if not 0 <= pos < N:
         raise ValueError(f"pos {pos} outside the {N}-row cache")
     chunks = pos // SPLIT_ROWS + 1
-    want = min(chunks, -(-TARGET_BLOCKS // b))
-    per = -(-chunks // want)
+    per = -(-chunks // min(chunks, MAX_SPLITS))
     return -(-chunks // per), per
 
 
@@ -122,7 +124,7 @@ def flash_decode_step(
         tensors.append(kv_scale)
     cuda_lib.require_cuda(name, *tensors)
     cuda_lib.require(kv_cache.data_ptr() % 16 == 0, f"{name}: kv_cache must be 16-byte aligned")
-    splits, per = decode_splits(b, pos, N)
+    splits, per = decode_splits(pos, N)
     out = torch.empty((b, h * d), dtype=q_t.dtype, device=q_t.device)
     # a ticket a batch row; the partials of b x splits blocks, [b, splits, h, PART_WIDTH]
     tickets, part = cuda_lib.stream_scratch("flash_decode", q_t, b, b * splits * h * PART_WIDTH)

@@ -167,6 +167,7 @@ LAYER_STEP = 128  # bytes of a weight row a warp reads at a time (32 lanes x 4)
 DIM_HEAD = 64  # D
 MAX_HEADS = 16  # MAXH
 ATTN_MAX_CHUNK = 128  # CHMAX: cache rows of one attention item at most
+ATTN_BATCH = 8  # the batch whose items fill the grid once (attn_chunk)
 # shared floats of an attention item (ATTN_SMEM): K and V rows [CHMAX, D + 1],
 # their scales, q [MAXH, D], a row of p for each warp, the bias rows, the mask
 ATTN_SMEM_FLOATS = (2 * ATTN_MAX_CHUNK * (DIM_HEAD + 1) + 2 * ATTN_MAX_CHUNK + MAX_HEADS * DIM_HEAD
@@ -296,11 +297,12 @@ def layer_plan(heads: int, dim: int, inner: int, n_blocks: int) -> LayerPlan:
                      stage_floats, part_off, part_floats, bar_off, table)
 
 
-def attn_chunk(b: int, pos: int, n_blocks: int) -> Tuple[int, int]:
+def attn_chunk(pos: int, n_blocks: int) -> Tuple[int, int]:
     """(cache rows an attention item, items a batch row): the live rows j <
-    pos of each batch row cut so that the b x items fill the grid once
-    where ATTN_MAX_CHUNK allows."""
-    per_row = max(1, n_blocks // b)
+    pos of each batch row cut so that ATTN_BATCH rows' items fill the grid
+    once where ATTN_MAX_CHUNK allows. The batch's own size does not enter,
+    so a row's chunks fold in one order in any batch."""
+    per_row = max(1, n_blocks // ATTN_BATCH)
     chunk = min(ATTN_MAX_CHUNK, max(1, _cdiv(pos, per_row)))
     return chunk, _cdiv(pos, chunk)
 
@@ -371,7 +373,7 @@ def fused_layer_decode_step(
     cuda_lib.require(all(p % 16 == 0 for p in ptrs), f"{name}: x, the cache and the weights must "
                                                      f"start on 16-byte boundaries")
     plan, table = _device_plan(heads, dim, inner, x.device)
-    chunk, n_chunks = attn_chunk(b, pos, plan.grid)
+    chunk, n_chunks = attn_chunk(pos, plan.grid)
     y = torch.empty_like(x)
     krow = torch.empty(b, 2 * d, dtype=torch.float32, device=x.device)
     tickets, work = cuda_lib.stream_scratch(name, x, b, workspace_floats(b, heads, d, dim, inner, n_chunks))

@@ -1,9 +1,10 @@
-"""Continuous relative position bias (port of open_musiclm_tpu/ops/relpos.py).
+"""Relative position biases (port of open_musiclm_tpu/ops/relpos.py): the
+continuous MLP bias of every shipped config, and the T5 bucketed bias.
 
-The bias is a function of the distance ``i - j`` only: the MLP runs once
-per distance and the ``[h, n, n]`` matrix is a Toeplitz expansion of the
-``[2n-1, h]`` table. Decode reads rows of a causal distance table.
-The T5 bucketed variant is not ported: no shipped config uses it.
+Either bias is a function of the distance ``i - j`` only: the MLP (or the
+bucket table) is read once per distance and the ``[h, n, n]`` matrix is a
+Toeplitz expansion of the ``[2n-1, h]`` table. Decode reads rows of a
+causal distance table.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .rows import row_linear
 
 
 def toeplitz_from_table(table: torch.Tensor, n: int) -> torch.Tensor:
@@ -30,13 +33,17 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
         return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
-def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+def linear(x: torch.Tensor, layer: nn.Linear, tile: Optional[int] = None) -> torch.Tensor:
     """``layer`` applied with its parameters cast to x's dtype (flax's Dense
     with ``dtype``: float32 master weights, a bfloat16 pass); the module
-    itself where the dtypes agree, as for ``norm``."""
+    itself where the dtypes agree, as for ``norm``. ``tile``: the product's
+    rows in calls of that many rows on the card (``rows.row_linear``: a
+    row's bits then do not depend on its batch)."""
+    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
+    if tile is not None:
+        return row_linear(x, layer.weight.to(x.dtype), bias, tile)
     if layer.weight.dtype == x.dtype:
         return layer(x)
-    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
@@ -138,10 +145,68 @@ class ContinuousPositionBias(nn.Module):
         return self.mlp(torch.arange(0, max_len, dtype=w.dtype, device=w.device)[:, None])
 
 
+def t5_relative_bucket(rel_pos: torch.Tensor, causal: bool = True, num_buckets: int = 32,
+                       max_distance: int = 128) -> torch.Tensor:
+    """T5's bucket of each relative position, as the JAX package computes
+    it: ``n = -rel_pos`` (clamped at 0 when causal), exact buckets below
+    ``num_buckets // 2``, log-spaced ones up to ``max_distance`` above. The
+    JAX package passes ``i - j`` as ``rel_pos``, so every causal distance
+    falls in bucket 0 and only keys after the query (the bidirectional
+    prefix) reach the others; the port keeps that."""
+    ret = torch.zeros_like(rel_pos)
+    n = -rel_pos
+    if not causal:
+        num_buckets //= 2
+        ret = ret + (n < 0).long() * num_buckets
+        n = n.abs()
+    else:
+        n = n.clamp(min=0)
+    max_exact = num_buckets // 2
+    large = max_exact + (torch.log(n.clamp(min=1).float() / max_exact) / math.log(max_distance / max_exact)
+                         * (num_buckets - max_exact)).long()
+    large = large.clamp(max=num_buckets - 1)
+    return ret + torch.where(n < max_exact, n, large)
+
+
+class T5RelativePositionBias(nn.Module):
+    """A [num_buckets, heads] table (``embedding``, N(0, 1) init) read at
+    each distance's T5 bucket."""
+
+    def __init__(self, heads: int, num_buckets: int = 32, max_distance: int = 128, causal: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_buckets, self.max_distance, self.causal = num_buckets, max_distance, causal
+        self.embedding = nn.Parameter(torch.empty(num_buckets, heads))
+        with torch.no_grad():
+            nn.init.normal_(self.embedding, generator=generator)
+
+    def table(self, dist: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The bias [len(dist), heads] at the relative positions ``dist``: a
+        gather of the table's rows, whose gradient (the training path's)
+        scatter-adds into the buckets' rows, n rows where the [h, n, n]
+        matrix has n^2."""
+        buckets = t5_relative_bucket(dist, self.causal, self.num_buckets, self.max_distance)
+        return self.embedding.to(dtype or self.embedding.dtype)[buckets]
+
+    def forward(self, n: int, dtype: Optional[torch.dtype] = None,
+                heads: Optional[slice] = None) -> torch.Tensor:
+        """Full bias matrix [heads, n, n] (``heads``: those heads' only)."""
+        table = self.table(torch.arange(-n + 1, n, device=self.embedding.device), dtype)
+        if heads is not None:
+            table = table[:, heads]
+        return toeplitz_from_table(table, n).permute(2, 0, 1)
+
+    def distance_table(self, max_len: int) -> torch.Tensor:
+        """Causal distance table [max_len, heads]; row d = bias at distance d."""
+        return self.table(torch.arange(0, max_len, device=self.embedding.device))
+
+
 def make_bias(kind: str, dim: int, heads: int,
               generator: Optional[torch.Generator] = None) -> Optional[nn.Module]:
     if kind == "continuous":
         return ContinuousPositionBias(dim=dim // 2, heads=heads, generator=generator)
+    if kind == "t5":
+        return T5RelativePositionBias(heads=heads, generator=generator)
     if kind == "none":
         return None
-    raise NotImplementedError(f"relative position bias {kind!r} is not ported")
+    raise ValueError(f"invalid relative position bias type: {kind}")

@@ -261,7 +261,7 @@ def test_flash_decode_kernel_splits(dev, rows, b, pos):
     bias_row = _randn(g, N, h).to(dev)
     add_mask = torch.where(torch.rand(b, N, generator=g) > 0.2, 0.0, -1e9).to(dev)
     add_mask[:, 0] = 0.0
-    splits, _ = decode_attention.decode_splits(b, pos, N)
+    splits, _ = decode_attention.decode_splits(pos, N)
     assert splits == 1 or pos >= 64
     for call in range(2):
         q = attention.l2norm(_randn(g, b, h, 64)).to(dev, q_dtype)
@@ -362,9 +362,9 @@ def test_int8_matmul_kernel(dev, B, K, N):
     torch.testing.assert_close(quant.int8_matmul(x, wq, s), quant.int8_matmul_plain(x, wq, s), **TOL)
 
 
-# Kernel 4's two routes (ops/quant.py:int8_route): the weight stream (column
-# blocks x k splits, 8 rows a pass, folded by ticket in split order) up to
-# INT8_STREAM_MAX_ROWS rows, 64 x 64 tensor-core tiles above. float32 within
+# Kernel 4 (ops/quant.py:int8_matmul): the weight stream (column blocks x k
+# splits, 8 rows a pass, folded by ticket in split order) at every row
+# count. float32 within
 # TOL of the plain version; bf16 against the plain version on the same bf16
 # values within 2**-7 of the largest output (both round their float32 result
 # once to bf16).
@@ -380,9 +380,9 @@ def _int8_case(seed, B, K, N, dev, dtype):
     return x, wq.to(dev), s.to(dev)
 
 
-def _check_int8(x, wq, s, route=None):
+def _check_int8(x, wq, s):
     before = quant.int8_matmul.launches
-    got = quant.int8_matmul(x, wq, s, route=route)
+    got = quant.int8_matmul(x, wq, s)
     assert quant.int8_matmul.launches == before + 1
     assert got.dtype == x.dtype and got.shape == (x.shape[0], wq.shape[1])
     want = quant.int8_matmul_plain(x.float(), wq, s)
@@ -401,8 +401,8 @@ def test_int8_matmul_kernel_projections(dev, dtype, K, N):
 
 
 # the logit head (1024 x 1025) at the decode batch, the fine stage's rows
-# (b 2 x 7 windows), one and two passes, the tiled route and the fine cap
-# (256 rows), and beyond it
+# (b 2 x 7 windows), one and two passes, 64 rows, the fine cap (256 rows),
+# and beyond it
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B", [1, 8, 14, 16, 64, 256, 300])
@@ -410,21 +410,18 @@ def test_int8_matmul_kernel_head(dev, dtype, B):
     _check_int8(*_int8_case(B, B, 1024, 1025, dev, dtype))
 
 
-# each route forced at row counts on both sides of the default cut, with K
-# off the 16-row step (100, 1000) and N off 4 (33, 1027): stream rows off
-# 4-byte alignment, tiles ragged in every direction
+# row counts of one, a few and many passes, with K off the 16-row step
+# (100, 1000) and N off 4 (33, 1027): stream rows off 4-byte alignment
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["stream", "tiled"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,K,N", [(8, 100, 33), (17, 1000, 1027), (64, 1024, 1025), (3, 72, 4096)])
-def test_int8_matmul_kernel_routes(dev, route, dtype, B, K, N):
-    _check_int8(*_int8_case(B + K + N, B, K, N, dev, dtype), route=route)
+def test_int8_matmul_kernel_routes(dev, dtype, B, K, N):
+    _check_int8(*_int8_case(B + K + N, B, K, N, dev, dtype))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["stream", "tiled"])
 @pytest.mark.parametrize("w_off", [1, 2, 3])
-def test_int8_matmul_kernel_unaligned_weights(dev, route, w_off):
+def test_int8_matmul_kernel_unaligned_weights(dev, w_off):
     """W as a view that starts 1-3 bytes past a 4-byte boundary (as a head
     of a stacked [Q, K, N] tensor can)."""
     x, wq, s = _int8_case(w_off, 12, 96, 130, dev, torch.float32)
@@ -432,7 +429,7 @@ def test_int8_matmul_kernel_unaligned_weights(dev, route, w_off):
     flat[w_off:] = wq.flatten()
     view = flat[w_off:].view(96, 130)
     assert view.data_ptr() % 4 == w_off
-    _check_int8(x, view, s, route=route)
+    _check_int8(x, view, s)
 
 
 @pytest.mark.cuda
@@ -1018,3 +1015,76 @@ def test_train_with_artifact_fn_launches_training_kernels(dev, tmp_path):
     assert fwd.launches == 2 * 2 * 2 + 2 * 2 * 2  # train forwards, then a valid step and artifact_logits a step
     assert calls == [(0, (2, 41, 17), True), (1, (2, 41, 17), True)]
     assert (tmp_path / "coarse.tokens.1.txt").exists()
+
+
+# A row's bits do not depend on its batch (ops/rows.py, kernels 2 and 7's
+# grids, kernel 4's one route, Encodec a row at a time): row 1 alone against
+# its slot in batches of 2, 4, 8 and 16, bit for bit.
+BATCHES = (2, 4, 8, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tile", [64, 256])
+def test_row_linear_rows_independent_of_batch(dev, dtype, tile):
+    from open_musiclm_torch.ops.rows import row_linear
+
+    g = torch.Generator().manual_seed(tile)
+    w = _randn(g, 5460, 1024).to(dev, dtype)
+    x = _randn(g, 16 * 37, 1024).to(dev, dtype)
+    alone = row_linear(x[37:74], w, tile=tile)
+    for b in BATCHES:
+        torch.testing.assert_close(row_linear(x[:b * 37], w, tile=tile)[37:74], alone, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_matmul_rows_independent_of_batch_across_16_rows(dev, dtype):
+    """Kernel 4 at 1..32 rows, across 16 rows (where a second route once
+    took over): one row's bits in every batch."""
+    g = torch.Generator().manual_seed(3)
+    wq, s = quant.quantize_weight(_randn(g, 1024, 1025))
+    wq, s, x = wq.to(dev), s.to(dev), _randn(g, 32, 1024).to(dev, dtype)
+    alone = quant.int8_matmul(x[1:2].contiguous(), wq, s)
+    for b in BATCHES + (17, 32):
+        torch.testing.assert_close(quant.int8_matmul(x[:b], wq, s)[1:2], alone, atol=0, rtol=0)
+
+
+def _row_stage(dev, dtype):
+    from open_musiclm_torch.core.sequence import TokenSequenceSpec
+    from open_musiclm_torch.models.token_cond import TokenConditionedTransformer
+
+    specs = (TokenSequenceSpec(64, 2), TokenSequenceSpec(64, 3))
+    model = TokenConditionedTransformer(specs, 128, 2, heads=2, generator=torch.Generator().manual_seed(5))
+    return model.to(dev, dtype).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", [dict(quantized=True, flash_kv="int8"), dict(quantized=True, flash_kv="fused"),
+                                  dict(quantized=True, flash_kv=None), dict(quantized=False)],
+                         ids=["int8", "fused", "None", "fp"])
+def test_stage_rows_independent_of_batch(dev, dtype, mode):
+    """The prefill and 4 teacher-forced decode steps of a stage (dim 128, 2
+    heads of 64): row 1's logits alone equal its logits in every batch."""
+    from open_musiclm_torch.models.stages import Stage
+
+    model = _row_stage(dev, dtype)
+    g = torch.Generator().manual_seed(6)
+    cond = torch.randint(0, 64, (16, 20), generator=g).to(dev)
+    teacher = torch.randint(0, 64, (16, 4, 3), generator=g).to(dev)
+    stage = Stage(model, **mode)
+
+    def logits(rows):
+        return stage.generate([cond[rows]], teacher_forced_ids=teacher[rows], max_time_steps=4,
+                              temperature=0.0, return_logits=True)[1]
+
+    alone = logits(slice(1, 2))[0]
+    for b in BATCHES:
+        torch.testing.assert_close(logits(slice(0, b))[1], alone, atol=0, rtol=0)
+    with torch.no_grad():
+        stream = model.assemble_stream([cond, torch.zeros((16, 0), dtype=torch.long, device=dev)])
+        one = model.transformer.prefill(stream[1:2], model.transformer.init_cache(1, stream.shape[1]))[0]
+        for b in BATCHES:
+            got = model.transformer.prefill(stream[:b], model.transformer.init_cache(b, stream.shape[1]))[0]
+            torch.testing.assert_close(got[1:2], one, atol=0, rtol=0)

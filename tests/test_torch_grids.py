@@ -3,7 +3,7 @@ their plain route on CPU tensors.
 
 The kernels run only on a card; the grid each launch takes is chosen in
 Python (``ops/attention.py:bwd_kv_splits``, ``ops/fused_ff.py:ff_in_grid``
-and ``ff_out_grid``, ``ops/quant.py:int8_route`` and ``int8_stream_grid``,
+and ``ff_out_grid``, ``ops/quant.py``'s two routes and ``int8_stream_grid``,
 ``ops/fused_layer.py:layer_plan`` and ``attn_chunk``),
 so it is checked here at the shapes the main paths use: every (key tile,
 head, query tile) pair, column and k row in exactly one block, each
@@ -166,60 +166,41 @@ def test_int8_stream_grid(K, N, aligned):
 
 @pytest.mark.parametrize("B", [1, 8, 14, 16, 32, 33, 64, 256, 300])
 def test_int8_route(B):
-    """The stream takes up to INT8_STREAM_MAX_ROWS rows in passes of 8 (the
-    scratch holds a record for each pass, column block and split); above
-    that the tiled route's 64 x 64 tiles cover every output once."""
-    route = quant.int8_route(B)
-    assert route == ("stream" if B <= quant.INT8_STREAM_MAX_ROWS else "tiled")
-    N = 1025
+    """Kernel 4's one route at B rows of the head: the stream at every B (so
+    that a row's sums do not change with the batch), in passes of 8 (the
+    scratch holds a record for each pass, column block and split), covers
+    every output once."""
+    _stream_cover(B, 1024, 1025)
+
+
+def _stream_cover(B, K, N):
     out = np.zeros((B, N), dtype=int)
-    if route == "stream":
-        blocks, cols, splits, per = quant.int8_stream_grid(1024, N, False)
-        passes = -(-B // 8)
-        for p in range(passes):
-            for c in range(blocks):
-                out[p * 8:(p + 1) * 8, c * cols:(c + 1) * cols] += 1
-        assert passes * 8 >= B > (passes - 1) * 8
-    else:
-        t = quant.INT8_TILE
-        row_tiles, col_tiles, _, _ = quant.int8_tiled_grid(B, 1024, N)
-        for y in range(row_tiles):
-            for x in range(col_tiles):
-                out[y * t:(y + 1) * t, x * t:(x + 1) * t] += 1
+    blocks, cols, splits, per = quant.int8_stream_grid(K, N, False)
+    passes = -(-B // 8)
+    for p in range(passes):
+        for c in range(blocks):
+            out[p * 8:(p + 1) * 8, c * cols:(c + 1) * cols] += 1
+    assert passes * 8 >= B > (passes - 1) * 8
     assert (out == 1).all()
 
 
 @pytest.mark.parametrize("K,N", INT8_SHAPES)
 @pytest.mark.parametrize("B", [33, 64, 256, 300])
-def test_int8_tiled_grid(B, K, N):
-    """Kernel 4's tiled route: 64 x 64 output tiles covering every output
-    once, k split into ranges of whole 64-row steps (two at the least where
-    k has them) covering every k row once, and no more blocks than two an
-    SM unless the tiles alone are more."""
-    row_tiles, col_tiles, splits, per = quant.int8_tiled_grid(B, K, N)
-    t = quant.INT8_TILE
-    assert (row_tiles - 1) * t < B <= row_tiles * t and (col_tiles - 1) * t < N <= col_tiles * t
-    assert per % t == 0 and (splits - 1) * per < K <= splits * per
-    assert per >= min(2 * t, -(-K // t) * t)
-    blocks = row_tiles * col_tiles * splits
-    assert blocks <= max(quant.INT8_TILED_BLOCKS, row_tiles * col_tiles)
-    if (B, K, N) == (64, 1024, 1025):  # 17 tiles: 8 splits of two steps
-        assert (splits, per) == (8, 2 * t)
-    cover = np.zeros(K, dtype=int)
-    for z in range(splits):
-        cover[z * per:(z + 1) * per] += 1
-    assert (cover == 1).all()
+def test_int8_stream_passes(B, K, N):
+    """The stream at the fine stage's and larger row counts, over every
+    weight shape: each output (row, column) in exactly one (pass, column
+    block), every pass over the same grid."""
+    _stream_cover(B, K, N)
 
 
-@pytest.mark.parametrize("route", [None, "stream", "tiled"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B", [1, 40])
-def test_int8_matmul_cpu_is_plain(route, dtype, B):
+@pytest.mark.parametrize("B", [1, 8, 17, 40, 64, 300])
+def test_int8_matmul_cpu_is_plain(dtype, B):
     rng = np.random.default_rng(B)
     x = torch.from_numpy(rng.standard_normal((B, 96), dtype=np.float32)).to(dtype)
     wq, s = quant.quantize_weight(torch.from_numpy(rng.standard_normal((96, 130), dtype=np.float32)))
     before = quant.int8_matmul.launches
-    got = quant.int8_matmul(x, wq, s, route=route)
+    got = quant.int8_matmul(x, wq, s)
     assert quant.int8_matmul.launches == before  # no kernel off the card
     assert torch.equal(got, quant.int8_matmul_plain(x, wq, s))
 
@@ -339,22 +320,25 @@ def test_layer_plan_over_budget_raises(heads, dim, inner):
 @pytest.mark.parametrize("b,pos", [(8, 1279), (1, 1279), (14, 1279), (17, 700), (3, 5), (8, 1), (8, 0), (200, 1279)])
 def test_attn_chunk_fills_grid(b, pos):
     """Each batch row's live rows j < pos in chunks of at most ATTN_MAX_CHUNK
-    rows: the chunks cover [0, pos) exactly, and b x chunks fill the grid
-    once where the largest chunk allows (b8 pos 1279: one round on 132 SMs)."""
-    chunk, n_chunks = fused_layer.attn_chunk(b, pos, SMS)
+    rows: the chunks cover [0, pos) exactly, and ATTN_BATCH (8) rows' chunks
+    fill the grid once where the largest chunk allows (pos 1279: one round
+    on 132 SMs). The cut is a function of pos alone: b rows' items take
+    cdiv(b x chunks, grid) rounds, and a row's chunks fold in one order in
+    any batch."""
+    chunk, n_chunks = fused_layer.attn_chunk(pos, SMS)
     assert 1 <= chunk <= fused_layer.ATTN_MAX_CHUNK
     assert (n_chunks - 1) * chunk < pos <= n_chunks * chunk or pos == n_chunks == 0
-    if -(-pos // max(1, SMS // b)) <= fused_layer.ATTN_MAX_CHUNK:
-        assert b * n_chunks <= max(SMS, b)
-    if (b, pos) == (8, 1279):
-        assert b * n_chunks <= SMS and n_chunks == SMS // b
+    if -(-pos // (SMS // fused_layer.ATTN_BATCH)) <= fused_layer.ATTN_MAX_CHUNK:
+        assert fused_layer.ATTN_BATCH * n_chunks <= SMS
+    if pos == 1279:
+        assert n_chunks == SMS // fused_layer.ATTN_BATCH and b * n_chunks <= SMS * -(-b // 8)
 
 
 def test_layer_workspace_layout():
     """Kernel 7's scratch: the parts it reads in 16-byte runs (attention
     output, x2, g with rows padded to 16) start on 16-byte boundaries."""
     b, heads, dim, inner = 3, 16, 1024, 2730
-    chunk, n_chunks = fused_layer.attn_chunk(b, 1279, SMS)
+    chunk, n_chunks = fused_layer.attn_chunk(1279, SMS)
     inner_p = -(-inner // 16) * 16
     sizes = [b * heads * 64, b * 128, b * heads * 64, b * dim, b * inner_p, b * n_chunks * heads * 66]
     offs = np.cumsum([0] + sizes[:-1])

@@ -107,12 +107,40 @@ def test_import_stage_matches_jax(stage):
 
 
 def test_import_stage_raises_on_unported_variants():
-    sd = make_reference_shaped_stage_sd(STAGE_SPECS["semantic"])
-    no_conv = {k: v for k, v in sd.items() if "ds_conv" not in k}
-    t5 = {**sd, "transformer.rel_pos_bias.relative_attention_bias.weight": np.zeros((32, 2), np.float32)}
-    for bad in (no_conv, t5):
-        with pytest.raises(NotImplementedError):
-            it.import_stage_transformer(bad, 2, 1)
+    """The variants that raised before they were ported (the plain
+    FeedForward, the T5 bias, absolute positions) now map as the JAX
+    importer followed by convert.py maps them, each alone and all three
+    together; a plain-FF file without its mid norm still raises (KeyError),
+    in both packages."""
+    specs = STAGE_SPECS["semantic"]
+    sd = make_reference_shaped_stage_sd(specs)
+    rs = np.random.RandomState(1)
+    inner = 32 * 4
+    plain = {k: v for k, v in sd.items() if not k.startswith("transformer.layers.0.2.")}
+    plain.update({"transformer.layers.0.2.0.gamma": rs.randn(32).astype(np.float32),
+                  "transformer.layers.0.2.1.weight": rs.randn(2 * inner, 32).astype(np.float32),
+                  "transformer.layers.0.2.3.gamma": rs.randn(inner).astype(np.float32),
+                  "transformer.layers.0.2.5.weight": rs.randn(32, inner).astype(np.float32)})
+    t5 = {k: v for k, v in sd.items() if ".rel_pos_bias.net." not in k}
+    t5["transformer.rel_pos_bias.relative_attention_bias.weight"] = rs.randn(32, 2).astype(np.float32)
+    pos = {f"absolute_position_embeddings.{i}.weight": rs.randn(20, 32).astype(np.float32) for i in range(2)}
+    every = {**{k: v for k, v in plain.items() if ".rel_pos_bias.net." not in k}, **pos,
+             "transformer.rel_pos_bias.relative_attention_bias.weight":
+                 t5["transformer.rel_pos_bias.relative_attention_bias.weight"]}
+    cases = [(plain, dict(use_conv_ff=False)), (t5, dict(relative_position_bias_type="t5")),
+             ({**sd, **pos}, dict(use_absolute_position_embeddings=True, max_absolute_position_embeddings=20)),
+             (every, dict(use_conv_ff=False, relative_position_bias_type="t5",
+                          use_absolute_position_embeddings=True, max_absolute_position_embeddings=20))]
+    for file, kw in cases:
+        jmodel = JTCT(specs=specs, dim=32, depth=1, heads=2, dim_head=8, **kw)
+        want = convert.stage_state_dict(jit_.import_stage_transformer(file, jmodel), len(specs), 1)
+        _equal(it.import_stage_transformer(file, len(specs), 1), want)
+    broken = {k: v for k, v in plain.items() if k != "transformer.layers.0.2.3.gamma"}
+    with pytest.raises(KeyError):
+        jit_.import_stage_transformer(broken, JTCT(specs=specs, dim=32, depth=1, heads=2, dim_head=8,
+                                                   use_conv_ff=False))
+    with pytest.raises(KeyError):
+        it.import_stage_transformer(broken, len(specs), 1)
 
 
 ENCODEC_GEOM = dict(sample_rate=240, ratios=(4, 2), num_quantizers=3, codebook_size=16, dimension=8, n_filters=2)

@@ -180,12 +180,14 @@ def test_round_up_chunk():
 def test_decode_splits_cover_every_row(b):
     """Kernel 2's split of the live cache, at every position of a 1280-row
     cache: the splits cover rows 0..pos exactly once, in order, none empty;
-    a step with pos < 64 is one block a batch row, and the grid reaches 132
-    blocks (one an SM) wherever the live chunks allow."""
+    a step with pos < 64 is one block a batch row, and b rows' grid reaches
+    132 blocks (one an SM) wherever the live chunks allow. The splits are a
+    function of pos and N alone (the batch's size does not enter, so a row's
+    partials fold in one order in any batch), a chunk a split at N 1280."""
     N, chunk = 1280, tdec.SPLIT_ROWS
     for pos in range(N):
-        splits, per = tdec.decode_splits(b, pos, N)
-        assert per >= 1
+        splits, per = tdec.decode_splits(pos, N)
+        assert per == 1 and splits == pos // chunk + 1
         # split s reads chunks [s * per, (s + 1) * per) of rows <= pos (csrc/flash_decode.cu)
         rows = [(s * per * chunk, min((s + 1) * per * chunk, pos + 1)) for s in range(splits)]
         assert rows[0][0] == 0 and rows[-1][1] == pos + 1
@@ -195,7 +197,9 @@ def test_decode_splits_cover_every_row(b):
         if pos < chunk:
             assert splits == 1
     with pytest.raises(ValueError):
-        tdec.decode_splits(b, N, N)
+        tdec.decode_splits(N, N)
+    # musiclm_large's 2,816-row coarse cache: 44 chunks at its last pos, two a split
+    assert tdec.decode_splits(2815, 2816) == (22, 2)
 
 
 def test_decode_scratch_kept_per_stream():

@@ -175,8 +175,8 @@ def test_request_output_independent_of_batch_composition(musiclm):
 
 def test_batch_buckets_low_load_and_result_consistency(musiclm):
     """With buckets [1, 2] a lone request runs at batch 1, and its audio
-    equals what it gets inside a full batch (on the CPU; on the card only
-    within one bucket size)."""
+    equals what it gets inside a full batch (on the card too, bit for bit:
+    chip_smoke.py phase 5)."""
     server = GenerationServer(musiclm, batch_size=2, batch_buckets=[1, 2], batch_timeout_s=0.2,
                               **GEN_KW, **SAMPLING_KW).start()
     calls = []

@@ -541,10 +541,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_stage_kwargs_dropout():
+    """Both dropouts reach the modules from the config: the shipped FF rate,
+    and an attention rate no shipped config sets."""
     mc = tconfig.load_model_config(str(SMALL))
     assert tconfig._stage_kwargs(mc.coarse_cfg)["ff_dropout"] == 0.1
-    with pytest.raises(NotImplementedError, match="attention dropout"):
-        tconfig._stage_kwargs(dataclasses.replace(mc.coarse_cfg, attn_dropout=0.1))
+    kw = tconfig._stage_kwargs(dataclasses.replace(mc.coarse_cfg, attn_dropout=0.1))
+    assert kw["attn_dropout"] == 0.1
+    model = tconfig.build_coarse_transformer(dataclasses.replace(
+        mc, coarse_cfg=dataclasses.replace(mc.coarse_cfg, attn_dropout=0.1, dim=32, depth=1, heads=2)))
+    assert [a.dropout for a in model.transformer.attns] == [0.1]
 
 
 def test_stage_flops_match_jax():

@@ -250,3 +250,118 @@ def serving_rank(rank: int, world: int, init_file: str, folder: str) -> None:
     out["codes"] = codes
     torch.save(out, folder / f"rank{rank}.pt")
     dist.destroy_process_group()
+
+
+def tp_options_rank(rank: int, world: int, init_file: str, folder: str) -> None:
+    """tests/test_torch_options.py's ranks on ``make_mesh(tp=world)``: the
+    parent's stage (attention and FF dropout) sharded, in train() mode, one
+    loss and backward drawing from a generator seeded 20; writes the loss
+    and the whole gradients (split ones gathered, the partial ones of
+    replicated parameters summed over ``tp``)."""
+    import torch.distributed as dist
+
+    from open_musiclm_torch.models.token_cond import (
+        StageLossConfig,
+        TokenConditionedTransformer,
+        stage_training_loss,
+    )
+    from open_musiclm_torch.parallel.mesh import make_mesh
+    from open_musiclm_torch.parallel.sharding import gather_param_tensors, shard_module
+
+    _join(rank, world, init_file)
+    folder = Path(folder)
+    inputs = torch.load(folder / "inputs.pt", weights_only=False)  # the parent test wrote it
+    mesh = make_mesh(tp=world)
+    model = TokenConditionedTransformer(**inputs["model_kw"])
+    model.load_state_dict(inputs["state"])
+    shard_module(model.train(), mesh)
+    assert model.transformer.attns[0].heads == inputs["model_kw"]["heads"] // world
+    loss, _ = stage_training_loss(model, inputs["ids"], StageLossConfig((0.5, 1.0), mask_prob=0.0),
+                                  generator=torch.Generator().manual_seed(20), train=True)
+    loss.backward()
+    names = [n for n, _ in model.named_parameters()]
+    grads = [p.grad for p in model.parameters()]
+    mesh.tp_all_reduce_coalesced_([g for g, n in zip(grads, names) if n in model.tp_partial])
+    whole = gather_param_tensors(model, grads)
+    torch.save({"loss": loss.item(), "grads": dict(zip(names, whole))}, folder / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def server_rank(rank: int, world: int, init_file: str, folder: str) -> None:
+    """tests/test_torch_mesh_server.py's ranks: the doll-house MusicLM of
+    tests/test_torch_serve.py over ``make_mesh(dp=world)`` behind one
+    GenerationServer (buckets [2, 4], one worker). The front (rank 0) takes
+    the parent's requests, submitted before the server starts so that the
+    batches form alike in every run; every rank records the codes reaching
+    Encodec; the front writes the waves. Also the two refusals: a bucket
+    that dp does not divide, two workers. Then a second server whose first
+    batch fails on rank 1 alone: rank 1's ``stop()`` raises it and its
+    process ends; the front's request fails (it must not hang), and its
+    ``stop()`` returns."""
+    import torch.distributed as dist
+
+    from open_musiclm_torch.parallel.mesh import make_mesh
+    from open_musiclm_torch.serve import GenerationServer
+    from tests.test_torch_serve import GEN_KW, SAMPLING_KW, tiny_musiclm
+
+    _join(rank, world, init_file)
+    folder = Path(folder)
+    requests = torch.load(folder / "inputs.pt", weights_only=False)["requests"]  # the parent test wrote it
+    musiclm = tiny_musiclm()
+    musiclm.serving_mesh = make_mesh(dp=world)
+    codes, decode = [], musiclm._decode
+
+    def capture(c):
+        codes.append(c.clone())
+        return decode(c)
+
+    musiclm._decode = capture
+    refused = []
+    for kw in (dict(batch_buckets=[1, 4]), dict(batch_buckets=[2, 4], num_workers=2)):
+        try:
+            GenerationServer(musiclm, batch_size=4, **kw)
+        except ValueError as e:
+            refused.append(str(e))
+    server = GenerationServer(musiclm, batch_size=4, batch_buckets=[2, 4], batch_timeout_s=0.2,
+                              **GEN_KW, **SAMPLING_KW)
+    out = {"refused": refused, "front": server.is_front, "workers": server.num_workers}
+    if server.is_front:
+        futs = [server.submit(text, clap_token_ids=toks, seed=seed) for text, toks, seed in requests]
+        server.start()
+        out["waves"] = [f.result(timeout=120) for f in futs]
+        server.stop()
+    else:
+        server.start().stop(timeout=None)
+    out["codes"] = list(codes)
+
+    generate = musiclm.generate
+
+    def fails_once(*args, **kwargs):
+        musiclm.generate = generate
+        raise RuntimeError("injected fault on rank 1")
+
+    if rank == 1:
+        musiclm.generate = fails_once
+    server = GenerationServer(musiclm, batch_size=2, batch_buckets=[2], batch_timeout_s=0.2,
+                              **GEN_KW, **SAMPLING_KW)
+    if server.is_front:
+        fut = server.submit("alpha", seed=9)
+        server.start()
+        t0 = time.monotonic()
+        try:
+            fut.result(timeout=60)
+            out["fault"] = "resolved"
+        except Exception as e:  # the collective that rank 1 left
+            out["fault"] = f"{type(e).__name__}: {e}"
+        out["fault_s"] = time.monotonic() - t0
+        server.stop(timeout=30)
+        torch.save(out, folder / f"rank{rank}.pt")
+    else:
+        try:
+            server.start().stop(timeout=60)
+            out["fault"] = "returned"
+        except RuntimeError as e:
+            out["fault"] = f"{e} <- {e.__cause__}"
+        torch.save(out, folder / f"rank{rank}.pt")
+        return  # the process ends, which fails the front's pending collective
+    dist.destroy_process_group()
