@@ -162,6 +162,18 @@ Phases, each of which fails the run:
      4 text requests, each one's codes bit-equal and wave within 1e-6 to
      one process's server, and both ranks stop. gloo over one card shows
      the function on the card's kernels, not tensor-parallel speed.
+ 12. the CLAP options and the profiling hooks: (a) PANN Cnn14, Cnn10 and
+     Cnn6 with the audio projection, b4 x 10 s at 48 kHz, and (b)
+     HTSAT-base and HTSAT-large b1 x 10 s and the CLIP text tower (77 x
+     512, 12 layers) b8, float32 on the card against the CPU (towers'
+     TOWER_REL / TOWER_ABS), each timed beside its bound; (c) musiclm_small
+     with clap_rvq_cfg.amodel_type "PANN-14" through
+     load.create_musiclm_from_config, generate_top_match(2 prompts x 2
+     samples, 4 s) in "fused" (sims in [-1, 1], exactly kernels 1, 4 and 7;
+     its wall and PANN's share), its second generate under profiling.trace
+     and profiling.annotate (the range and kernel 7 in the written trace,
+     device_memory_stats' peak above 0); (d) ClapModule's three entry points
+     on the card against the CPU.
 Phase 8 also builds musiclm_large itself (30 s semantic, 10 s coarse, 3 s
 fine windows, the fusion CLAP) and runs generate(text=1 prompt) in "fused"
 at b1 x 10 s, one whole coarse window (kernel 7 24 times a decode step).
@@ -186,7 +198,7 @@ times kernel 4 alone at its phase-2 shapes from the port in the checkout
 ROOT (another commit's, for a comparison within one call) and prints a JSON
 line of its device ms.
 
-    python3 chip_smoke.py --phase8      # or --phase9, --phase10, --phase11
+    python3 chip_smoke.py --phase8      # or --phase9, --phase10, --phase11, --phase12
 
 builds the kernels and runs that phase alone.
 
@@ -1118,6 +1130,11 @@ def main() -> int:
 
     # ---- 11. tensor parallelism and the serving layouts ----
     print(json.dumps({"phase11": tp_phase(torch, omt_config, dev, card, all_counters())}))
+    torch.cuda.empty_cache()
+
+    # ---- 12. the CLAP options and the profiling hooks ----
+    print(json.dumps({"phase12_launches": clap_options_phase(
+        torch, omt_config, dev, card, counters, expect, windows, time_ms)}))
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
@@ -3998,6 +4015,248 @@ def tp_phase(torch, omt_config, dev, card, counters, large_config: Path = None,
     return out
 
 
+# phase 12: the PANN towers at b4 x 10 s and HTSAT-base / -large at b1 x 10 s
+# at 48 kHz, the CLIP text tower at b8 x 77; reranking and ClapModule on a
+# PANN-14 musiclm_small; the profiling hooks around one generate
+PANN_PRESETS = ("PANN-14", "PANN-10", "PANN-6")
+TRACE_RANGE = "phase12_generate"
+KERNEL7_SYMBOL = "fused_layer_kernel"
+
+
+def clap_options_phase(torch, omt_config, dev, card, counters, expect, windows, stream_ms,
+                       model_config: Path = None) -> dict:
+    """Phase 12: the CLAP options and the profiling hooks. (a) PANN Cnn14,
+    Cnn10 and Cnn6 with the audio projection, b4 x 10 s at 48 kHz, float32
+    on the card against the CPU (the tower's embedding within TOWER_REL x
+    max, the unit-norm joint embedding within TOWER_ABS), each timed beside
+    its bound; (b) HTSAT-base and HTSAT-large b1 x 10 s, and the CLIP text
+    tower at its preset geometry (77 x 512, 12 layers) at b8, likewise; (c)
+    musiclm_small (``model_config``) built by load.create_musiclm_from_config
+    with clap_rvq_cfg.amodel_type "PANN-14" and generate_top_match(2 prompts
+    x 2 samples, 4 s) in "fused": sims in [-1, 1], exactly kernels 1, 4 and
+    7, its wall and PANN's share of it; its second generate under
+    profiling.trace and profiling.annotate, the written trace read back
+    (the annotated range and kernel 7's symbol in it, its CUDA kernel events
+    counted) and profiling.device_memory_stats' peak; (d) ClapModule's
+    get_text_embedding, get_audio_embedding_from_data (10 s clips and a 7 s
+    one, repeat-padded) and get_audio_embedding_from_filelist (two seeded
+    WAVs, 44.1 kHz x 7 s and 48 kHz x 12 s) on the card against the CPU.
+    Returns the reranking run's launches."""
+    import dataclasses
+
+    from open_musiclm_torch import load as omt_load
+    from open_musiclm_torch import profiling
+    from open_musiclm_torch.data.audio_io import write_wav
+    from open_musiclm_torch.models.clap.clap import Projection, l2_normalize
+    from open_musiclm_torch.models.clap.clip_text import ClipTextConfig, ClipTextTransformer
+    from open_musiclm_torch.models.clap.hook import ClapModule
+    from open_musiclm_torch.models.clap.htsat import HTSAT
+    from open_musiclm_torch.models.clap.model_configs import audio_config_from_name
+    from open_musiclm_torch.models.clap.pann import EMBED_DIM, PANN
+    from open_musiclm_torch.models.clap.roberta import init_normal_
+    from open_musiclm_torch.models.musiclm import MusicLM
+    from open_musiclm_torch.models.stages import Stage
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def card_vs_cpu(what, cpu_model, run, x, outs):
+        """``run(model, x)`` -> tuple of outputs, on the CPU and on a copy of
+        the model on the card; each output held to the CPU's within its
+        (relative, absolute) tolerance in ``outs``; the card's stream ms and
+        the bound of one run."""
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        x_d = x.to(dev)
+        with torch.no_grad():
+            want = run(cpu_model, x)
+            got = [t.cpu() for t in run(gpu_model, x_d)]
+        errs = []
+        for (label, rel), w, g in zip(outs, want, got):
+            err = (g.float() - w.float()).abs().max().item()
+            tol = rel * (w.abs().max().item() if label != "unit-norm" else 1.0)
+            errs.append(f"{label} {tuple(w.shape)} max_abs_err {err:.3e} tol {tol:.3e}")
+            if not (err <= tol and torch.isfinite(g).all()):
+                fail(f"phase 12: {what} {label} differs on the card: {err} > {tol}")
+        ms = stream_ms(lambda: run(gpu_model, x_d), reps=5)
+        flops, params = tower_cost(torch, gpu_model, lambda: run(gpu_model, x_d))
+        return gpu_model, errs, ms, flops, params
+
+    def mel_flops(cfg, rows, samples):
+        frames = 1 + samples // cfg.hop_size
+        return rows * frames * (2.5 * cfg.window_size_fft * math.log2(cfg.window_size_fft)
+                                + 2 * (cfg.window_size_fft // 2 + 1) * cfg.mel_bins)
+
+    # a. PANN + the audio projection, b4 x 10 s at 48 kHz
+    clips = torch.cat([seeded_prime(200 + i, 10, 48000) for i in range(4)])
+    tower_ms = {}
+    for i, name in enumerate(PANN_PRESETS):
+        cfg = audio_config_from_name(name)
+        g = torch.Generator().manual_seed(50 + i)
+        tower = torch.nn.ModuleDict({"tower": PANN(cfg, generator=g), "proj": Projection(EMBED_DIM[cfg.arch])})
+        init_normal_(tower["proj"], g)
+
+        def run(m, x):
+            emb = m["tower"](x)["embedding"]
+            return emb, l2_normalize(m["proj"](emb))
+
+        _, errs, ms, flops, params = card_vs_cpu(name, tower.eval(), run, clips,
+                                                 (("embedding", TOWER_REL), ("unit-norm", TOWER_ABS)))
+        flops += mel_flops(cfg, 4, clips.shape[1])
+        b_ms, b_by = bound_ms(params + clips.numel() * 4, flops, "float32")
+        tower_ms[name] = ms
+        print(f"phase 12: {name} ({cfg.arch}) + projection b4 x 10 s float32, card vs CPU: {'; '.join(errs)}; "
+              f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; {flops / 4e9:.1f} GFLOP a clip, "
+              f"{flops / 1e9 / ms:.2f} TFLOP/s) [{card}]", flush=True)
+        del tower
+
+    # b. HTSAT-base / -large b1 x 10 s; the CLIP text tower b8 x 77
+    for i, name in enumerate(("HTSAT-base", "HTSAT-large")):
+        cfg = audio_config_from_name(name)
+        tower = HTSAT(cfg, generator=torch.Generator().manual_seed(60 + i)).eval()
+        _, errs, ms, flops, params = card_vs_cpu(name, tower, lambda m, x: (m(x)["embedding"],), clips[:1],
+                                                 (("embedding", TOWER_REL),))
+        flops += mel_flops(cfg, 1, clips.shape[1])
+        b_ms, b_by = bound_ms(params + clips[:1].numel() * 4, flops, "float32")
+        print(f"phase 12: {name} b1 x 10 s float32, card vs CPU: {'; '.join(errs)}; {ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, {flops / 1e9 / ms:.2f} TFLOP/s) [{card}]", flush=True)
+        del tower
+    ccfg = ClipTextConfig()
+    g = torch.Generator().manual_seed(70)
+    ids = torch.randint(1, ccfg.vocab_size - 2, (8, ccfg.context_length), generator=g)
+    for r in range(8):  # <start_of_text> ... <end_of_text>, then zeros
+        end = 5 + 9 * r
+        ids[r, 0], ids[r, end], ids[r, end + 1:] = ccfg.vocab_size - 2, ccfg.vocab_size - 1, 0
+    text_tower = ClipTextTransformer(ccfg, 512, generator=g).eval()
+    _, errs, ms, _, _ = card_vs_cpu("CLIP text tower", text_tower, lambda m, x: (m(x),), ids,
+                                    (("projected feature", TOWER_REL),))
+    # a layer: q/k/v/out and the 4x MLP (24 b n w^2), causal scores and p v
+    # (2 b n^2 w); the projection; read: the weights but the token table, whose
+    # b n rows are gathered
+    b, n, w = *ids.shape, ccfg.width
+    flops = ccfg.layers * (24 * b * n * w * w + 2 * b * n * n * w) + 2 * b * (w * 512 + 512 * 512)
+    params = sum(p.numel() * 4 for name, p in text_tower.named_parameters() if name != "token_embedding.weight")
+    b_ms, b_by = bound_ms(params + b * n * w * 4 + ids.numel() * 8, flops, "float32")
+    print(f"phase 12: CLIP text tower (77 x 512, 12 layers) b8 float32, card vs CPU: {'; '.join(errs)}; "
+          f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; {flops / 1e9:.1f} GFLOP) [{card}]", flush=True)
+    del text_tower
+
+    # c. reranking on musiclm_small with a PANN-14 CLAP, "fused"
+    mc = omt_config.load_model_config(str(model_config or ROOT / "configs" / "model" / "musiclm_small.json"))
+    mc = dataclasses.replace(mc, clap_rvq_cfg=dataclasses.replace(mc.clap_rvq_cfg, amodel_type="PANN-14"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_demo_vocab(Path(tmp))
+        musiclm = omt_load.create_musiclm_from_config(mc, seed=12, device=dev, tokenizer_path=tmp)
+    clap = musiclm.clap
+    if not (isinstance(clap.model.audio_branch, PANN) and clap.model.audio_branch.cfg.arch == "Cnn14"
+            and (clap.sample_rate, clap.clip_samples) == (48000, 480000)):
+        fail("phase 12: create_musiclm_from_config did not build a PANN-14 CLAP at 48 kHz x 10 s")
+    print(f"phase 12: musiclm_small with amodel_type PANN-14 built in {time.perf_counter() - t0:.1f} s", flush=True)
+    fused = {f"{name}_stage": Stage(st.model.to(torch.bfloat16), name=st.name, quantized=True, flash_kv="fused")
+             for name, st in (("semantic", musiclm.semantic_stage), ("coarse", musiclm.coarse_stage),
+                              ("fine", musiclm.fine_stage))}
+    ranker = MusicLM(codec=musiclm.codec, clap=clap, tokenizer=musiclm.tokenizer, **fused)
+    tower_s, profs, gen_s = [0.0], [], []
+    audio_embedding, generate = clap.audio_embedding, ranker.generate
+
+    def timed_embedding(wav):
+        sync()
+        t0 = time.perf_counter()
+        out = audio_embedding(wav)
+        sync()
+        tower_s[0] += time.perf_counter() - t0
+        return out
+
+    def traced_second(**kw):
+        sync()
+        t0 = time.perf_counter()
+        if not profs:
+            profs.append(None)
+            out = generate(**kw)
+        else:
+            with profiling.trace(trace_dir) as prof, profiling.annotate(TRACE_RANGE):
+                out = generate(**kw)
+            profs.append(prof)
+        sync()
+        gen_s.append(time.perf_counter() - t0)
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        clap.audio_embedding, ranker.generate = timed_embedding, traced_second
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        sync()
+        t0 = time.perf_counter()
+        samples, sims = ranker.generate_top_match(text=list(PROMPTS[:2]), num_samples=2, num_top_matches=2,
+                                                  generator=gen, output_seconds=4.0, **windows)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        del clap.audio_embedding, ranker.generate
+        events = json.loads(Path(profs[1].trace_path).read_text())["traceEvents"]
+    print(f"phase 12: generate_top_match(2 prompts x 2 samples, 4 s) flash_kv=fused, PANN-14 CLAP: sims "
+          f"{[round(float(x), 5) for sim in sims for x in sim]}, {wall:.2f} s wall: the first generate "
+          f"{gen_s[0]:.2f} s, the second under the profiler {gen_s[1]:.2f} s (the trace written); PANN-14 (2 "
+          f"calls at b2) {tower_s[0]:.3f} s = {100 * tower_s[0] / wall:.1f} % of it [{card}]", flush=True)
+    for sample, sim in zip(samples, sims):
+        if tuple(sample.shape) != (2, 96000) or tuple(sim.shape) != (2,) or not torch.isfinite(sample.float()).all():
+            fail(f"phase 12: reranking sample {tuple(sample.shape)} (want (2, 96000)), sims {tuple(sim.shape)}")
+        if not (sim.abs() <= 1.0 + 1e-6).all():
+            fail(f"phase 12: similarity {sim.tolist()} outside [-1, 1]")
+    expect("phase 12 reranking (PANN-14), flash_kv=fused", launches,
+           {"prefill_attention", "int8_matmul", "fused_layer_decode_step"})
+
+    # e. the profiling hooks: the trace of the second generate
+    names = [e.get("name", "") for e in events]
+    kernels = [n for e, n in zip(events, names) if e.get("cat") == "kernel"]
+    k7 = sum(KERNEL7_SYMBOL in n for n in kernels)
+    stats = profiling.device_memory_stats()
+    peak = (stats.get(str(torch.device("cuda", dev.index or 0))) or {}).get("allocated_bytes.all.peak", 0)
+    print(f"phase 12: trace of the second generate: {len(events)} events, {len(kernels)} CUDA kernel events, "
+          f"{k7} of kernel 7 ({KERNEL7_SYMBOL}), range {TRACE_RANGE!r} {'found' if TRACE_RANGE in names else 'missing'}"
+          f"; device_memory_stats peak {peak / 2**30:.2f} GiB [{card}]", flush=True)
+    if TRACE_RANGE not in names:
+        fail(f"phase 12: the annotated range {TRACE_RANGE} is not in the trace")
+    if on_card and not (k7 > 0 and peak > 0):
+        fail(f"phase 12: the trace holds {k7} kernel-7 events, device_memory_stats a peak of {peak}")
+
+    # d. ClapModule on the card against the CPU
+    tok = musiclm.tokenizer
+    cpu_model = copy.deepcopy(clap.model).cpu()
+    kw = dict(sample_rate=clap.sample_rate, clip_samples=clap.clip_samples)
+    hook, hook_cpu = ClapModule(model=clap.model, tokenizer=tok, **kw), ClapModule(model=cpu_model, tokenizer=tok, **kw)
+    text = hook.get_text_embedding(list(PROMPTS[:4]))
+    err = (text.cpu() - hook_cpu.get_text_embedding(list(PROMPTS[:4]))).abs().max().item()
+    lines = [f"get_text_embedding b4 {err:.3e} (tol {TEXT_EMB_TOL:.0e})"]
+    if text.device.type != dev.type or not err <= TEXT_EMB_TOL:
+        fail(f"phase 12: ClapModule text embeddings on {text.device}: {err} > {TEXT_EMB_TOL}")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(Path(tmp) / f"clip{i}.wav") for i in range(2)]
+        for path, (sec, hz), seed in zip(paths, ((7.0, 44100), (12.0, 48000)), (210, 211)):
+            write_wav(path, seeded_prime(seed, sec, hz)[0].numpy(), hz)
+        for label, call, arg in (("get_audio_embedding_from_data b2 x 10 s", "get_audio_embedding_from_data",
+                                  clips[:2]),
+                                 ("get_audio_embedding_from_data b1 x 7 s (repeat-pad)",
+                                  "get_audio_embedding_from_data", clips[2:, :7 * 48000]),
+                                 ("get_audio_embedding_from_filelist (2 WAVs)", "get_audio_embedding_from_filelist",
+                                  paths)):
+            got = getattr(hook, call)(arg)
+            err = (got.cpu() - getattr(hook_cpu, call)(arg)).abs().max().item()
+            lines.append(f"{label} {err:.3e}")
+            if got.device.type != dev.type or not err <= TOWER_ABS:
+                fail(f"phase 12: ClapModule {label} on {got.device}: {err} > {TOWER_ABS}")
+    print(f"phase 12: ClapModule (PANN-14, RoBERTa-base) card vs CPU: {'; '.join(lines)} (tol {TOWER_ABS:.0e})",
+          flush=True)
+    del musiclm, ranker, fused, clap, cpu_model, hook, hook_cpu
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def all_counters():
     """Every kernel's launch counter: name -> (wrapper, attribute)."""
     from open_musiclm_torch.ops import attention, decode_attention, fused_ff, fused_layer, quant
@@ -4012,7 +4271,7 @@ def all_counters():
 
 
 def phase_only(n: int) -> int:
-    """Phase 1 (the build) and phase 8, 10 or 11 alone."""
+    """Phase 1 (the build) and phase 8, 10, 11 or 12 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4032,15 +4291,16 @@ def phase_only(n: int) -> int:
     dev = torch.device("cuda")
     if n == 11:
         print(json.dumps({"phase11": tp_phase(torch, omt_config, dev, card, all_counters())}))
-    elif n == 8:
+    elif n in (8, 12):
         mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
         g = mc.global_cfg
         windows = dict(semantic_window_seconds=int(g.semantic_audio_length_seconds),
                        coarse_window_seconds=int(g.coarse_audio_length_seconds),
                        fine_window_seconds=int(g.fine_audio_length_seconds))
-        launches = large_phase(torch, omt_config, dev, card, all_counters(), expect_launches, windows,
-                               Timer(torch, dev).stream_ms)
-        print(json.dumps({"phase8_launches": launches}))
+        phase = large_phase if n == 8 else clap_options_phase
+        launches = phase(torch, omt_config, dev, card, all_counters(), expect_launches, windows,
+                         Timer(torch, dev).stream_ms)
+        print(json.dumps({f"phase{n}_launches": launches}))
     else:
         phase10(torch, omt_config, dev, card, all_counters())
     return 0
@@ -4244,7 +4504,7 @@ if __name__ == "__main__":
         sys.exit(probe_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--phase9":
         sys.exit(phase9_only())
-    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10", "--phase11"):
+    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10", "--phase11", "--phase12"):
         sys.exit(phase_only(int(sys.argv[1][len("--phase"):])))
     if len(sys.argv) == 8 and sys.argv[1] == "--dp_rank":
         sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:]))

@@ -4,7 +4,7 @@ The same dataclasses over the unchanged ``configs/model/*.json`` and
 ``configs/training/*.json``; the factories build the port's modules with a
 seeded random init from a ``torch.Generator``, on the card unless the caller
 asks for the CPU (``device="cpu"``): the stages, the Encodec codec (encoder
-and decoder), the CLAP (RoBERTa-base and HTSAT) with its RVQ, and HuBERT
+and decoder), the CLAP (RoBERTa-base and HTSAT or PANN) with its RVQ, and HuBERT
 (MERT-v0 geometry) with its k-means codebook.
 """
 

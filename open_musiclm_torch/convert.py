@@ -1,10 +1,10 @@
 """Weight bridge: the JAX package's parameter pytrees -> the port's state_dicts.
 
 Input is a stage's ``params``, the codec's ``codec_params``, the CLAP's,
-RoBERTa's, HTSAT's or HuBERT's params, as nested dicts of numpy arrays
-(``jax.device_get`` of the flax variables, with or without the top-level
-``"params"`` key; HTSAT's with its ``"batch_stats"``), an ``RVQState``, or
-k-means centroids. Layouts:
+RoBERTa's, the CLIP text tower's, HTSAT's, PANN's or HuBERT's params, as
+nested dicts of numpy arrays (``jax.device_get`` of the flax variables, with
+or without the top-level ``"params"`` key; HTSAT's and PANN's with their
+``"batch_stats"``), an ``RVQState``, or k-means centroids. Layouts:
 
   * flax Dense kernel [in, out]           -> nn.Linear weight [out, in]
   * flax Conv kernel [k, in, out]         -> nn.Conv1d weight [out, in, k]
@@ -248,10 +248,7 @@ def fusion_state_dict(params, stats, prefix: str = "") -> StateDict:
                 sd[pre + "weight"] = _conv2d(node[name]["kernel"])
                 sd[pre + "bias"] = _t(node[name]["bias"])
             else:
-                st = stats[branch][name]
-                sd[pre + "weight"], sd[pre + "bias"] = _t(node[name]["scale"]), _t(node[name]["bias"])
-                sd[pre + "running_mean"], sd[pre + "running_var"] = _t(st["mean"]), _t(st["var"])
-                sd[pre + "num_batches_tracked"] = torch.tensor(0)
+                _batch_norm_entries(sd, pre[:-1], node[name], stats[branch][name])
     return sd
 
 
@@ -263,14 +260,12 @@ def htsat_state_dict(variables) -> StateDict:
     ``patch_embed.fusion_model``."""
     p, stats = variables["params"], variables["batch_stats"]
     sd: StateDict = {
-        "bn0.weight": _t(p["bn0"]["scale"]), "bn0.bias": _t(p["bn0"]["bias"]),
-        "bn0.running_mean": _t(stats["bn0"]["mean"]), "bn0.running_var": _t(stats["bn0"]["var"]),
-        "bn0.num_batches_tracked": torch.tensor(0),
         "patch_embed.proj.weight": _conv2d(p["patch_embed"]["kernel"]),
         "patch_embed.proj.bias": _t(p["patch_embed"]["bias"]),
         "tscam_conv.weight": _conv2d(p["tscam_conv"]["kernel"]),
         "tscam_conv.bias": _t(p["tscam_conv"]["bias"]),
     }
+    _batch_norm_entries(sd, "bn0", p["bn0"], stats["bn0"])
     _layer_norm_entry(sd, "patch_embed.norm", p["patch_norm"])
     _layer_norm_entry(sd, "norm", p["norm"])
     if "mel_conv2d" in p:
@@ -295,14 +290,68 @@ def htsat_state_dict(variables) -> StateDict:
     return sd
 
 
+def _batch_norm_entries(sd: StateDict, prefix: str, node, stats) -> None:
+    sd[prefix + ".weight"], sd[prefix + ".bias"] = _t(node["scale"]), _t(node["bias"])
+    sd[prefix + ".running_mean"], sd[prefix + ".running_var"] = _t(stats["mean"]), _t(stats["var"])
+    sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
+
+
+def pann_state_dict(variables) -> StateDict:
+    """PANN flax variables (``params`` and ``batch_stats``) -> the port's
+    state_dict in laion's ``pann_model.py`` layout: each BatchNorm with its
+    running statistics, conv kernels HWIO -> OIHW."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    _batch_norm_entries(sd, "bn0", p["bn0"], stats["bn0"])
+    for key, node in p.items():
+        if key.startswith("conv_block"):
+            for name, leaf in node.items():
+                if name.startswith("conv"):
+                    sd[f"{key}.{name}.weight"] = _conv2d(leaf["kernel"])
+                else:
+                    _batch_norm_entries(sd, f"{key}.{name}", leaf, stats[key][name])
+    _linear_entry(sd, "fc1", p["fc1"])
+    _linear_entry(sd, "fc_audioset", p["fc_audioset"])
+    return sd
+
+
+def clip_text_state_dict(params) -> StateDict:
+    """ClipTextTransformer flax params -> the port's state_dict in the laion
+    CLIP text layout: flax's query / key / value kernels stacked into
+    ``attn.in_proj_weight`` [3W, W], ``proj_fc1`` / ``proj_fc2`` into
+    ``text_projection.0`` / ``.2``."""
+    p = _unwrap(params)
+    sd: StateDict = {"token_embedding.weight": _t(p["token_embedding"]["embedding"]),
+                     "positional_embedding": _t(p["positional_embedding"])}
+    layers = sorted(int(k.split("_")[1]) for k in p if k.startswith("resblock_"))
+    for i in layers:
+        block, pre = p[f"resblock_{i}"], f"transformer.resblocks.{i}."
+        _layer_norm_entry(sd, pre + "ln_1", block["ln_1"])
+        attn: StateDict = {}
+        _mha_entries(attn, "", block["attn"], ("q", "k", "v", "out_proj"))
+        sd[pre + "attn.in_proj_weight"] = torch.cat([attn[f"{n}.weight"] for n in "qkv"])
+        sd[pre + "attn.in_proj_bias"] = torch.cat([attn[f"{n}.bias"] for n in "qkv"])
+        for name in ("weight", "bias"):
+            sd[f"{pre}attn.out_proj.{name}"] = attn[f"out_proj.{name}"]
+        _layer_norm_entry(sd, pre + "ln_2", block["ln_2"])
+        _linear_entry(sd, pre + "mlp.c_fc", block["c_fc"])
+        _linear_entry(sd, pre + "mlp.c_proj", block["c_proj"])
+    _layer_norm_entry(sd, "ln_final", p["ln_final"])
+    _linear_entry(sd, "text_projection.0", p["proj_fc1"])
+    _linear_entry(sd, "text_projection.2", p["proj_fc2"])
+    return sd
+
+
 def clap_audio_state_dict(params) -> StateDict:
     """The audio side of CLAP flax variables -> the port's CLAP state_dict
-    entries: ``audio_branch`` (with bn0's statistics from the variables'
+    entries: ``audio_branch`` (HTSAT, or PANN where the tower has
+    ``conv_block1``; the BatchNorms' statistics from the variables'
     ``batch_stats``), ``audio_projection``, ``logit_scale_a``, and
     ``audio_transform`` when the params hold it."""
     p = _unwrap(params)
     stats = params["batch_stats"]["audio_branch"]
-    sd: StateDict = {f"audio_branch.{k}": v for k, v in htsat_state_dict(
+    tower = pann_state_dict if "conv_block1" in p["audio_branch"] else htsat_state_dict
+    sd: StateDict = {f"audio_branch.{k}": v for k, v in tower(
         {"params": p["audio_branch"], "batch_stats": stats}).items()}
     _linear_entry(sd, "audio_projection.0", p["audio_projection"]["fc1"])
     _linear_entry(sd, "audio_projection.2", p["audio_projection"]["fc2"])

@@ -83,6 +83,12 @@ def log(t: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return torch.log(t + eps)
 
 
+def gumbel_noise(shape, *, generator: Optional[torch.Generator] = None, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """-log(-log(u)) of uniforms u in [0, 1) drawn from ``generator``."""
+    return -log(-log(torch.rand(shape, generator=generator, dtype=dtype, device=device)))
+
+
 def gumbel_sample(
     logits: torch.Tensor,
     temperature: float = 1.0,
@@ -158,6 +164,11 @@ def mask_out_after_eos_id(
 def append_eos_id(ids: torch.Tensor, eos_id: int) -> torch.Tensor:
     eos = torch.full(ids.shape[:-1] + (1,), eos_id, dtype=ids.dtype, device=ids.device)
     return torch.cat([ids, eos], dim=-1)
+
+
+def all_rows_have_eos_id(ids: torch.Tensor, eos_id: int) -> torch.Tensor:
+    """0-d bool: every row of ``ids`` holds ``eos_id``."""
+    return (ids == eos_id).any(dim=-1).all()
 
 
 def unique_consecutive_mask(ids: torch.Tensor) -> torch.Tensor:

@@ -43,6 +43,7 @@ _SIGNATURES = {
                       ctypes.c_long),
     "aio_resample": ([_F32P, ctypes.c_long, ctypes.c_int, ctypes.c_int, _F32P, ctypes.c_long], ctypes.c_long),
     "aio_write_wav": ([ctypes.c_char_p, _F32P, ctypes.c_long, ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "aio_have_mp3": ([], ctypes.c_int),
 }
 
 _lib = None  # the bound library, False where none loads
@@ -90,6 +91,12 @@ def _load_lib():
 
 def have_native() -> bool:
     return bool(_load_lib())
+
+
+def have_mp3() -> bool:
+    """Whether the native library loads and finds libmpg123 to decode MP3."""
+    lib = _load_lib()
+    return bool(lib) and hasattr(lib, "aio_have_mp3") and bool(lib.aio_have_mp3())
 
 
 def wav_info(path: str) -> Tuple[int, int, int]:

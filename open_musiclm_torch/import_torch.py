@@ -16,8 +16,9 @@ reads a ``.pt`` / Hugging Face ``.bin`` file):
   * HuBERT / MERT (``transformers.HubertModel``; the positional conv's weight
     norm over dim 2, as ``weight_g`` / ``weight_v`` or
     ``parametrizations.weight.original0/1``);
-  * RoBERTa (``transformers.RobertaModel``), HTSAT and the laion CLAP bundle
-    (keys optionally prefixed ``module.``);
+  * RoBERTa (``transformers.RobertaModel``), HTSAT, PANN (laion's
+    ``pann_model.py`` Cnn14 / Cnn10 / Cnn6) and the laion CLAP bundle (keys
+    optionally prefixed ``module.``);
   * the ResidualVQ (``vector_quantize_pytorch``, 2-D or 3-D codebooks) and a
     scikit-learn MiniBatchKMeans joblib dump.
 The towers already use the reference key layout; their importers keep the
@@ -256,13 +257,38 @@ def import_htsat(sd: StateDict, cfg) -> TorchStateDict:
     return out
 
 
+def import_pann(sd: StateDict, cfg) -> TorchStateDict:
+    """A PANN tower state dict (``audio_branch.`` stripped) of ``cfg.arch``
+    -> the port's PANN: every BatchNorm with its running statistics, each
+    block's one (Cnn6) or two convs, ``fc1`` and ``fc_audioset``."""
+    from .models.clap.pann import CHANNELS
+
+    bn = ("weight", "bias", "running_mean", "running_var")
+    out: TorchStateDict = {}
+    _copy(out, sd, "bn0", "bn0", bn)
+    out["bn0.num_batches_tracked"] = torch.tensor(0)
+    for i in range(1, len(CHANNELS[cfg.arch]) + 1):
+        for j in (1,) if cfg.arch == "Cnn6" else (1, 2):
+            pre = f"conv_block{i}."
+            _copy(out, sd, pre + f"conv{j}", pre + f"conv{j}", ("weight",))
+            _copy(out, sd, pre + f"bn{j}", pre + f"bn{j}", bn)
+            out[pre + f"bn{j}.num_batches_tracked"] = torch.tensor(0)
+    for name in ("fc1", "fc_audioset"):
+        _copy(out, sd, name, name)
+    return out
+
+
 def import_clap(sd: StateDict, audio_cfg, text_cfg) -> TorchStateDict:
     """A laion CLAP checkpoint (keys optionally prefixed ``module.``) -> the
-    port's CLAP: both towers, projections, transforms and logit scales."""
+    port's CLAP: both towers (HTSAT, or PANN for a ``PANNConfig``),
+    projections, transforms and logit scales."""
+    from .models.clap.model_configs import PANNConfig
+
     if any(k.startswith("module.") for k in sd):
         sd = strip_prefix(sd, "module.")
+    audio = import_pann if isinstance(audio_cfg, PANNConfig) else import_htsat
     out: TorchStateDict = {}
-    for side, tower in (("audio", import_htsat(strip_prefix(sd, "audio_branch."), audio_cfg)),
+    for side, tower in (("audio", audio(strip_prefix(sd, "audio_branch."), audio_cfg)),
                         ("text", import_roberta(strip_prefix(sd, "text_branch."), text_cfg))):
         out.update({f"{side}_branch.{k}": v for k, v in tower.items()})
         for j in (0, 2):

@@ -3,25 +3,27 @@ open_musiclm_tpu/models/clap/clap.py).
 
 ``CLAP.get_text_embedding``: RoBERTa pooler -> ``text_projection`` (Linear,
 ReLU, Linear) -> L2-normalized 512-d joint embedding.
-``CLAP.get_audio_embedding``: HTSAT ``embedding`` -> ``audio_projection`` ->
-L2-normalized joint embedding. ``ClapQuantized`` quantizes an embedding
-with the residual VQ into the [B, Q, 1] conditioning tokens every stage
-takes, and prepares audio as the laion hook does (int16 round trip,
-repeat-pad or crop to 10 s at 48 kHz). The ``state_dict`` keys follow the
+``CLAP.get_audio_embedding``: the audio tower's (HTSAT or PANN)
+``embedding`` -> ``audio_projection`` -> L2-normalized joint embedding.
+``ClapQuantized`` quantizes an embedding with the residual VQ into the
+[B, Q, 1] conditioning tokens every stage takes, and prepares audio as the
+laion hook does (int16 round trip, repeat-pad or crop to 10 s at 48 kHz).
+The ``state_dict`` keys follow the
 laion CLAP checkpoint (``text_branch.*``, ``audio_branch.*``,
 ``{text,audio}_projection.{0,2}``, ``{text,audio}_transform.sequential.{0,3}``,
 ``logit_scale_{t,a}``). A fusion CLAP (``enable_fusion``, musiclm_large)
 embeds every clip through the four-view mel stack (``wav_to_mel_fusion``),
 a clip-length one with ``longer`` unset; longer clips keep their whole
-length. ``learn_rvq_step`` is one step of the RVQ's EMA training. PANN is
-not ported yet.
+length. With a ``PANNConfig`` the audio tower is PANN (Cnn14 / Cnn10 /
+Cnn6) and the audio projection takes its embedding width. ``learn_rvq_step``
+is one step of the RVQ's EMA training.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -32,6 +34,8 @@ from ..rvq import RVQState, rvq_encode, rvq_update
 from .fusion import build_mel_fusion
 from .htsat import HTSAT, HTSATConfig
 from .mel import logmel
+from .model_configs import PANNConfig
+from .pann import PANN
 from .roberta import RobertaConfig, RobertaModel, init_normal_
 
 JOINT_EMBED = 512
@@ -74,14 +78,15 @@ class MLPLayers(nn.Module):
 
 
 class CLAP(nn.Module):
-    """The dual-tower CLAP: RoBERTa-base, and HTSAT when ``audio_cfg`` is
-    given (without it the CLAP has the text side only). The text side's
-    weights are drawn first, as ``RobertaModel``'s, then the audio side's."""
+    """The dual-tower CLAP: RoBERTa-base, and HTSAT (an ``HTSATConfig``) or
+    PANN (a ``PANNConfig``) when ``audio_cfg`` is given (without it the CLAP
+    has the text side only). The text side's weights are drawn first, as
+    ``RobertaModel``'s, then the audio side's."""
 
     def __init__(self, text_cfg: RobertaConfig = RobertaConfig(), joint_embed_shape: int = JOINT_EMBED,
                  compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None,
-                 audio_cfg: Optional[HTSATConfig] = None):
+                 audio_cfg: Optional[Union[HTSATConfig, PANNConfig]] = None):
         super().__init__()
         self.text_branch = RobertaModel(text_cfg, compute_dtype=compute_dtype, generator=generator)
         self.text_projection = Projection(text_cfg.hidden_size, joint_embed_shape)
@@ -91,8 +96,13 @@ class CLAP(nn.Module):
         init_normal_(self.text_transform, generator)
         self.audio_branch = None
         if audio_cfg is not None:
-            self.audio_branch = HTSAT(audio_cfg, generator=generator, compute_dtype=compute_dtype)
-            self.audio_projection = Projection(audio_cfg.num_features, joint_embed_shape)
+            if isinstance(audio_cfg, PANNConfig):
+                self.audio_branch = PANN(audio_cfg, generator=generator, compute_dtype=compute_dtype)
+                width = self.audio_branch.embed_dim
+            else:
+                self.audio_branch = HTSAT(audio_cfg, generator=generator, compute_dtype=compute_dtype)
+                width = audio_cfg.num_features
+            self.audio_projection = Projection(width, joint_embed_shape)
             self.audio_transform = MLPLayers(joint_embed_shape)
             self.logit_scale_a = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
             init_normal_(self.audio_projection, generator)
@@ -107,11 +117,13 @@ class CLAP(nn.Module):
                             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, T] at the tower's rate -> L2-normalized [B, joint] float32; a
         fusion CLAP always takes the four-view mel stack. ``train`` runs
-        HTSAT's training forward (batch statistics; SpecAugment from
-        ``generator`` without fusion)."""
+        the tower's training forward (batch statistics; HTSAT's SpecAugment
+        from ``generator`` without fusion)."""
         if self.audio_branch is None:
             raise ValueError("this CLAP was built without an audio tower (audio_cfg=None)")
         wav = wav.to(self.audio_projection[0].weight.device)
+        if isinstance(self.audio_branch, PANN):
+            return self._project_audio(self.audio_branch(wav.float(), train=train))
         if self.audio_branch.cfg.enable_fusion:
             return self.get_audio_embedding_fusion(*wav_to_mel_fusion(self.audio_branch.cfg, wav), train=train)
         return self._project_audio(self.audio_branch(wav.float(), train=train, generator=generator))

@@ -18,8 +18,8 @@ With ``enable_fusion`` (musiclm_large) the tower takes a [B, 4, frames,
 mel_bins] stack of log-mel views (``fusion.build_mel_fusion``): the global
 view through the patch conv, the three local chunks through
 ``patch_embed.mel_conv2d`` (kernel and stride three times as wide), side by
-side, fused into the global patches by ``patch_embed.fusion_model`` (AFF,
-the ``aff_2d`` fusion) where ``longer`` is set.
+side, fused into the global patches by ``patch_embed.fusion_model`` (the
+config's ``fusion_type``, by default AFF, ``aff_2d``) where ``longer`` is set.
 
 ``compute_dtype`` (None: the parameters' dtype) runs the tower after bn0 in
 another dtype, flax's ``dtype``: the weights are cast at their use; the mel
@@ -126,6 +126,7 @@ class HTSATConfig:
     fmax: float = 14000.0
     clip_samples: int = 480000
     enable_fusion: bool = False
+    fusion_type: str = "aff_2d"
 
     @property
     def freq_ratio(self) -> int:
@@ -237,7 +238,7 @@ class PatchEmbed(nn.Module):
         if cfg.enable_fusion:
             p, s = cfg.patch_size, cfg.patch_stride
             self.mel_conv2d = nn.Conv2d(1, cfg.embed_dim, (p, 3 * p), stride=(s[0], 3 * s[1]))
-            self.fusion_model = make_fusion("aff_2d", cfg.embed_dim)
+            self.fusion_model = make_fusion(cfg.fusion_type, cfg.embed_dim)
 
     def forward(self, img: torch.Tensor, longer: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:

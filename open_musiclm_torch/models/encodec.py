@@ -205,6 +205,14 @@ class EncodecModel(nn.Module):
         return math.prod(self.ratios)
 
     @property
+    def num_quantizers(self) -> int:
+        return self.codebooks.shape[0]
+
+    @property
+    def codebook_size(self) -> int:
+        return self.codebooks.shape[1]
+
+    @property
     def stream_dtype(self) -> torch.dtype:
         return self.compute_dtype or self.encoder.conv_in.conv.weight.dtype
 

@@ -47,6 +47,11 @@ MAX_DECODE_FRAMES = 36000
 MAX_FINE_ROWS = 256
 
 
+def unfold_windows(x: torch.Tensor, window: int, step: int) -> torch.Tensor:
+    """[b, L, q] -> [n, b, window, q] sliding windows, n = (L - window) // step + 1."""
+    return x.unfold(1, window, step).permute(1, 0, 3, 2)
+
+
 def _gather_span(segments: Sequence[torch.Tensor], start: int, length: int) -> torch.Tensor:
     """``torch.cat(segments, 1)[:, start:start + length]`` without building
     the full concatenation."""

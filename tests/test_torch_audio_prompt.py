@@ -34,6 +34,7 @@ from open_musiclm_torch.models.stages import Stage
 from open_musiclm_torch.ops import audio
 
 from tests.test_torch_slice import _close, _t, jax_tiny_musiclm, port_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GREEDY = dict(semantic_temperature=0.0, coarse_temperature=0.0, fine_temperature=0.0)
 

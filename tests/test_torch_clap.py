@@ -43,6 +43,7 @@ from open_musiclm_torch.models.rvq import rvq_decode, rvq_encode, rvq_quantize
 from open_musiclm_torch.models.stages import Stage
 
 from tests.test_torch_slice import _close, _t, jax_tiny_musiclm, port_codec, port_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 TEXT_CFG = RobertaConfig(**dataclasses.asdict(TINY_TEXT))
@@ -107,7 +108,7 @@ def test_tokenizer_merges_and_drops(vocab_dir):
 def _roberta_pair(seed=0):
     jmodel = JRoberta(cfg=TINY_TEXT)
     ids = jnp.zeros((1, 8), jnp.int32)
-    jparams = jmodel.init(jax.random.PRNGKey(seed), ids, jnp.ones_like(ids))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(seed), ids, jnp.ones_like(ids))
     model = RobertaModel(TEXT_CFG)
     model.load_state_dict(roberta_state_dict(jax.device_get(jparams)))
     return jmodel, jparams, model.eval()
@@ -165,8 +166,8 @@ def test_roberta_bf16_compute_runs():
 def _clap_pair(seed=1, joint=16):
     jmodel = JCLAP(audio_cfg=TINY_AUDIO, text_cfg=TINY_TEXT, joint_embed_shape=joint)
     ids = jnp.zeros((1, 8), jnp.int32)
-    jparams = jmodel.init(jax.random.PRNGKey(seed), ids, jnp.ones_like(ids),
-                          method=JCLAP.get_text_embedding)
+    jparams = jax.jit(lambda k, i, m: jmodel.init(k, i, m, method=JCLAP.get_text_embedding))(
+        jax.random.PRNGKey(seed), ids, jnp.ones_like(ids))
     model = CLAP(TEXT_CFG, joint_embed_shape=joint)
     missing, unexpected = model.load_state_dict(
         clap_text_state_dict(jax.device_get(jparams)), strict=False)
@@ -245,7 +246,8 @@ def jax_tiny_text_musiclm(**mode):
     jm = jax_tiny_musiclm(**mode)
     jmodel = JCLAP(audio_cfg=TINY_AUDIO, text_cfg=TINY_TEXT, joint_embed_shape=16)
     ids = jnp.zeros((1, 8), jnp.int32)
-    params = jmodel.init(jax.random.PRNGKey(1), ids, jnp.ones_like(ids), method=JCLAP.get_text_embedding)
+    params = jax.jit(lambda k, i, m: jmodel.init(k, i, m, method=JCLAP.get_text_embedding))(
+        jax.random.PRNGKey(1), ids, jnp.ones_like(ids))
     clap = JClapQuantized(model=jmodel, params=params, rvq=j_rvq_init(N_CLAP_Q, CB, 16, jax.random.PRNGKey(2)),
                           num_quantizers=N_CLAP_Q, codebook_size=CB)
     return dataclasses.replace(jm, clap=clap, tokenizer=FakeTokenizer())
@@ -334,23 +336,20 @@ def test_build_clap(monkeypatch):
 
 
 def test_unported_clap_paths_raise():
-    """What is still unported raises NotImplementedError: the PANN towers
-    and the HTSAT presets other than HTSAT-tiny; a CLAP built without an
-    audio tower refuses audio; the RVQ's EMA training (ported, held to JAX in
-    tests/test_torch_tokenizer_trainers.py) refuses a first batch of fewer
-    embeddings than codes. (The fusion CLAP is held to JAX in
-    tests/test_torch_fusion.py.)"""
-    from open_musiclm_torch import config as tconfig
+    """The CLAP paths that refuse: an audio preset name the reference does
+    not ship raises KeyError (every shipped one resolves, the PANN and HTSAT
+    presets are held to JAX in tests/test_torch_clap_options.py); a CLAP
+    built without an audio tower refuses audio; the RVQ's EMA training
+    (ported, held to JAX in tests/test_torch_tokenizer_trainers.py) refuses a
+    first batch of fewer embeddings than codes. (The fusion CLAP is held to
+    JAX in tests/test_torch_fusion.py.)"""
     from open_musiclm_torch.models.clap.model_configs import audio_config_from_name
 
     _, _, model = _clap_pair()
     clap = ClapQuantized(model=model, rvq=rvq_state(j_rvq_init(N_CLAP_Q, CB, 16, jax.random.PRNGKey(0))))
-    mc = tconfig.load_model_config(str(Path(__file__).resolve().parents[1] / "configs/model/musiclm_small.json"))
-    pann = dataclasses.replace(mc, clap_rvq_cfg=dataclasses.replace(mc.clap_rvq_cfg, amodel_type="PANN-14"))
-    for call in (lambda: tconfig.build_clap(pann, device="cpu"),
-                 lambda: audio_config_from_name("HTSAT-base")):
-        with pytest.raises(NotImplementedError):
-            call()
+    assert audio_config_from_name("HTSAT-base").embed_dim == 128
+    with pytest.raises(KeyError, match="unknown CLAP audio preset"):
+        audio_config_from_name("PANN-22")
     with pytest.raises(ValueError, match="audio tower"):
         clap.audio_embedding(torch.zeros(1, 8))
     with pytest.raises(ValueError, match="at least codebook_size"):
@@ -358,14 +357,17 @@ def test_unported_clap_paths_raise():
 
 
 def test_text_path_imports_no_jax():
-    """The conditioning modules and the server import with jax, flax and the
-    JAX package blocked."""
+    """The conditioning modules (the CLAP options and the profiling hooks
+    too) and the server import with jax, flax and the JAX package blocked."""
     blocked = ("jax", "jaxlib", "flax", "optax", "orbax", "open_musiclm_tpu")
     code = (
         "import sys\n"
         f"for name in {blocked!r}: sys.modules[name] = None\n"
         "import open_musiclm_torch.serve, open_musiclm_torch.convert, open_musiclm_torch.models.rvq\n"
         "import open_musiclm_torch.models.clap.clap, open_musiclm_torch.models.clap.tokenizer\n"
+        "import open_musiclm_torch.models.clap.pann, open_musiclm_torch.models.clap.clip_text\n"
+        "import open_musiclm_torch.models.clap.clip_tokenizer, open_musiclm_torch.models.clap.hook\n"
+        "import open_musiclm_torch.model_types, open_musiclm_torch.profiling\n"
         f"assert not any(sys.modules.get(n) for n in {blocked!r})\n"
     )
     root = Path(__file__).resolve().parents[1]

@@ -21,6 +21,7 @@ from open_musiclm_torch.load import create_musiclm_from_config
 from open_musiclm_torch.models.clap.tokenizer import bytes_to_unicode
 
 from tests.test_torch_load import _tiny_towers, tiny_model_config
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pcm16(path) -> np.ndarray:

@@ -27,6 +27,7 @@ from open_musiclm_torch.train import clip_loss as tclip
 from tests.test_torch_fusion import CHUNK, TINY_FUSION, _perturb_bn_stats
 from tests.test_torch_htsat import _perturbed_htsat_variables, _wave, port_cfg
 from tests.torch_dp_workers import clip_rank, run_ranks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _features(seed, n=6, d=8):

@@ -1088,3 +1088,44 @@ def test_stage_rows_independent_of_batch(dev, dtype, mode):
         for b in BATCHES:
             got = model.transformer.prefill(stream[:b], model.transformer.init_cache(b, stream.shape[1]))[0]
             torch.testing.assert_close(got[1:2], one, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["Cnn14", "Cnn10", "Cnn6"])
+def test_pann_on_card_matches_cpu(dev, arch):
+    """PANN (b2 x 0.5 s at 48 kHz, seeded weights): the card's eval forward
+    within 1e-4 x max|x| of the CPU's, and its training forward moves the
+    running statistics as the CPU's does."""
+    import copy
+
+    from open_musiclm_torch.models.clap.model_configs import PANNConfig
+    from open_musiclm_torch.models.clap.pann import PANN
+
+    cpu = PANN(PANNConfig(arch=arch, num_classes=16), generator=torch.Generator().manual_seed(0)).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    x = 0.3 * torch.randn(2, 24000, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, got = cpu(x), card(x.to(dev))
+        for key in ("embedding", "clipwise_output"):
+            torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-4 * float(want[key].abs().max()), rtol=0)
+        cpu(x, train=True)
+        card(x.to(dev), train=True)
+    torch.testing.assert_close(card.bn0.running_var.cpu(), cpu.bn0.running_var, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_trace_records_card_kernels(dev, tmp_path):
+    """profiling.trace on the card: the annotated range and CUDA kernel
+    events are in the written trace; device_memory_stats reports a peak."""
+    import json
+
+    from open_musiclm_torch import profiling
+
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.annotate("card_range"):
+            (torch.randn(256, 256, device=dev) @ torch.randn(256, 256, device=dev)).sum().item()
+    events = json.loads(open(prof.trace_path).read())["traceEvents"]
+    assert any(e.get("name") == "card_range" for e in events)
+    assert any(e.get("cat") == "kernel" for e in events)
+    stats = profiling.device_memory_stats()
+    assert stats[str(torch.device("cuda", 0))]["allocated_bytes.all.peak"] > 0

@@ -32,6 +32,7 @@ from open_musiclm_torch.models.stages import Stage
 from open_musiclm_torch.ops import attention as tattn
 
 from tests.test_torch_slice import _close, _stage_pair, _t, jax_tiny_musiclm, port_codec, port_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("pos", [0, 9, 23])

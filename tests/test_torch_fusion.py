@@ -32,6 +32,7 @@ from open_musiclm_torch.models.hubert import HubertConfig, HubertModel
 from open_musiclm_torch.models.rvq import rvq_init
 
 from tests.test_torch_htsat import port_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # the fused patch embed runs bicubic folds, 1x1 convs, BatchNorms and a

@@ -18,6 +18,8 @@ import torch
 from open_musiclm_torch.models.transformer import ConvFeedForward
 from open_musiclm_torch.ops import attention, fused_ff, fused_layer, quant
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 # training shapes (b, n) of the three stages at musiclm_small's 8 heads
 TRAIN = {"semantic": (4, 514), "coarse": (2, 1116), "fine": (2, 1217)}
 SMS = 132

@@ -34,6 +34,7 @@ from open_musiclm_torch.ops import audio
 
 from tests.test_torch_clap import TEXT_CFG
 from tests.test_torch_slice import _close, _t, jax_tiny_musiclm, port_codec, port_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # sims apart where int16 samples straddle a step between the packages: a
@@ -221,11 +222,11 @@ def test_audio_embedding_matches_jax(clap_pair, T):
             _close(model.get_audio_embedding(_t(x)), direct, **TOL)
 
 
-def jax_rerank_musiclm(**mode):
-    """jax_tiny_musiclm's stages and codec with open_musiclm_tpu.testing's
-    tiny CLAP (both towers), RVQ and FakeTokenizer."""
+def jax_rerank_musiclm(clap_pair, **mode):
+    """jax_tiny_musiclm's stages and codec with a tiny CLAP (both towers;
+    ``clap_pair``, as ``_clap_pair`` gives it), RVQ and FakeTokenizer."""
     jm = jax_tiny_musiclm(**mode)
-    jmodel, v, model = _clap_pair(1)
+    jmodel, v, model = clap_pair
     jstate = j_rvq_init(N_CLAP_Q, CB, 16, jax.random.PRNGKey(2))
     kw = dict(num_quantizers=N_CLAP_Q, codebook_size=CB, sample_rate=TINY_AUDIO.sample_rate,
               clip_samples=TINY_AUDIO.clip_samples)
@@ -242,8 +243,8 @@ def jax_rerank_musiclm(**mode):
 
 
 @pytest.fixture(scope="module")
-def rerank_pair():
-    return jax_rerank_musiclm(quantized=True, flash_kv="int8")
+def rerank_pair(clap_pair):
+    return jax_rerank_musiclm(clap_pair, quantized=True, flash_kv="int8")
 
 
 def test_generate_top_match_matches_jax(rerank_pair, monkeypatch):
@@ -291,9 +292,6 @@ def test_generate_top_match_matches_jax(rerank_pair, monkeypatch):
     print(f"int16 samples straddling a step between the packages: {flips}; sims at most {worst:.2e} apart")
     # the port's ranking of JAX's own samples
     monkeypatch.setattr(tm, "generate", lambda **k: _t(jax_waves.pop(0)))
-    jax_waves[:] = []
-    monkeypatch.setattr(jm, "generate", recording)
-    jm.generate_top_match(key=jax.random.PRNGKey(2), **kw)
     _, sims = tm.generate_top_match(**kw)
     for sim, wsim in zip(sims, want_sims):
         _close(sim, wsim, **TOL)

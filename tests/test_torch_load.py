@@ -38,7 +38,10 @@ from open_musiclm_torch import import_torch as it
 from open_musiclm_torch import load as tload
 from open_musiclm_torch.checkpoint import save_checkpoint
 from open_musiclm_torch.models.clap.clap import CLAP, ClapQuantized
+from open_musiclm_torch.models.clap import model_configs
+from open_musiclm_torch.models.clap.tokenizer import bytes_to_unicode
 from open_musiclm_torch.models.clap.htsat import HTSAT
+from open_musiclm_torch.models.clap.pann import PANN
 from open_musiclm_torch.models.clap.roberta import RobertaConfig, RobertaModel
 from open_musiclm_torch.models.encodec import EncodecModel
 from open_musiclm_torch.models.hubert import HubertConfig, HubertModel
@@ -47,6 +50,7 @@ from open_musiclm_torch.models.musiclm import MusicLM
 from tests.test_import_torch import make_reference_shaped_stage_sd
 from tests.test_torch_htsat import port_cfg
 from tests.test_torch_slice import _init_decoder, port_codec
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TEXT_CFG = RobertaConfig(**dataclasses.asdict(TINY_TEXT))
@@ -478,6 +482,41 @@ def test_create_musiclm_from_config(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tload.create_musiclm_from_config(mc)
+
+
+def test_create_musiclm_from_config_with_pann(tmp_path, monkeypatch):
+    """musiclm_small with clap_rvq_cfg.amodel_type "PANN-14" (its stages
+    narrowed to dim 32 / depth 1, RoBERTa and HuBERT at doll-house widths):
+    a Cnn14 CLAP at the preset's 48 kHz x 10 s with a 2048-wide projection,
+    read back from a laion-layout bundle ("module." keys) by the loader
+    unchanged, and generate_top_match runs on the CPU (sims within [-1, 1])."""
+    _tiny_towers(monkeypatch)
+    monkeypatch.setattr(tconfig, "audio_config_from_name", model_configs.audio_config_from_name)
+    cfg = json.loads((ROOT / "configs/model/musiclm_small.json").read_text())
+    cfg["clap_rvq_cfg"]["amodel_type"] = "PANN-14"
+    for stage in ("semantic_cfg", "coarse_cfg", "fine_cfg"):
+        cfg[stage].update(dim=32, depth=1, heads=2)
+    (tmp_path / "small_pann.json").write_text(json.dumps(cfg))
+    mc = tconfig.load_model_config(str(tmp_path / "small_pann.json"))
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    vocab.update({c: 4 + i for i, c in enumerate(sorted(set(bytes_to_unicode().values())))})
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text("#version: demo\n")
+    m = tload.create_musiclm_from_config(mc, seed=5, device="cpu", tokenizer_path=str(tmp_path))
+    tower = m.clap.model.audio_branch
+    assert isinstance(tower, PANN) and tower.cfg.arch == "Cnn14"
+    assert m.clap.model.audio_projection[0].in_features == 2048
+    assert (m.clap.sample_rate, m.clap.clip_samples) == (48000, 480000)
+    bundle, want = tmp_path / "clap.pt", {k: v.clone() for k, v in m.clap.model.state_dict().items()}
+    torch.save({f"module.{k}": v for k, v in want.items()}, bundle)
+    with torch.no_grad():
+        for p in m.clap.model.parameters():
+            p.zero_()
+    tload._load_into(m.clap.model, str(bundle), lambda sd: it.import_clap(sd, tower.cfg, m.clap.model.text_branch.cfg))
+    _equal(m.clap.model.state_dict(), want)
+    samples, sims = m.generate_top_match(text=["a prompt"], num_samples=2, num_top_matches=2, **GREEDY, **TINY_GEN_KW)
+    assert tuple(samples[0].shape) == (2, 45 * m.codec.hop_length) and sims[0].shape == (2,)
+    assert bool(torch.isfinite(sims[0]).all()) and float(sims[0].abs().max()) <= 1.0 + 1e-6
 
 
 def test_fusion_clap_checkpoint_import_raises(tmp_path, monkeypatch):

@@ -20,6 +20,7 @@ from open_musiclm_torch.serve import GenerationServer
 
 from tests.test_torch_serve import GEN_KW, SAMPLING_KW, tiny_musiclm
 from tests.torch_dp_workers import run_ranks, server_rank
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # five text requests and one of CLAP tokens (the doll-house's 4 quantizers):
 # a batch of 4, then a batch of 2

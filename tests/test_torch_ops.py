@@ -39,6 +39,8 @@ from open_musiclm_torch.ops import quant as tquant
 from open_musiclm_torch.ops import relpos as trelpos
 from open_musiclm_torch.convert import stage_state_dict
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

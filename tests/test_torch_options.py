@@ -42,6 +42,7 @@ from open_musiclm_torch.models.transformer import Attention, dropout
 from open_musiclm_torch.ops import attention as tattn
 
 from tests.torch_dp_workers import run_ranks, tp_options_rank
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the options together, over the plain FeedForward (whose int8 decodes JAX
 # cannot run) and over the conv one

@@ -50,6 +50,7 @@ from tests.test_torch_clap import TEXT_CFG
 from tests.test_torch_htsat import port_cfg
 from tests.test_torch_train_audio import GLOBAL, write_tracks
 from tests.torch_dp_workers import join_ranks, start_ranks, tiny_stage, trainer_rank
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CB = 16
 HP = dict(lr=1e-3, wd=1e-2, lr_warmup=2, max_grad_norm=0.5, grad_accum_every=2,

@@ -26,6 +26,7 @@ from open_musiclm_torch.models.token_cond import StageLossConfig, TokenCondition
 from open_musiclm_torch.train import roofline
 
 from tests.test_torch_train import STAGES, TINY, _stage_ids, _t, port_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 H100 = "NVIDIA H100 80GB HBM3"
 ROOT_CONFIGS = Path(__file__).resolve().parents[1] / "configs" / "model"

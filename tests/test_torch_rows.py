@@ -20,6 +20,7 @@ from open_musiclm_torch.models.stages import create_semantic_transformer
 from open_musiclm_torch.ops import decode_attention, fused_layer, rows
 
 from tests.test_torch_serve import CB, MODE_IDS, MODES, N_CLAP_Q, tiny_stage
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("m", [1, 5, 64, 65, 300])

@@ -31,6 +31,8 @@ from open_musiclm_torch.models.stages import (
 )
 from open_musiclm_torch.serve import GenerationServer
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 CB, N_CLAP_Q = 16, 4
 TEXT = RobertaConfig(vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
                      intermediate_size=64, max_position_embeddings=32)

@@ -29,6 +29,7 @@ from open_musiclm_torch.parallel.mesh import Mesh
 
 from tests.test_torch_slice import jax_tiny_musiclm, port_codec, port_model
 from tests.torch_dp_workers import join_ranks, serving_rank, start_ranks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MODES = [(False, None), (True, None), (True, "bf16"), (True, "f32"), (True, "int8"), (True, "fused")]
 GREEDY = dict(semantic_temperature=0.0, coarse_temperature=0.0, fine_temperature=0.0)

@@ -6,6 +6,7 @@ their XLA twins, as the JAX package runs them on the CPU.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,11 +21,12 @@ from open_musiclm_tpu.models.musiclm import MusicLM as JMusicLM
 from open_musiclm_tpu.models.quant_decode import generate_quantized as j_generate_quantized
 from open_musiclm_tpu.models.quant_decode import quantize_stage_params as j_quantize_stage_params
 from open_musiclm_tpu.models.token_cond import (
+    StageLossConfig,
     TokenConditionedTransformer as JTCT,
     _tfm_init_cache,
     _tfm_prefill,
 )
-from open_musiclm_tpu.testing import CB, TINY_GEN_KW, make_tiny_stage
+from open_musiclm_tpu.testing import CB, N_CLAP_Q, TINY_GEN_KW
 
 from open_musiclm_torch.convert import codec_state_dict, stage_state_dict
 from open_musiclm_torch.core.sequence import TokenSequenceSpec
@@ -33,6 +35,8 @@ from open_musiclm_torch.models.encodec import EncodecModel
 from open_musiclm_torch.models.quant_decode import generate_quantized, quantize_stage_params
 from open_musiclm_torch.models.stages import Stage
 from open_musiclm_torch.models.token_cond import TokenConditionedTransformer
+
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -69,10 +73,17 @@ def port_codec(jcodec, jparams) -> EncodecModel:
     return codec.eval()
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted_init(model):
+    """``model.init`` under jit, once per model: the params flax's op-by-op
+    init gives, in about a third of the time."""
+    return jax.jit(model.init)
+
+
 def _stage_pair(seed=0):
     jmodel = JTCT(specs=(JSpec(CB, 2), JSpec(CB, 3)), dim=32, depth=2, heads=2, dim_head=8)
     ids = [jnp.zeros((1, 4), jnp.int32), jnp.zeros((1, 6), jnp.int32)]
-    jparams = jmodel.init(jax.random.PRNGKey(seed), ids)
+    jparams = _jitted_init(jmodel)(jax.random.PRNGKey(seed), ids)
     return jmodel, jparams, port_model(jmodel, jparams)
 
 
@@ -174,6 +185,17 @@ def test_stage_rejects_modes_it_does_not_run(quantized, flash_kv, error):
         Stage(model, quantized=quantized, flash_kv=flash_kv).generate(
             [torch.zeros((1, 4), dtype=torch.long)], max_time_steps=2
         )
+
+
+def make_tiny_stage(factory, key, **kw):
+    """open_musiclm_tpu.testing.make_tiny_stage with the init under jit
+    (the same params)."""
+    model = factory(dim=32, depth=1, heads=2, dim_head=8, clap_codebook_size=CB, num_clap_quantizers=N_CLAP_Q,
+                    **kw)
+    ids = [jnp.zeros((1, 4 * s.num_quantizers), jnp.int32) for s in model.specs]
+    weights = tuple(0.0 for _ in model.specs[:-1]) + (1.0,)
+    return jstages.Stage(model, _jitted_init(model)(key, ids),
+                         StageLossConfig(cross_entropy_loss_weights=weights))
 
 
 def jax_tiny_musiclm(quantized=True, flash_kv="int8") -> JMusicLM:

@@ -21,6 +21,7 @@ from open_musiclm_torch.models.token_cond import StageLossConfig, stage_training
 from open_musiclm_torch.ops import relpos as trelpos
 
 from tests.test_torch_options import LENS, _check_grads, _loss_grads, _pair, _rel_close, _t
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

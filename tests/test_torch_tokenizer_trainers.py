@@ -42,8 +42,9 @@ from open_musiclm_torch.models.clap.clap import ClapQuantized
 from open_musiclm_torch.train import tokenizer_trainers
 from open_musiclm_torch.train.tokenizer_trainers import ClapRVQTrainer, HubertKmeansTrainer
 
-from tests.test_torch_train_audio import (  # noqa: F401 (cli_env and one_torch_thread are fixtures)
-    TRACKS, cli_env, one_torch_thread, tiny_cli_towers, tiny_model_config, write_tracks)
+from tests.test_torch_train_audio import (  # noqa: F401 (cli_env is a fixture)
+    TRACKS, cli_env, tiny_cli_towers, tiny_model_config, write_tracks)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-5, rtol=1e-5)

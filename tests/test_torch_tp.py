@@ -48,6 +48,7 @@ from open_musiclm_torch.parallel.sharding import put_together, shard_plan, take
 from open_musiclm_torch.train.trainer import StageTrainer
 
 from tests.torch_dp_workers import join_ranks, start_ranks, tp_rank, tp_stage
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CODES = (16, 15)  # the conditioning and final sequences' codebooks
 GEOMETRY = dict(specs=(TokenSequenceSpec(CODES[0], 2), TokenSequenceSpec(CODES[1], 1)), dim=64, depth=2,

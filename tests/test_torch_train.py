@@ -59,6 +59,8 @@ from open_musiclm_torch.train import flops as tflops
 from open_musiclm_torch.train.optimizer import StageOptimizer
 from open_musiclm_torch.train.trainer import StageTrainer
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 CB = 16
 N_CLAP_Q = 4

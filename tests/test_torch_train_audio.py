@@ -58,6 +58,7 @@ from tests.test_torch_audio_prompt import _codec_pair, _wav2vec_pair
 from tests.test_torch_clap import TEXT_CFG
 from tests.test_torch_htsat import port_cfg
 from tests.test_torch_slice import _t, port_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # (seconds, rate) of the seeded tracks: two longer than the 2 s window, one
@@ -531,18 +532,6 @@ def tiny_cli_towers(monkeypatch):
     monkeypatch.setattr(tconfig, "create_encodec_24khz", lambda bandwidth, codebook_size, **kw: EncodecModel(
         num_quantizers=int(bandwidth / 24.0 * 32), codebook_size=codebook_size, dimension=8, n_filters=2, **kw))
     monkeypatch.setitem(sys.modules, "transformers", None)
-
-
-@pytest.fixture
-def one_torch_thread():
-    """One torch thread for the CLI runs: their tiny models run thousands of
-    small ops, and beside other test workers each op's 8-thread parallel
-    region waits on descheduled threads (a CLI run took ~1 s alone and
-    ~230 s with five copies beside it; ~1 s each with one thread)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture
