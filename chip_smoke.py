@@ -174,9 +174,19 @@ Phases, each of which fails the run:
      and profiling.annotate (the range and kernel 7 in the written trace,
      device_memory_stats' peak above 0); (d) ClapModule's three entry points
      on the card against the CPU.
+ 13. the tools (open_musiclm_torch/cli): (a) serving_deviation at b8 over a
+     tenth of each stage's decode steps (semantic 50, coarse 30, fine 15):
+     an fp-against-fp control (0 % mismatch, every row and wave equal), then
+     the int8 stack's report with every ladder rung (each exactly its
+     kernels: 1 in every prefill, 2 and 3 in the flash rungs, 7 in "fused",
+     4 for the int8 logits), the logit curve, the margin sweep and the SNR;
+     (b) profile_pipeline at b8 x 4 s, reps 1, in "fused" (picked by
+     $OPEN_MUSICLM_FLASH_KV); (c) trace_train, one traced coarse step at b8
+     (buckets within 1 % of the device total; kernels 1, 5 and 6 by name).
 Phase 8 also builds musiclm_large itself (30 s semantic, 10 s coarse, 3 s
-fine windows, the fusion CLAP) and runs generate(text=1 prompt) in "fused"
-at b1 x 10 s, one whole coarse window (kernel 7 24 times a decode step).
+fine windows, the fusion CLAP; its stages cut to 8 of their 24 layers) and
+runs generate(text=1 prompt) in "fused" at b1 x 10 s, one whole coarse
+window (kernel 7 once a layer and decode step).
 
 Times a call, two readings of each kernel and library call:
   ms         stream time: CUDA events around 20 calls as the host launches
@@ -198,7 +208,7 @@ times kernel 4 alone at its phase-2 shapes from the port in the checkout
 ROOT (another commit's, for a comparison within one call) and prints a JSON
 line of its device ms.
 
-    python3 chip_smoke.py --phase8      # or --phase9, --phase10, --phase11, --phase12
+    python3 chip_smoke.py --phase8      # or --phase9, --phase10, --phase11, --phase12, --phase13
 
 builds the kernels and runs that phase alone.
 
@@ -425,6 +435,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
+    t_start = time.perf_counter()  # each phase's start is printed, to see where a run's time goes
     # ---- 1. build ----
     t0 = time.perf_counter()
     lib_path = cuda_lib.build()
@@ -436,6 +447,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
 
+    print(f"chip_smoke: phase 2 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 2. kernels against their plain versions ----
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -930,6 +942,7 @@ def main() -> int:
           "dq, dk, dv and dbias together)")
     timer.release()  # frees the L2 flush buffer before the phases that read peak memory
 
+    print(f"chip_smoke: phase 3 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 3. every decode mode with kernels vs the plain path on the CPU ----
     # float32, 24 teacher-forced steps of the full-width semantic stage. With
     # unquantized cache rows ("bf16" rows are float32 here, "f32", None, and
@@ -976,10 +989,12 @@ def main() -> int:
             fail(f"{name} b{b} logits differ: {err} > {tol}")
     del model_gpu, qp_gpu, stage, inputs
 
+    print(f"chip_smoke: phase 3 (b) starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 3 (b). the T5 bias: every decode mode and the training step ----
     t5_launches = t5_phase(torch, omt_config, mc, dev, card, all_counters())
     print(json.dumps({"phase3b_t5_launches": t5_launches}))
 
+    print(f"chip_smoke: phase 4 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 4. the serving path in every decode mode: MusicLM.generate at full width ----
     bf16 = torch.bfloat16
     stages = {
@@ -1098,44 +1113,58 @@ def main() -> int:
               f"(idle share {100 * (1 - busy_ms / step_ms):.1f} % of the unprofiled step) [{card}]",
               flush=True)
 
+    print(f"chip_smoke: phase 5 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 5. text to waveforms: the text tower, per-row keys, the server ----
     conditioning_phase(torch, omt_config, mc, dev, card, stages, codec, counters, expect, windows, time_ms)
     del musiclm, stages, codec
     torch.cuda.empty_cache()
 
+    print(f"chip_smoke: phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 6. the training path ----
     train_launches, phase6_ms = training_phase(torch, omt_config, mc, dev, card, attention, kernels)
     path_launches.update(attention_bwd=train_launches["attention_bwd"],
                          attention_dbias=train_launches["attention_dbias"])
     torch.cuda.empty_cache()
 
+    print(f"chip_smoke: phase 7 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 7. audio prompts and reranking ----
     audio_launches = audio_prompt_phase(torch, omt_config, mc, dev, card, counters, expect, windows, time_ms)
     print(json.dumps({"phase7_launches": audio_launches}))
     torch.cuda.empty_cache()
 
+    print(f"chip_smoke: phase 8 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 8. musiclm_large: loading, 24 x 16 stages, the fusion CLAP, the CLI ----
     large_launches = large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms)
     print(json.dumps({"phase8_launches": large_launches}))
     torch.cuda.empty_cache()
 
+    print(f"chip_smoke: phase 9 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 9. stage training from raw audio: the five training CLIs ----
     raw_launches = raw_audio_phase(torch, omt_config, dev, card, counters)
     print(json.dumps({"phase9_launches": raw_launches}))
     torch.cuda.empty_cache()
 
+    print(f"chip_smoke: phase 10 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 10. remat at musiclm_large's width, data parallel, the rooflines ----
     phase10(torch, omt_config, dev, card, counters, phase6_ms)
     torch.cuda.empty_cache()
 
+    print(f"chip_smoke: phase 11 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 11. tensor parallelism and the serving layouts ----
     print(json.dumps({"phase11": tp_phase(torch, omt_config, dev, card, all_counters())}))
     torch.cuda.empty_cache()
 
+    print(f"chip_smoke: phase 12 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 12. the CLAP options and the profiling hooks ----
     print(json.dumps({"phase12_launches": clap_options_phase(
         torch, omt_config, dev, card, counters, expect, windows, time_ms)}))
+    torch.cuda.empty_cache()
 
+    print(f"chip_smoke: phase 13 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 13. the tools: serving deviation, pipeline profile, training trace ----
+    print(json.dumps({"phase13": tools_phase(torch, omt_config, dev, card, all_counters(), expect)}))
+
+    print(f"chip_smoke: phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{src}", "replaces": tpu,
          "launches": path_launches[name], **results[name]}
@@ -2330,7 +2359,7 @@ def large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms
         del fused, musiclm, stages, sem, wave
         torch.cuda.empty_cache()
 
-        # (c2) musiclm_large itself at its own windows
+        # (c2) musiclm_large itself at its own windows, 8 of its 24 layers
         large_windows_generate(torch, omt_config, dev, card, counters, expect, tmp)
 
         # (d) musiclm_large's fusion CLAP: the fusion HTSAT + projection at b4 x 30 s
@@ -2381,10 +2410,10 @@ def large_phase(torch, omt_config, dev, card, counters, expect, windows, time_ms
 def expected_decode_steps(seconds, windows, quantizers, semantic_hz, acoustic_hz, batch):
     """Decode steps a stage of MusicLM.generate runs for ``seconds`` without
     a prime, at its default sliding steps (semantic and coarse windows half
-    overlapped, fine windows side by side and batched up to MAX_FINE_ROWS
+    overlapped, fine windows side by side and batched up to max_fine_rows()
     rows): a call decodes (its window - its carried prefix) x the stage's
     quantizers. ``quantizers`` maps each stage to its count."""
-    from open_musiclm_torch.models.musiclm import MAX_FINE_ROWS
+    from open_musiclm_torch.models.musiclm import max_fine_rows
 
     sem_window = windows["semantic_window_seconds"] * semantic_hz
     sem_total = int(min(seconds, windows["semantic_window_seconds"]) * semantic_hz)
@@ -2398,16 +2427,17 @@ def expected_decode_steps(seconds, windows, quantizers, semantic_hz, acoustic_hz
     coarse_len = coarse_t + (n_coarse - 1) * (coarse_t - coarse_t // 2)
     fine_t = windows["fine_window_seconds"] * acoustic_hz
     n_fine = (coarse_len - fine_t) // fine_t + 1
-    fine_calls = math.ceil(n_fine / max(1, MAX_FINE_ROWS // batch))
+    fine_calls = math.ceil(n_fine / max(1, max_fine_rows() // batch))
     return {"semantic": sem * quantizers["semantic"], "coarse": coarse_len * quantizers["coarse"],
             "fine": fine_calls * fine_t * quantizers["fine"]}
 
 
 def large_windows_generate(torch, omt_config, dev, card, counters, expect, tokenizer_dir: Path,
                            model_config: Path = None, seconds: float = 10.0):
-    """Phase 8 (c2): musiclm_large (configs/model/musiclm_large.json: 24 x 16
-    heads x dim 1024, the fusion CLAP, 30 s semantic, 10 s coarse and 3 s
-    fine windows) through load.create_musiclm_from_config in float32, then
+    """Phase 8 (c2): musiclm_large (configs/model/musiclm_large.json: 16
+    heads x dim 1024, its stages cut to LARGE_CUT_DEPTH of their 24 layers
+    for the script's time, the fusion CLAP, 30 s semantic, 10 s coarse and
+    3 s fine windows) through load.create_musiclm_from_config in float32, then
     generate(text=1 prompt) in "fused" at b1 x ``seconds`` (one whole coarse
     window: 2,250 coarse decode steps over the coarse cache): the wave's
     shape (the fine windows that fit) and finiteness, exactly kernels 1, 4
@@ -2419,7 +2449,8 @@ def large_windows_generate(torch, omt_config, dev, card, counters, expect, token
     from open_musiclm_torch.models.stages import Stage
 
     on_card = dev.type == "cuda"
-    mc = omt_config.load_model_config(str(model_config or ROOT / "configs" / "model" / "musiclm_large.json"))
+    mc = cut_depth(omt_config.load_model_config(str(model_config or ROOT / "configs" / "model" /
+                                                    "musiclm_large.json")))
     g = mc.global_cfg
     windows = dict(semantic_window_seconds=int(g.semantic_audio_length_seconds),
                    coarse_window_seconds=int(g.coarse_audio_length_seconds),
@@ -2469,8 +2500,8 @@ def large_windows_generate(torch, omt_config, dev, card, counters, expect, token
     fine_window = windows["fine_window_seconds"] * ac_hz
     frames = ((int(seconds * ac_hz) - fine_window) // fine_window + 1) * fine_window
     per_step = {n: f"{1e3 * walls[n] / max(steps[n], 1):.3f} ms x {steps[n]} steps" for n in walls}
-    print(f"  (c2) musiclm_large generate(text=1 prompt) fused at its own windows {windows}, float32, b1 x "
-          f"{seconds:.0f} s: built in {build_s:.1f} s; wave {tuple(wave.shape)} in {wall:.2f} s wall; a decode "
+    print(f"  (c2) musiclm_large ({depth} of its 24 layers) generate(text=1 prompt) fused at its own windows "
+          f"{windows}, float32, b1 x {seconds:.0f} s: built in {build_s:.1f} s; wave {tuple(wave.shape)} in {wall:.2f} s wall; a decode "
           f"step {per_step}; peak memory {peak:.2f} GiB [{card}]", flush=True)
     if tuple(wave.shape) != (1, frames * hop) or not torch.isfinite(wave.float()).all():
         fail(f"phase 8 (c2): musiclm_large generate gave {tuple(wave.shape)} (want (1, {frames * hop})) "
@@ -4257,21 +4288,139 @@ def clap_options_phase(torch, omt_config, dev, card, counters, expect, windows, 
     return launches
 
 
+# phase 13: the three tools at b8, the deviation tool over about a tenth of
+# each stage's decode steps (semantic 50, coarse 30, fine 15), its fp-against-fp
+# control over a twentieth (the fp decode's ~15 ms a step would hold it)
+TOOLS_BATCH = 8
+DEVIATION_FRACTION = 0.1
+CONTROL_FRACTION = 0.05
+K1, K2, K3, K4, K7 = ("prefill_attention", "flash_decode_step", "fused_ff_apply", "int8_matmul",
+                      "fused_layer_decode_step")
+RUNG_KERNELS = {  # each ladder rung's kernels: 1 in every prefill, 4 for the int8 logits
+    "int8_weights_only": {K1, K3, K4}, "int8_w_plus_flash_bf16": {K1, K2, K3, K4},
+    "int8_w_plus_flash_f32": {K1, K2, K3, K4}, "int8_w_plus_flash_int8": {K1, K2, K3, K4},
+    "int8_w_plus_fused": {K1, K4, K7}, "full_stack": {K1, K2, K3, K4},
+    "end_to_end_serving": {K1, K2, K3, K4}, "end_to_end_fp": {K1},
+}
+TRACE_KERNELS = ("kernel 1 prefill_attention", "kernel 5 attention_bwd", "kernel 6 attention_dbias")
+
+
+def percentages(report):
+    """Every percentage of a serving_deviation report: (where, value)."""
+    for name, st in report["stages"].items():
+        yield f"stages.{name}.per_step", st["per_step_token_mismatch_pct"]
+        yield f"stages.{name}.rows_identical", st["free_running_rows_identical_pct"]
+    for table in ("knob_attribution", "margin_sweep_full_stack"):
+        for rung, row in report.get(table, {}).items():
+            for name, v in row.items():
+                yield f"{table}.{rung}.{name}", v
+    for name, lp in report["logit_perturbation"].items():
+        for g, v in lp["exceedance_pct"].items():
+            yield f"logit_perturbation.{name}.{g}", v
+    yield "end_to_end.rows_identical", report["end_to_end"]["rows_waveform_identical_pct"]
+
+
+def tools_phase(torch, omt_config, dev, card, counters, expect, model_config: Path = None) -> dict:
+    """Phase 13: the port's three tools on musiclm_small (``model_config``)
+    at full width, bf16, random weights from seeds. (a)
+    cli.serving_deviation.measure at b8 over DEVIATION_FRACTION of each
+    stage's decode steps: first the fp-against-fp control over
+    CONTROL_FRACTION (0 % mismatch, every row and wave identical, the
+    logits unmoved), then the int8 stack with every ladder
+    rung, the logit curve, the margin sweep and the SNR (every percentage
+    in [0, 100], each rung exactly its kernels; the margin sweep at x4
+    alone); (b) cli.profile_pipeline
+    at b8 x 4 s, reps 1, with $OPEN_MUSICLM_FLASH_KV=fused, on (a)'s
+    stages and codec; (c)
+    cli.trace_train on the coarse stage at b8, one traced step (the buckets
+    within 1 % of the device total; kernels 1, 5 and 6 named in it).
+    Returns the phase's seconds and the trace's bucket table."""
+    import os
+
+    from open_musiclm_torch.cli import profile_pipeline, serving_deviation, trace_train
+
+    t_phase = time.perf_counter()
+    mc = omt_config.load_model_config(str(model_config or ROOT / "configs" / "model" / "musiclm_small.json"))
+    parts = serving_deviation.build_parts(mc, dev)  # the bf16 stages and codec of (a) and (b)
+    print(f"phase 13: bf16 stages and codec built in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (a) the deviation tool: the control, then the int8 stack
+    t0 = time.perf_counter()
+    control = serving_deviation.measure(mc, batch=TOOLS_BATCH, device=dev, knobs=False, margin_scales=(),
+                                        step_fraction=CONTROL_FRACTION, serving=serving_deviation.FP,
+                                        parts=parts, log=lambda line: None)
+    for name, st in control["stages"].items():
+        if st["per_step_token_mismatch_pct"] != 0.0 or st["free_running_rows_identical_pct"] != 100.0:
+            fail(f"phase 13 (a): the fp-against-fp control's {name} stage moved: {st}")
+    if control["end_to_end"]["rows_waveform_identical_pct"] != 100.0:
+        fail(f"phase 13 (a): the fp-against-fp control's waves differ: {control['end_to_end']}")
+    if any(lp["delta_rms"] != 0.0 for lp in control["logit_perturbation"].values()):
+        fail(f"phase 13 (a): the fp-against-fp control's logits moved: {control['logit_perturbation']}")
+    print(f"phase 13 (a): fp-against-fp control b{TOOLS_BATCH}: 0 % mismatch, 100 % rows identical in every "
+          f"stage ({ {n: st['decode_steps'] for n, st in control['stages'].items()} } decode steps), waves "
+          f"equal (SNR {control['end_to_end']['waveform_snr_db']} dB, the cap), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    report = serving_deviation.measure(mc, batch=TOOLS_BATCH, device=dev, step_fraction=DEVIATION_FRACTION,
+                                       margin_scales=(4.0,), parts=parts,
+                                       log=lambda line: print(f"  {line}", flush=True))
+    for where, v in percentages(report):
+        if not 0.0 <= v <= 100.0:
+            fail(f"phase 13 (a): {where} = {v} is not a percentage")
+    for rung, path in RUNG_KERNELS.items():
+        got = report["kernel_launches"][rung]
+        expect(f"phase 13 (a) {rung}", {name: got.get(name, 0) for name in counters}, path)
+    print(f"phase 13 (a): serving_deviation int8 stack b{TOOLS_BATCH}, {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    print(json.dumps({"phase13_serving_deviation": report}), flush=True)
+
+    # (b) profile_pipeline in "fused", picked by the environment
+    t0 = time.perf_counter()
+    os.environ["OPEN_MUSICLM_FLASH_KV"] = "fused"
+    try:
+        prof = profile_pipeline.profile(mc, batch=TOOLS_BATCH, seconds=4, int8=True, reps=1, device=dev,
+                                        parts=parts)
+    finally:
+        del os.environ["OPEN_MUSICLM_FLASH_KV"]
+    if prof["flash_kv"] != "fused" or not prof["kernel_launches"]["semantic_window_s"].get(K7):
+        fail(f"phase 13 (b): the stages did not decode in 'fused': {prof['flash_kv']}, "
+             f"{prof['kernel_launches']['semantic_window_s']}")
+    print(f"phase 13 (b): profile_pipeline b{TOOLS_BATCH} x 4 s fused, {time.perf_counter() - t0:.1f} s [{card}]")
+    print(json.dumps({"phase13_profile_pipeline": prof}), flush=True)
+    del parts
+    torch.cuda.empty_cache()
+
+    # (c) trace_train: one traced coarse step
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        path = trace_train.run(mc, stage="coarse", batch=TOOLS_BATCH, accum=1, steps=1, device=dev,
+                               trace_dir=folder, results_folder=folder)
+        tr = trace_train.parse(folder, top=12, steps=1, path=path, log=lambda line: print(f"  {line}"))
+    total = tr["device_ms_per_step"]
+    buckets = sum(tr["buckets_ms_per_step"].values())
+    if not tr["on_device"] or total <= 0 or abs(buckets - total) > 0.01 * total:
+        fail(f"phase 13 (c): buckets sum to {buckets} ms against the device's {total} ms")
+    missing = [k for k in TRACE_KERNELS if not tr["family_launches_per_step"].get(k)]
+    if missing:
+        fail(f"phase 13 (c): {missing} not in the trace: {tr['family_launches_per_step']}")
+    print(f"phase 13 (c): trace_train coarse b{TOOLS_BATCH}, 1 traced step: {total:.2f} ms device, span "
+          f"{tr['span_ms_per_step']:.2f} ms, buckets sum {buckets:.2f} ms; kernels 1, 5, 6 "
+          f"{[tr['family_launches_per_step'].get(k) for k in TRACE_KERNELS]} launches, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 13: {seconds:.1f} s [{card}]", flush=True)
+    return {"seconds": seconds, "trace_buckets_ms": tr["buckets_ms_per_step"]}
+
+
 def all_counters():
     """Every kernel's launch counter: name -> (wrapper, attribute)."""
-    from open_musiclm_torch.ops import attention, decode_attention, fused_ff, fused_layer, quant
+    from open_musiclm_torch.ops import launches
 
-    bwd = attention.shared_kv_attention_bwd
-    return {"prefill_attention": (attention.shared_kv_attention_fused, "launches"),
-            "flash_decode_step": (decode_attention.flash_decode_step, "launches"),
-            "fused_ff_apply": (fused_ff.fused_ff_apply, "launches"),
-            "int8_matmul": (quant.int8_matmul, "launches"),
-            "attention_bwd": (bwd, "launches"), "attention_dbias": (bwd, "dbias_launches"),
-            "fused_layer_decode_step": (fused_layer.fused_layer_decode_step, "launches")}
+    return dict(launches.KERNELS)
 
 
 def phase_only(n: int) -> int:
-    """Phase 1 (the build) and phase 8, 10, 11 or 12 alone."""
+    """Phase 1 (the build) and phase 8, 10, 11, 12 or 13 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4291,6 +4440,8 @@ def phase_only(n: int) -> int:
     dev = torch.device("cuda")
     if n == 11:
         print(json.dumps({"phase11": tp_phase(torch, omt_config, dev, card, all_counters())}))
+    elif n == 13:
+        print(json.dumps({"phase13": tools_phase(torch, omt_config, dev, card, all_counters(), expect_launches)}))
     elif n in (8, 12):
         mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
         g = mc.global_cfg
@@ -4504,7 +4655,7 @@ if __name__ == "__main__":
         sys.exit(probe_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--phase9":
         sys.exit(phase9_only())
-    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10", "--phase11", "--phase12"):
+    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10", "--phase11", "--phase12", "--phase13"):
         sys.exit(phase_only(int(sys.argv[1][len("--phase"):])))
     if len(sys.argv) == 8 and sys.argv[1] == "--dp_rank":
         sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:]))

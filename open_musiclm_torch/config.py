@@ -326,7 +326,8 @@ def init_stage(
     """A stage with a seeded random init (drawn in float32 on the CPU, then
     moved to ``device`` and cast to ``dtype``), in eval() mode.
     ``compute_dtype`` runs the stream in another dtype than the parameters
-    (bfloat16 training on float32 master weights)."""
+    (bfloat16 training on float32 master weights). ``flash_kv`` None leaves
+    the Stage's default, ``$OPEN_MUSICLM_FLASH_KV``."""
     device = target_device(device, "init_stage")
     factory = {
         "semantic": build_semantic_transformer,
@@ -336,7 +337,8 @@ def init_stage(
     model = factory(mc, generator=torch.Generator().manual_seed(seed))
     model = model.to(device=device, dtype=dtype).eval()
     model.compute_dtype = compute_dtype
-    return Stage(model, name=stage, quantized=quantized, flash_kv=flash_kv)
+    mode = {} if flash_kv is None else {"flash_kv": flash_kv}
+    return Stage(model, name=stage, quantized=quantized, **mode)
 
 
 def stage_example_lengths(mc: MusicLMModelConfig, stage: str) -> tuple:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
@@ -42,9 +43,21 @@ from .stages import Stage
 
 # Encodec decodes at most this many rows * frames per head call; the stem
 # runs once for the whole batch. Chunking is value-identical.
+# $OPEN_MUSICLM_MAX_DECODE_FRAMES overrides it at call time, as in the JAX package.
 MAX_DECODE_FRAMES = 36000
-# at most this many rows (prompts x fine windows) per batched fine decode
+# at most this many rows (prompts x fine windows) per batched fine decode;
+# $OPEN_MUSICLM_MAX_FINE_ROWS overrides it at call time
 MAX_FINE_ROWS = 256
+
+
+def max_decode_frames() -> int:
+    """``$OPEN_MUSICLM_MAX_DECODE_FRAMES``, else ``MAX_DECODE_FRAMES``."""
+    return int(os.environ.get("OPEN_MUSICLM_MAX_DECODE_FRAMES", MAX_DECODE_FRAMES))
+
+
+def max_fine_rows() -> int:
+    """``$OPEN_MUSICLM_MAX_FINE_ROWS``, else ``MAX_FINE_ROWS``."""
+    return int(os.environ.get("OPEN_MUSICLM_MAX_FINE_ROWS", MAX_FINE_ROWS))
 
 
 def unfold_windows(x: torch.Tensor, window: int, step: int) -> torch.Tensor:
@@ -135,14 +148,14 @@ class MusicLM:
         return mesh.all_gather_rows(self._decode_rows(shard_batch(mesh, codes)))
 
     def _decode_rows(self, codes: torch.Tensor) -> torch.Tensor:
-        """Encodec decode with the batch chunked under MAX_DECODE_FRAMES; on
+        """Encodec decode with the batch chunked under ``max_decode_frames()``; on
         the card a row at a time: cuDNN picks its convolution and LSTM
         algorithms by the batch's size, and a row's wave would move by ~1e-6
         with its companions (``chip_smoke.py --probe``)."""
         b, T = codes.shape[0], codes.shape[1]
         if codes.is_cuda and b > 1:
             return torch.cat([self._decode_rows(codes[i:i + 1]) for i in range(b)])
-        rows = max(1, MAX_DECODE_FRAMES // max(T, 1))
+        rows = max(1, max_decode_frames() // max(T, 1))
         if b <= rows:
             return self.codec.decode(codes)
         if rows > 8:
@@ -322,8 +335,8 @@ class MusicLM:
 
         if fine_cond_len == 0 and cond_fine is None and n_windows > 1:
             # non-overlapping windows are independent given coarse + clap: one
-            # batched decode of [windows * b] rows, capped at MAX_FINE_ROWS
-            win_per_call = max(1, MAX_FINE_ROWS // max(b, 1))
+            # batched decode of [windows * b] rows, capped at max_fine_rows()
+            win_per_call = max(1, max_fine_rows() // max(b, 1))
             chunks = []
             for g0 in range(0, n_windows, win_per_call):
                 g1 = min(g0 + win_per_call, n_windows)

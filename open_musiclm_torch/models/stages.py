@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Any, Optional, Sequence
 
 import torch
@@ -68,12 +69,15 @@ class Stage:
     decode (``quant_decode.generate_quantized``), whose ``flash_kv`` picks
     the step: None (per-step attention in plain torch), the flash-decode
     kernel over "bf16" (activation-dtype), "f32" or "int8" cache rows, or
-    "fused" (one kernel launch per layer)."""
+    "fused" (one kernel launch per layer). ``flash_kv`` defaults to
+    ``$OPEN_MUSICLM_FLASH_KV`` (read at construction), as in the JAX
+    package."""
 
     model: TokenConditionedTransformer
     name: str = "stage"
     quantized: bool = False
-    flash_kv: Optional[str] = None
+    flash_kv: Optional[str] = dataclasses.field(
+        default_factory=lambda: os.environ.get("OPEN_MUSICLM_FLASH_KV") or None)
 
     def __post_init__(self):
         self._qparams: Optional[Any] = None
@@ -116,7 +120,9 @@ class Stage:
             # would silently run another path than the one asked for
             raise ValueError(
                 f"flash_kv={self.flash_kv!r} requires quantized=True: the flash "
-                "decode kernel is part of the int8 serving decode."
+                "decode kernel is part of the int8 serving decode. Construct the "
+                "stage with quantized=True, or unset $OPEN_MUSICLM_FLASH_KV / pass "
+                "flash_kv=None for the fp decode."
             )
         cond = list(conditioning_token_ids)
         if mesh is not None:

@@ -45,6 +45,8 @@ what one process drops.
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -118,13 +120,39 @@ def grad_shrink(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
     return x * alpha + x.detach() * (1.0 - alpha)
 
 
+_dropout_warned = False
+
+
+def _warn_dropout_disabled_once() -> None:
+    global _dropout_warned
+    if not _dropout_warned:
+        _dropout_warned = True
+        warnings.warn(
+            "OPEN_MUSICLM_DISABLE_DROPOUT=1: ALL dropout layers are identity for this "
+            "process. This is a benchmarking knob; unset it for real training runs.",
+            stacklevel=3,
+        )
+
+
 def dropout(u: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             channels: Optional[Tuple[int, slice]] = None, axis: int = -1) -> torch.Tensor:
     """Inverted dropout as the JAX package writes it, ``where(keep, u / keep_prob, 0)``,
     with the keep mask drawn from ``generator`` (None: the default generator
     of u's device). ``channels`` (width, slice): u holds that slice of
     ``axis``, which is ``width`` long in the whole tensor; the whole mask is
-    drawn and the slice kept."""
+    drawn and the slice kept. ``$OPEN_MUSICLM_DISABLE_DROPOUT=1`` makes it
+    the identity (no draw), with one warning a process, as the JAX package's
+    ``_dropout``; the attention probabilities' dropout draws through
+    ``_draw_dropout`` and stays, as the JAX package's ``shared_kv_attention``
+    draws its own mask."""
+    if os.environ.get("OPEN_MUSICLM_DISABLE_DROPOUT") == "1":
+        _warn_dropout_disabled_once()
+        return u
+    return _draw_dropout(u, rate, generator, channels, axis)
+
+
+def _draw_dropout(u: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+                  channels: Optional[Tuple[int, slice]] = None, axis: int = -1) -> torch.Tensor:
     keep_prob = 1.0 - rate
     shape = list(u.shape)
     if channels is not None:
@@ -195,7 +223,7 @@ class Attention(nn.Module):
         out = shared_kv_attention(
             q, k, v, scale=self.scale, attn_bias=attn_bias, key_mask=key_mask, causal=True,
             non_causal_prefix=self.non_causal_prefix,
-            dropout=lambda p: dropout(p, self.dropout, generator, heads, axis=1),
+            dropout=lambda p: _draw_dropout(p, self.dropout, generator, heads, axis=1),
         )
         return dropout(self.project_out(out), self.dropout, generator), (k, v)
 

@@ -44,6 +44,10 @@ Randomness (FF dropout, the forgetful causal mask) comes from an explicit
 rank's should be seeded on its own (``Mesh.rank_seed``), or every rank draws
 the same masks over different rows. The ranks of a ``tp`` group must draw
 from the same generator state (``rank_seed`` gives them one).
+
+``train_step`` names its loss, gradient sums and optimizer step as profiler
+ranges (``stage_loss``, ``grad_accumulate``, ``optimizer_step``), which
+``cli/trace_train.py`` reads from a trace.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..checkpoint import load_checkpoint, save_checkpoint
 from ..models.token_cond import (
@@ -204,17 +209,19 @@ class StageTrainer:
         accum = batch[0].shape[0]
         grads, loss_sum = None, None
         for a in range(accum):
-            loss, _ = stage_training_loss(
-                model, [b[a] for b in batch], self.loss_cfg, generator=generator, train=True)
+            with record_function("stage_loss"):
+                loss, _ = stage_training_loss(
+                    model, [b[a] for b in batch], self.loss_cfg, generator=generator, train=True)
             # a parameter outside the loss (the logit head of a sequence with
             # weight 0) gets a zero gradient, as under jax.grad
             micro = torch.autograd.grad(loss, params, materialize_grads=True)
             if grads is None:  # 0 + g == g: the first microbatch starts the sums
                 grads, loss_sum = list(micro), loss.detach()
             else:
-                for g, m in zip(grads, micro):
-                    g.add_(m)
-                loss_sum = loss_sum + loss.detach()
+                with record_function("grad_accumulate"):
+                    for g, m in zip(grads, micro):
+                        g.add_(m)
+                    loss_sum = loss_sum + loss.detach()
         if model.tp_partial:  # replicated parameters of split blocks: a share a rank
             names = [n for n, _ in model.named_parameters()]
             self.mesh.tp_all_reduce_coalesced_([g for g, n in zip(grads, names) if n in model.tp_partial])
@@ -226,7 +233,8 @@ class StageTrainer:
         elif accum > 1:
             grads = [g / accum for g in grads]
             loss_sum = loss_sum / accum
-        state.optimizer.step(grads)
+        with record_function("optimizer_step"):
+            state.optimizer.step(grads)
         state.step += 1
         return state, loss_sum
 
