@@ -183,6 +183,15 @@ Phases, each of which fails the run:
      (b) profile_pipeline at b8 x 4 s, reps 1, in "fused" (picked by
      $OPEN_MUSICLM_FLASH_KV); (c) trace_train, one traced coarse step at b8
      (buckets within 1 % of the device total; kernels 1, 5 and 6 by name).
+ 14. the JAX package's orbax checkpoints: a doll-house MusicLM that the
+     JAX trainers wrote (tests/torch_fixtures/orbax_dollhouse/: three
+     stages, one a TrainState, the RVQ, k-means) read by
+     orbax_io.read_orbax (its time and MB/s printed); each stage's float32
+     teacher-forced logits against JAX's (expected.npz, 1e-4 x max|logit|;
+     kernel 1), the RVQ and centroids bit for bit, the TrainState resumed
+     by StageTrainer.load for one step against JAX's (kernels 1, 5, 6
+     exactly), and MusicLM.generate at b2 x 2 s on the loaded stages in
+     "int8" (kernels 1-4) and "fused" (kernels 1, 4, 7), exactly those.
 Phase 8 also builds musiclm_large itself (30 s semantic, 10 s coarse, 3 s
 fine windows, the fusion CLAP; its stages cut to 8 of their 24 layers) and
 runs generate(text=1 prompt) in "fused" at b1 x 10 s, one whole coarse
@@ -208,7 +217,7 @@ times kernel 4 alone at its phase-2 shapes from the port in the checkout
 ROOT (another commit's, for a comparison within one call) and prints a JSON
 line of its device ms.
 
-    python3 chip_smoke.py --phase8      # or --phase9, --phase10, --phase11, --phase12, --phase13
+    python3 chip_smoke.py --phase8      # or --phase9 to --phase14
 
 builds the kernels and runs that phase alone.
 
@@ -229,6 +238,7 @@ line), for a comparison of two commits within one call.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import inspect
 import json
@@ -1163,6 +1173,11 @@ def main() -> int:
     print(f"chip_smoke: phase 13 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # ---- 13. the tools: serving deviation, pipeline profile, training trace ----
     print(json.dumps({"phase13": tools_phase(torch, omt_config, dev, card, all_counters(), expect)}))
+    torch.cuda.empty_cache()
+
+    print(f"chip_smoke: phase 14 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 14. the JAX package's orbax checkpoints: serve and resume ----
+    print(json.dumps({"phase14": orbax_phase(torch, omt_config, dev, card, all_counters(), expect)}))
 
     print(f"chip_smoke: phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
     summary = {"kernels": [
@@ -4412,6 +4427,190 @@ def tools_phase(torch, omt_config, dev, card, counters, expect, model_config: Pa
     return {"seconds": seconds, "trace_buckets_ms": tr["buckets_ms_per_step"]}
 
 
+# phase 14: the JAX package's orbax checkpoints of a doll-house MusicLM
+# (tests/orbax_fixture.py writes them with the JAX trainers, and the
+# expected.npz beside them with JAX on the CPU)
+ORBAX_FIXTURE = ROOT / "tests" / "torch_fixtures" / "orbax_dollhouse"
+ORBAX_DIRS = {"semantic": "semantic.params", "coarse": "coarse.transformer.2.ckpt", "fine": "fine.params",
+              "rvq": "clap.rvq.1.ckpt", "kmeans": "kmeans.ckpt"}
+# teacher-forced logits: phase 3's 1e-4 x max|logit|; the resumed step: the
+# float32 gradients of two implementations differ by ~1e-6 of their scale,
+# which moves mu (0.1 g) and nu (0.01 g^2) by ~1e-6 of theirs (held to 1e-4
+# x the largest |mu| / |nu| of any tensor), and a parameter by at most lr x
+# that / eps (train.json's eps 1e-2): ~1e-7
+ORBAX_LOGIT_TOL = 1e-4
+ORBAX_MOMENT_TOL = 1e-4
+ORBAX_PARAM_ATOL = 1e-6
+ORBAX_SECONDS = 2  # generate's output: two semantic windows of the doll-house
+
+
+def orbax_fixture_checks(torch, omt_config, dev, counters) -> dict:
+    """Phase 14's comparisons on ``dev`` (also run on the CPU by
+    tests/test_torch_orbax.py): every directory of ORBAX_FIXTURE read by
+    orbax_io.read_orbax (timed); the three stages through load.load_stage
+    (coarse: a JAX TrainState, semantic and fine: bare params), their
+    teacher-forced float32 logits against JAX's; the RVQ and the centroids
+    through load.load_rvq / load.load_kmeans bit for bit; and the coarse
+    TrainState resumed by StageTrainer.load, one step on the .npz's batch
+    against JAX's next step (params, mu, nu, count, step, loss). The kernel
+    counts are set to 0 before the forwards and before the step and read
+    after each. Fails the run where a check fails."""
+    import numpy as np
+
+    from open_musiclm_torch import load
+    from open_musiclm_torch.models.token_cond import StageLossConfig
+    from open_musiclm_torch.orbax_io import read_orbax
+    from open_musiclm_torch.train.trainer import StageTrainer
+
+    exp = np.load(ORBAX_FIXTURE / "expected.npz")
+    mc = omt_config.load_model_config(str(ORBAX_FIXTURE / "model.json"))
+    train = json.loads((ORBAX_FIXTURE / "train.json").read_text())
+    t0 = time.perf_counter()
+    trees = {name: read_orbax(ORBAX_FIXTURE / d) for name, d in ORBAX_DIRS.items()}
+    read_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree] if hasattr(tree, "nbytes") else []
+
+    decoded = sum(int(x.nbytes) for tree in trees.values() for x in leaves(tree))
+    on_disk = sum(p.stat().st_size for d in ORBAX_DIRS.values() for p in (ORBAX_FIXTURE / d).rglob("*") if p.is_file())
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    stages, logit_err = {}, {}
+    reset()
+    for name in ("semantic", "coarse", "fine"):
+        stage = stages[name] = load.load_stage(mc, name, str(ORBAX_FIXTURE / ORBAX_DIRS[name]), 0, device=dev)
+        n = sum(1 for k in exp.files if k.startswith(f"{name}.ids."))
+        ids = [torch.from_numpy(exp[f"{name}.ids.{j}"]).long().to(dev) for j in range(n)]
+        with torch.no_grad():
+            logits = stage.model(ids)
+        for j, got in enumerate(logits):
+            if got is None:
+                continue
+            want = exp[f"{name}.logits.{j}"]
+            err = float(np.abs(got.float().cpu().numpy() - want).max()) / float(np.abs(want).max())
+            logit_err[f"{name}.{j}"] = err
+            if not err <= ORBAX_LOGIT_TOL:
+                fail(f"phase 14: the {name} stage's logits {j} differ from JAX's by {err} x max|logit| "
+                     f"> {ORBAX_LOGIT_TOL}")
+    forward_launches = read()
+    rvq = load.load_rvq(str(ORBAX_FIXTURE / ORBAX_DIRS["rvq"]), mc, None, device=dev)
+    centroids = load.load_kmeans(str(ORBAX_FIXTURE / ORBAX_DIRS["kmeans"]), mc, None)
+    for what, got, want in [(f"rvq.{f}", getattr(rvq, f), exp[f"rvq.{f}"]) for f in rvq._fields] + [
+            ("kmeans.centroids", centroids, exp["kmeans.centroids"])]:
+        if not np.array_equal(got.cpu().numpy(), want):
+            fail(f"phase 14: {what} read by the port differs from JAX's")
+
+    with tempfile.TemporaryDirectory() as folder:
+        model = omt_config.init_stage(mc, "coarse", 7, device=dev).model
+        trainer = StageTrainer(model=model, loss_cfg=StageLossConfig(
+            tuple(train["coarse_loss_weights"]), mask_prob=train["mask_prob"]), lr=train["lr"], wd=train["wd"],
+            lr_warmup=train["lr_warmup"], max_grad_norm=train["max_grad_norm"], results_folder=folder,
+            stage_name="coarse", use_tensorboard=False)
+        state = trainer.load(str(ORBAX_FIXTURE / ORBAX_DIRS["coarse"]))
+    state.optimizer.eps = train["eps"]
+    if (state.step, state.optimizer.count) != (2, 2):
+        fail(f"phase 14: the resumed TrainState is at step {state.step}, count {state.optimizer.count}, want 2, 2")
+    n = sum(1 for k in exp.files if k.startswith("step.batch."))
+    batch = tuple(torch.from_numpy(exp[f"step.batch.{j}"][None]).long() for j in range(n))
+    reset()
+    state, loss = trainer.train_step(state, batch)
+    step_launches = read()
+    names = [k for k, _ in model.named_parameters()]
+    step_err = {"loss": abs(loss.item() - float(exp["step.loss"])) / abs(float(exp["step.loss"]))}
+    for part, tensors in (("mu", state.optimizer.mu), ("nu", state.optimizer.nu)):
+        # on the moment's scale over all tensors: a parameter outside the
+        # loss's reach (a bias softmax cancels) has a moment of rounding noise
+        scale = max(float(np.abs(exp[f"step.{part}.{k}"]).max()) for k in names)
+        step_err[part] = max(float(np.abs(t.cpu().numpy() - exp[f"step.{part}.{k}"]).max())
+                             for k, t in zip(names, tensors)) / scale
+    step_err["params"] = max(float(np.abs(v.cpu().numpy() - exp[f"step.model.{k}"]).max())
+                             for k, v in model.state_dict().items())
+    if not (step_err["loss"] <= 1e-4 and step_err["mu"] <= ORBAX_MOMENT_TOL and step_err["nu"] <= ORBAX_MOMENT_TOL
+            and step_err["params"] <= ORBAX_PARAM_ATOL):
+        fail(f"phase 14: the resumed step differs from JAX's: {step_err} (loss rtol 1e-4, mu / nu "
+             f"{ORBAX_MOMENT_TOL} x max, params {ORBAX_PARAM_ATOL})")
+    if (state.step, state.optimizer.count) != (int(exp["step.step"]), int(exp["step.count"])):
+        fail(f"phase 14: step {state.step} / count {state.optimizer.count} after the resumed step, want "
+             f"{int(exp['step.step'])} / {int(exp['step.count'])}")
+    return {"read_s": read_s, "decoded_bytes": decoded, "on_disk_bytes": on_disk, "logit_err": logit_err,
+            "step_err": step_err, "forward_launches": forward_launches, "step_launches": step_launches,
+            "mc": mc, "stages": stages}
+
+
+def orbax_phase(torch, omt_config, dev, card, counters, expect) -> dict:
+    """Phase 14: the doll-house MusicLM the JAX package trained, read from
+    its orbax directories on the card (orbax_fixture_checks: kernel 1 in the
+    forwards, kernels 1, 5 and 6 in the resumed step, exactly); then
+    MusicLM.generate on its stages in bf16 (load.load_stage, as
+    create_musiclm_from_config loads them) and a seeded Encodec at b2 x
+    ORBAX_SECONDS s, in "int8" (kernels 1-4) and "fused" (kernels 1, 4, 7),
+    exactly those kernels each. Returns the phase's figures."""
+    from open_musiclm_torch import load
+    from open_musiclm_torch.models.musiclm import MusicLM
+
+    t_phase = time.perf_counter()
+    res = orbax_fixture_checks(torch, omt_config, dev, counters)
+    expect("phase 14 forwards", res["forward_launches"], {"prefill_attention"})
+    expect("phase 14 resumed step", res["step_launches"], {"prefill_attention", "attention_bwd", "attention_dbias"})
+    mb = res["decoded_bytes"] / 1e6
+    print(f"phase 14: read_orbax of the fixture's {len(ORBAX_DIRS)} JAX directories: {res['read_s'] * 1e3:.1f} ms, "
+          f"{mb:.3f} MB of arrays ({res['on_disk_bytes'] / 1e6:.3f} MB on disk), {mb / res['read_s']:.1f} MB/s "
+          f"(host) [{card}]", flush=True)
+    print(f"phase 14: teacher-forced float32 logits against JAX's, worst "
+          f"{max(res['logit_err'].values()):.2e} x max|logit| (limit {ORBAX_LOGIT_TOL}); the resumed coarse step "
+          f"{res['step_err']} [{card}]", flush=True)
+
+    mc = res["mc"]
+    g = mc.global_cfg
+    windows = dict(semantic_window_seconds=int(g.semantic_audio_length_seconds),
+                   coarse_window_seconds=int(g.coarse_audio_length_seconds),
+                   fine_window_seconds=int(g.fine_audio_length_seconds))
+    bf16 = torch.bfloat16
+    stages = {name: load.load_stage(mc, name, str(ORBAX_FIXTURE / ORBAX_DIRS[name]), 0, device=dev, dtype=bf16)
+              for name in ("semantic", "coarse", "fine")}
+    codec = omt_config.build_encodec(mc, generator=torch.Generator().manual_seed(4), device=dev).to(bf16)
+    codec.decoder.lstm.float()  # the LSTM stem recurs in float32 (see models/encodec.py)
+    clap = torch.randint(0, mc.clap_rvq_cfg.codebook_size, (2, mc.clap_rvq_cfg.rq_num_quantizers, 1),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    generated = {}
+    for mode, path in (("int8", {"prefill_attention", "flash_decode_step", "fused_ff_apply", "int8_matmul"}),
+                       ("fused", {"prefill_attention", "int8_matmul", "fused_layer_decode_step"})):
+        musiclm = MusicLM(codec=codec, **{f"{name}_stage": dataclasses.replace(st, quantized=True, flash_kv=mode)
+                                          for name, st in stages.items()})
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave = musiclm.generate(clap_token_ids=clap, generator=torch.Generator(device=dev).manual_seed(6),
+                                output_seconds=ORBAX_SECONDS, **windows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        want = (2, ORBAX_SECONDS * codec.sample_rate)
+        if tuple(wave.shape) != want or not torch.isfinite(wave.float()).all():
+            fail(f"phase 14: {mode} generate gave {tuple(wave.shape)} (want {want}) or non-finite samples")
+        expect(f"phase 14 generate {mode}", launches, path)
+        generated[mode] = {"wall_s": wall, "launches": launches}
+        print(f"phase 14: MusicLM.generate {mode} from the JAX checkpoints, b2 x {ORBAX_SECONDS} s: "
+              f"{wall:.2f} s wall [{card}]", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14: {seconds:.1f} s [{card}]", flush=True)
+    return {"seconds": seconds, "read_ms": res["read_s"] * 1e3, "read_mb_per_s": mb / res["read_s"],
+            "decoded_mb": mb, "logit_err": res["logit_err"], "step_err": res["step_err"],
+            "step_launches": res["step_launches"], "generate": generated}
+
+
 def all_counters():
     """Every kernel's launch counter: name -> (wrapper, attribute)."""
     from open_musiclm_torch.ops import launches
@@ -4420,7 +4619,7 @@ def all_counters():
 
 
 def phase_only(n: int) -> int:
-    """Phase 1 (the build) and phase 8, 10, 11, 12 or 13 alone."""
+    """Phase 1 (the build) and phase 8, 10, 11, 12, 13 or 14 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4442,6 +4641,8 @@ def phase_only(n: int) -> int:
         print(json.dumps({"phase11": tp_phase(torch, omt_config, dev, card, all_counters())}))
     elif n == 13:
         print(json.dumps({"phase13": tools_phase(torch, omt_config, dev, card, all_counters(), expect_launches)}))
+    elif n == 14:
+        print(json.dumps({"phase14": orbax_phase(torch, omt_config, dev, card, all_counters(), expect_launches)}))
     elif n in (8, 12):
         mc = omt_config.load_model_config(str(ROOT / "configs" / "model" / "musiclm_small.json"))
         g = mc.global_cfg
@@ -4655,7 +4856,8 @@ if __name__ == "__main__":
         sys.exit(probe_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--phase9":
         sys.exit(phase9_only())
-    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10", "--phase11", "--phase12", "--phase13"):
+    if len(sys.argv) == 2 and sys.argv[1] in ("--phase8", "--phase10", "--phase11", "--phase12", "--phase13",
+                                              "--phase14"):
         sys.exit(phase_only(int(sys.argv[1][len("--phase"):])))
     if len(sys.argv) == 8 and sys.argv[1] == "--dp_rank":
         sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:]))

@@ -371,3 +371,32 @@ def rvq_state(rvq) -> RVQState:
     """A JAX ``RVQState`` (or anything with ``codebooks`` [Q, K, D]) -> the
     port's RVQState, with the EMA training state where ``rvq`` has one."""
     return RVQState(*(None if a is None else _t(a) for a in (getattr(rvq, f, None) for f in RVQState._fields)))
+
+
+def optax_stage_state(opt_state) -> dict:
+    """The parts of a JAX ``StageTrainer``'s optax state (as orbax restores
+    it: NamedTuples as lists or dicts, ``EmptyState`` as None) that the
+    port's ``StageOptimizer`` keeps, and the chain's layout, read from the
+    tree (open_musiclm_tpu/train/optimizer.py:43-49): ``clip`` (a
+    ``clip_by_global_norm`` state before the adam chain), ``decay`` (adamw's
+    masked weight decay in the chain), ``mu`` / ``nu`` (params-shaped trees),
+    ``count`` (adam's step count) and ``schedule_count`` (the warmup
+    schedule's, None for a constant learning rate)."""
+    if not isinstance(opt_state, list) or not 1 <= len(opt_state) <= 2:
+        raise ValueError(f"opt_state is not the JAX StageTrainer's optax chain: {type(opt_state).__name__} "
+                         f"of {len(opt_state) if isinstance(opt_state, list) else '-'}")
+    clip = len(opt_state) == 2
+    if clip and opt_state[0] is not None:
+        raise ValueError(f"opt_state[0] is {opt_state[0]!r}, not clip_by_global_norm's empty state")
+    chain = opt_state[-1]
+    adam = chain[0] if isinstance(chain, list) and chain else None
+    if not isinstance(adam, dict) or set(adam) != {"count", "mu", "nu"}:
+        raise ValueError("the optax chain holds no ScaleByAdamState (count, mu, nu) where adam / adamw keep it")
+    rest = chain[1:]
+    kinds = [frozenset(s) if isinstance(s, dict) else None if s is None else "other" for s in rest]
+    decay = frozenset({"inner_state"}) in kinds  # masked(add_decayed_weights)
+    counts = [s["count"] for s, k in zip(rest, kinds) if k == frozenset({"count"})]  # the schedule
+    if any(k not in (None, frozenset({"inner_state"}), frozenset({"count"})) for k in kinds) or len(counts) > 1:
+        raise ValueError(f"the optax chain after adam holds states this port does not run: {rest}")
+    return {"clip": clip, "decay": decay, "mu": adam["mu"], "nu": adam["nu"], "count": int(adam["count"]),
+            "schedule_count": int(counts[0]) if counts else None}

@@ -64,6 +64,7 @@ import torch
 from torch.profiler import record_function
 
 from ..checkpoint import load_checkpoint, save_checkpoint
+from ..convert import optax_stage_state, stage_state_dict
 from ..models.token_cond import (
     StageLossConfig,
     TokenConditionedTransformer,
@@ -325,12 +326,46 @@ class StageTrainer:
         if self.mesh.is_main:
             save_checkpoint(self.checkpoint_path(step), tree)
 
+    def _from_jax(self, tree: dict, path: str) -> dict:
+        """A JAX ``StageTrainer``'s ``TrainState`` (params, opt_state, step;
+        open_musiclm_tpu/train/trainer.py:310-333) as this trainer's
+        checkpoint: the params, adam's ``mu`` and ``nu`` through the same
+        ``stage_state_dict`` map, in parameter order, and adam's count. The
+        optax chain's layout must be this trainer's optimizer's (clip with
+        ``max_grad_norm``, masked decay with ``wd``, a schedule with
+        ``lr_warmup``), as the JAX trainer's own restore requires."""
+        missing = sorted({"params", "opt_state", "step"} - set(tree))
+        if missing:
+            raise ValueError(f"{path} is not a JAX StageTrainer checkpoint: it has no {missing} "
+                             f"(keys {sorted(tree)})")
+        opt = optax_stage_state(tree["opt_state"])
+        want = {"clip": self.max_grad_norm is not None, "decay": bool(self.wd),
+                "schedule": bool(self.lr_warmup and self.lr_warmup > 0)}
+        got = {"clip": opt["clip"], "decay": opt["decay"], "schedule": opt["schedule_count"] is not None}
+        if got != want:
+            raise ValueError(f"{path}: the JAX optimizer's chain {got} is not this trainer's {want} "
+                             f"(max_grad_norm {self.max_grad_norm}, wd {self.wd}, lr_warmup {self.lr_warmup})")
+        if opt["schedule_count"] is not None and opt["schedule_count"] != opt["count"]:
+            raise ValueError(f"{path}: adam's count {opt['count']} and the schedule's "
+                             f"{opt['schedule_count']} differ")
+        specs, depth = len(self.model.specs), self.model.depth
+        names = [n for n, _ in self.model.named_parameters()]
+        moments = {k: stage_state_dict(opt[k], specs, depth) for k in ("mu", "nu")}
+        return {"model": stage_state_dict(tree["params"], specs, depth),
+                "optimizer": {"mu": [moments["mu"][n] for n in names], "nu": [moments["nu"][n] for n in names],
+                              "count": opt["count"]},
+                "step": int(tree["step"])}
+
     def load(self, path: str) -> TrainState:
-        """A state with this trainer's model restored from ``path``, read on
-        every rank once all ranks reach this call (rank 0's last ``save``
-        has then returned); a ``tp`` mesh takes each rank's part."""
+        """A state with this trainer's model restored from ``path`` (the
+        port's checkpoint file, or the JAX trainer's orbax directory, read
+        through ``_from_jax``), read on every rank once all ranks reach this
+        call (rank 0's last ``save`` has then returned); a ``tp`` mesh takes
+        each rank's part."""
         self.mesh.barrier()
         tree = load_checkpoint(path, map_location=self.device)
+        if Path(path).is_dir():
+            tree = self._from_jax(tree, path)
         load_whole_state_dict(self.model, tree["model"])
         state = self.init_state()
         opt = dict(tree["optimizer"])

@@ -147,6 +147,16 @@ def runs(tmp_path_factory):
                                                jax.random.PRNGKey(step))
             jlosses.append(float(loss))
         out["jax_losses"] = jlosses
+        jtrainer.save(jstate, int(jstate.step))  # an orbax TrainState for the ranks and one process to resume
+        jax_dir = jtrainer.checkpoint_path(int(jstate.step))
+        (tmp / "jax_saved.tmp").write_text(jax_dir)
+        (tmp / "jax_saved.tmp").rename(tmp / "jax_saved")
+        model = tp_stage(**GEOMETRY)
+        model.load_state_dict(sd)
+        state = StageTrainer(model=model, results_folder=str(tmp / "one_jax"), stage_name="tp",
+                             use_tensorboard=False, save_model_every=0, **HP).load(jax_dir)
+        out["one_jax"] = (state.step, {k: v.clone() for k, v in model.state_dict().items()},
+                          [m.clone() for m in state.optimizer.mu])
         mesh = jmake_mesh(dp=4, tp=2)
         fn = jax.jit(lambda p, c, k: j_generate(jmodel, p, [c], k, max_time_steps=4, temperature=0.0))
         out["jax_tokens"] = np.asarray(fn(shard_params(mesh, host),
@@ -259,6 +269,20 @@ def test_tp_checkpoint_is_whole_and_resumes(runs):
         for name, p in rank["remat0"][1].items():
             assert torch.equal(params[name], p), name
         assert all(torch.equal(a, b) for a, b in zip(mu, mu_before))
+
+
+def test_tp_resumes_a_jax_checkpoint(runs):
+    """Both tp ranks read the JAX dp=4 x tp=2 trainer's orbax TrainState
+    (three steps) into a new shard: the whole parameters and adam's mu,
+    gathered, equal one process's StageTrainer.load of the directory."""
+    step, params, mu = runs["one_jax"]
+    assert step == 3
+    for rank in runs[2]:
+        got_step, got_params, got_mu = rank["restored_jax"]
+        assert got_step == 3
+        for name, p in params.items():
+            assert torch.equal(got_params[name], p), name
+        assert len(got_mu) == len(mu) and all(torch.equal(a, b) for a, b in zip(got_mu, mu))
 
 
 def test_dp_tp_step_equals_one_process(runs):

@@ -174,12 +174,14 @@ def tp_rank(rank: int, world: int, init_file: str, folder: str) -> None:
     the trainer with and without remat (and with dropout and the forgetful
     mask on, under remat), a checkpoint written whole and read back into a
     new shard, and (tp 2 alone) the fp decode on the shard: greedy tokens
-    and teacher-forced logits."""
+    and teacher-forced logits, and the JAX tp trainer's orbax TrainState
+    (the parent names it in ``jax_saved`` beside ``folder``) read into a
+    new shard."""
     import torch.distributed as dist
 
     from open_musiclm_torch.models.token_cond import generate
     from open_musiclm_torch.parallel.mesh import make_mesh
-    from open_musiclm_torch.parallel.sharding import gather_state_dict, shard_module
+    from open_musiclm_torch.parallel.sharding import gather_param_tensors, gather_state_dict, shard_module
 
     _join(rank, world, init_file)
     folder = Path(folder)
@@ -206,6 +208,17 @@ def tp_rank(rank: int, world: int, init_file: str, folder: str) -> None:
         out["tokens"] = generate(model, [inputs["cond"]], **kw)
         out["logits"] = generate(model, [inputs["cond"]], teacher_ids=inputs["teacher"], return_logits=True, **kw)[1]
         out["shapes"] = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        # the JAX tp trainer's TrainState directory, once the parent has written it
+        marker = folder.parent / "jax_saved"
+        deadline = time.monotonic() + 180
+        while not marker.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no {marker} after 180 s")
+            time.sleep(0.2)
+        other = tp_train(inputs, mesh, folder / "jax_resume", remat=False, dropout=0.0, batches=[])[2]
+        restored = other.load(marker.read_text())
+        out["restored_jax"] = (restored.step, gather_state_dict(other.model),
+                               gather_param_tensors(other.model, restored.optimizer.mu))
     else:
         out["step"] = tp_train(inputs, mesh, folder / "dp_tp", remat=False, dropout=0.0,
                                batches=inputs["batches"][:1])[:2]
